@@ -9,11 +9,15 @@ It builds the port's CUDA kernels from ``emqx_tpu_torch/ops/csrc`` and
 runs these phases, one JSON line each; any failure exits non-zero:
 
 1. device  — the card's name and power limit;
-2. build   — ``nvcc`` of every kernel source, with its register report;
-3. kernel  — the walk kernel against its plain PyTorch version on the
-   card, bit for bit on the raw accept slots and the spill counts, for
-   D in {4, 8, 16} at A=16 and D=8 at A=2, B in {64, 2048}; then
-   ``nfa_match`` in flat mode on the card against the same call on the
+2. build   — ``nvcc`` of every kernel source (all started together),
+   with each one's register and spill report;
+3. kernel  — each walk kernel (hash: ``nfa_walk``; join:
+   ``nfa_join_walk``) against its plain PyTorch version on the card, bit
+   for bit on the raw accept slots and the spill counts, for D in
+   {4, 8, 16} at A=16 and D=8 at A=2, B in {64, 2048}; the join relation
+   is first churned through a ``DeviceNfa`` with its mirror on, so it
+   holds tombstones and overlay rows.  Then ``nfa_match`` and
+   ``join_match`` in flat mode on the card against the same calls on the
    CPU, all five ``MatchResult`` fields equal;
 4. slice   — the serve core (``MatchService``) over 1M wildcard filters
    of the BASELINE config-2 workload: 16 batches of 2048 topics through
@@ -30,7 +34,16 @@ runs these phases, one JSON line each; any failure exits non-zero:
    run's data; the serve stage breakdown; serve throughput with p50/p99
    over 1000 timed ``serve()`` calls of 2048 topics; the card's busy and
    idle share over 20 ``serve()`` calls from a ``torch.profiler`` trace;
-   table bytes and the spill share of the main path.
+   table bytes and the spill share of the main path;
+6. slice_join — the hash service is dropped, and a ``MatchService`` on
+   the ``join`` backend serves the same 1M filters: 16 batches against
+   the oracle; a churn whose new edges fit the relation's overlay
+   (written in place, no relation rebuild) and 2 batches; 1,000 removes
+   and 1,000 adds, which overflow the overlay (one relation rebuild, no
+   table re-upload without growth) and 4 batches.  Join-kernel launches
+   over this path must equal its join dispatches, and the hash kernel
+   must not launch on it;
+7. times_join — phase 5's readings for the join kernel and service.
 
 The line before the last names every kernel with its numbers; the last
 line is ``{"ok": true, "device": {...}}``.  With no CUDA device the
@@ -42,6 +55,7 @@ result either (a dry run of the control flow).
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -56,8 +70,14 @@ CHURN = 1000                # filters removed, then added
 AFTER_BATCHES = 4           # batches served after the churn
 TIMED_BATCHES = 1000        # serve() calls timed for p50/p99 (phase 5)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-KERNEL_SOURCE = "emqx_tpu_torch/ops/csrc/nfa_walk.cu"
-KERNEL_REPLACES = "emqx_tpu/ops/pallas_match.py:119"
+SMALL_CHURN = (100, 40)     # join path: removes, adds within the overlay
+#: name, source and replaced TPU kernel of each walk kernel
+KERNELS = {
+    "hash": ("nfa_walk", "emqx_tpu_torch/ops/csrc/nfa_walk.cu",
+             "emqx_tpu/ops/pallas_match.py:119"),
+    "join": ("nfa_join_walk", "emqx_tpu_torch/ops/csrc/nfa_join_walk.cu",
+             "emqx_tpu/ops/pallas_match.py:146"),
+}
 EDGE_FILTERS = ["#", "+", "+/+", "$SYS/#", "$SYS/+/x", "x//y", "/", "//#",
                 "a/+/c/#", "d/" + "/".join(["+"] * 14)]
 EDGE_TOPICS = ["$SYS/a/x", "$SYS", "x//y", "/", "//", "a/b/c/d",
@@ -206,10 +226,78 @@ def _operands(torch, inc, topics, depth, B, device):
             for a in arrs]
 
 
-def phase_kernel(torch, device) -> int:
-    """Kernel vs plain on the card; returns the largest |difference|."""
-    from emqx_tpu_torch.ops import IncrementalNfa, nfa_match
-    from emqx_tpu_torch.ops.walk_kernel import nfa_walk, nfa_walk_plain
+def _join_operands(torch, dev, topics, depth, B):
+    """Encoded batch + the device table's node table and join relation:
+    the operands of ``join_walk`` / ``join_match``."""
+    from emqx_tpu_torch.ops import encode_batch
+
+    enc = encode_batch(dev.inc, topics[:B], batch=B, depth=depth)
+    batch = [torch.from_numpy(np.ascontiguousarray(a)).to(dev.device)
+             for a in enc]
+    return batch + [dev.arrays()[0], *dev._jarrs]
+
+
+def _relation_state(dev) -> Dict[str, int]:
+    """Tombstones and overlay rows of a device table's join relation."""
+    from emqx_tpu_torch.ops.join_match import OVERLAY_EMPTY
+
+    start, _word, nxt, overlay = dev._jarrs
+    return {"tombstones": int((nxt[:int(start[-1])] == -1).sum()),
+            "overlay_rows": int((overlay[:, 0] != int(OVERLAY_EMPTY)).sum()),
+            "relation_rows": int(nxt.shape[0])}
+
+
+def _walk_cases(torch, walk, plain, operands) -> List[Dict]:
+    """``walk`` (the kernel) against ``plain`` on the card, bit for bit,
+    at each listed shape; ``operands(depth, B)`` gives the inputs."""
+    cases = []
+    for depth, A in ((4, 16), (8, 16), (16, 16), (8, 2)):
+        for B in (64, BATCH):
+            args = operands(depth, B)
+            acc, aover = walk(*args, active_slots=A)
+            acc_p, aover_p = plain(*args, active_slots=A)
+            torch.cuda.synchronize()
+            err = max(int((acc.long() - acc_p.long()).abs().max()),
+                      int((aover.long() - aover_p.long()).abs().max()))
+            cases.append({"D": depth, "A": A, "B": B, "equal": err == 0,
+                          "max_abs_err": err,
+                          "spilled_rows": int((aover_p > 0).sum()),
+                          "accepts": int((acc_p >= 0).sum())})
+            _check(err == 0, f"{walk.__name__} != plain at D={depth} A={A} "
+                   f"B={B}")
+    _check(any(c["spilled_rows"] for c in cases if c["A"] == 2),
+           "the A=2 case did not spill")
+    return cases
+
+
+def _flat_cases(torch, match, operands) -> List[Dict]:
+    """``match`` in flat mode on the card against the same call on the
+    CPU: all five ``MatchResult`` fields equal."""
+    flat = []
+    for depth, A, K, cap in ((16, 16, 128, 8 * BATCH),
+                             (4, 16, 128, 8 * BATCH), (8, 2, 4, BATCH)):
+        args = operands(depth, BATCH)
+        kw = dict(active_slots=A, max_matches=K, flat_cap=cap)
+        got = match(*args, **kw)
+        want = match(*[a.cpu() for a in args], **kw)
+        for f in ("matches", "n_matches", "active_overflow",
+                  "match_overflow", "row_meta"):
+            _check(torch.equal(getattr(got, f).cpu(), getattr(want, f)),
+                   f"flat {match.__name__} field {f} differs at D={depth} "
+                   f"A={A}")
+        flat.append({"D": depth, "A": A, "K": K, "flat_cap": cap,
+                     "equal": True,
+                     "truncated_rows": int(want.match_overflow.sum())})
+    return flat
+
+
+def phase_kernel(torch, device) -> Dict[str, int]:
+    """Each kernel against its plain version on the card; returns the
+    largest |difference| of each kernel."""
+    from emqx_tpu_torch.ops import (DeviceNfa, IncrementalNfa, join_match,
+                                    nfa_match)
+    from emqx_tpu_torch.ops.walk_kernel import (
+        join_walk, join_walk_plain, nfa_walk, nfa_walk_plain)
     from emqx_tpu_torch.workload import build_workload
 
     filters, topics = build_workload(np.random.default_rng(1), 40000, BATCH)
@@ -220,40 +308,46 @@ def phase_kernel(torch, device) -> int:
         inc.add(f)
     mixed = EDGE_TOPICS + [t for pair in zip(topics, deep_topics)
                            for t in pair]
-    worst = 0
-    cases = []
-    for depth, A in ((4, 16), (8, 16), (16, 16), (8, 2)):
-        for B in (64, BATCH):
-            args = _operands(torch, inc, mixed, depth, B, device)
-            acc, aover = nfa_walk(*args, active_slots=A)
-            acc_p, aover_p = nfa_walk_plain(*args, active_slots=A)
-            torch.cuda.synchronize()
-            err = max(int((acc.long() - acc_p.long()).abs().max()),
-                      int((aover.long() - aover_p.long()).abs().max()))
-            worst = max(worst, err)
-            cases.append({"D": depth, "A": A, "B": B, "equal": err == 0,
-                          "spilled_rows": int((aover_p > 0).sum()),
-                          "accepts": int((acc_p >= 0).sum())})
-            _check(err == 0, f"kernel != plain at D={depth} A={A} B={B}")
-    _check(any(c["spilled_rows"] for c in cases if c["A"] == 2),
-           "the A=2 case did not spill")
-    flat = []
-    for depth, A, K, cap in ((16, 16, 128, 8 * BATCH),
-                             (4, 16, 128, 8 * BATCH), (8, 2, 4, BATCH)):
-        args = _operands(torch, inc, mixed, depth, BATCH, device)
-        kw = dict(active_slots=A, max_matches=K, flat_cap=cap)
-        got = nfa_match(*args, **kw)
-        want = nfa_match(*[a.cpu() for a in args], **kw)
-        for f in ("matches", "n_matches", "active_overflow",
-                  "match_overflow", "row_meta"):
-            _check(torch.equal(getattr(got, f).cpu(), getattr(want, f)),
-                   f"flat nfa_match field {f} differs at D={depth} A={A}")
-        flat.append({"D": depth, "A": A, "K": K, "flat_cap": cap,
-                     "equal": True,
-                     "truncated_rows": int(want.match_overflow.sum())})
-    emit({"phase": "kernel", "ok": True, "states": inc.n_states,
-          "walk_cases": cases, "flat_cases": flat, "tolerance": "exact",
-          "max_abs_err": worst})
+    cases = _walk_cases(torch, nfa_walk, nfa_walk_plain,
+                        lambda d, b: _operands(torch, inc, mixed, d, b,
+                                               device))
+    flat = _flat_cases(torch, nfa_match,
+                       lambda d, b: _operands(torch, inc, mixed, d, b,
+                                              device))
+    worst = {"hash": max(c["max_abs_err"] for c in cases)}
+    emit({"phase": "kernel", "kernel": "nfa_walk", "ok": True,
+          "states": inc.n_states, "walk_cases": cases, "flat_cases": flat,
+          "tolerance": "exact", "max_abs_err": worst["hash"]})
+
+    # the join relation of the same table, churned through the mirror:
+    # removes leave tombstones, re-adds revive them, fresh filters land
+    # in the overlay
+    dev = DeviceNfa(inc, device=device)
+    dev.enable_join()
+    rng = np.random.default_rng(3)
+    live = [f for f in inc.accept_filters if f is not None]
+    gone = [live[i] for i in rng.choice(len(live), 300, replace=False)]
+    for f in gone:
+        _check(inc.remove(f), f"remove {f!r}")
+    for f in gone[:20] + [f"zz{i}/new/+" for i in range(40)]:
+        inc.add(f)
+    rebuilds = dev.join_rebuilds
+    dev.sync()
+    rel = _relation_state(dev)
+    _check(dev.join_rebuilds == rebuilds, "the churn rebuilt the relation")
+    _check(rel["tombstones"] > 0 and rel["overlay_rows"] > 0,
+           f"the churned relation lacks tombstones or overlay rows: {rel}")
+    jtopics = [f"zz{i}/new/x" for i in range(0, 40, 3)] + mixed
+    cases = _walk_cases(torch, join_walk, join_walk_plain,
+                        lambda d, b: _join_operands(torch, dev, jtopics, d,
+                                                    b))
+    flat = _flat_cases(torch, join_match,
+                       lambda d, b: _join_operands(torch, dev, jtopics, d,
+                                                   b))
+    worst["join"] = max(c["max_abs_err"] for c in cases)
+    emit({"phase": "kernel", "kernel": "nfa_join_walk", "ok": True,
+          "relation": rel, "walk_cases": cases, "flat_cases": flat,
+          "tolerance": "exact", "max_abs_err": worst["join"]})
     return worst
 
 
@@ -263,80 +357,117 @@ def _serve_checked(svc, trie, batch) -> int:
     return sum(set(row) != set(trie.match(t)) for t, row in zip(batch, got))
 
 
-def phase_slice(torch, device, n_filters: int) -> Dict:
-    from emqx_tpu_torch.broker.match_service import MatchService
-    from emqx_tpu_torch.broker.trie import FilterTrie
-    from emqx_tpu_torch.ops import walk_kernel
-    from emqx_tpu_torch.workload import build_workload
-
-    n_topics = (SERVE_BATCHES + AFTER_BATCHES) * BATCH
+def _sync(torch, device, svc) -> float:
     t0 = time.perf_counter()
-    filters, topics = build_workload(np.random.default_rng(0), n_filters,
-                                     n_topics)
-    t1 = time.perf_counter()
-    svc = MatchService(device=device)
-    for f in filters:
-        svc.add(f)
-    t2 = time.perf_counter()
     svc.sync()
     if device.type == "cuda":
         torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _build_service(torch, device, n_filters: int, n_batches: int,
+                   backend: str):
+    """A ``MatchService`` on ``backend`` over the BASELINE config-2
+    filters (seed 0) and its trie oracle; emits the build line."""
+    from emqx_tpu_torch.broker.match_service import MatchService
+    from emqx_tpu_torch.broker.trie import FilterTrie
+    from emqx_tpu_torch.workload import build_workload
+
+    t0 = time.perf_counter()
+    filters, topics = build_workload(np.random.default_rng(0), n_filters,
+                                     n_batches * BATCH)
+    t1 = time.perf_counter()
+    svc = MatchService(device=device, backend=backend)
+    for f in filters:
+        svc.add(f)
+    t2 = time.perf_counter()
+    upload_s = _sync(torch, device, svc)
     t3 = time.perf_counter()
     trie = FilterTrie()
     for f in filters:
         trie.insert(f)
     node, edge, seeds = svc.dev.arrays()
-    emit({"phase": "slice_build", "ok": True, "filters": len(filters),
-          "states": svc.inc.n_states, "edges": svc.inc.n_edges,
-          "S": svc.inc.S, "Hb": svc.inc.Hb,
-          "node_bytes": node.numel() * 4, "edge_bytes": edge.numel() * 4,
-          "table_bytes": svc.dev.table_bytes,
-          "workload_s": t1 - t0, "host_build_s": t2 - t1,
-          "upload_s": t3 - t2, "oracle_build_s": time.perf_counter() - t3})
+    info = {"phase": "slice_build" if backend == "hash" else
+            "slice_join_build", "ok": True, "backend": backend,
+            "filters": len(filters), "states": svc.inc.n_states,
+            "edges": svc.inc.n_edges, "S": svc.inc.S, "Hb": svc.inc.Hb,
+            "node_bytes": node.numel() * 4, "edge_bytes": edge.numel() * 4,
+            "table_bytes": svc.dev.table_bytes, "workload_s": t1 - t0,
+            "host_build_s": t2 - t1, "upload_s": upload_s,
+            "oracle_build_s": time.perf_counter() - t3}
+    if svc.dev._jarrs is not None:
+        info["relation_bytes"] = sum(a.numel() * 4 for a in svc.dev._jarrs)
+        info["relation"] = _relation_state(svc.dev)
+    emit(info)
+    return svc, trie, filters, topics
 
-    # -- the main path: counts zeroed just before, read just after -------
-    walk_kernel.launches = 0
-    d0 = svc.dispatches
-    bad = 0
-    for i in range(SERVE_BATCHES):
-        bad += _serve_checked(svc, trie, topics[i * BATCH:(i + 1) * BATCH])
-    rng = np.random.default_rng(1)
-    gone = [filters[i] for i in rng.choice(len(filters), CHURN,
-                                           replace=False)]
+
+def _fresh_filters(filters, n: int, seed: int) -> List[str]:
+    """``n`` workload filters that ``filters`` does not hold."""
+    from emqx_tpu_torch.workload import build_workload
+
     have = set(filters)
-    extra, _ = build_workload(np.random.default_rng(2), 4 * CHURN, 0)
-    fresh = [f for f in extra if f not in have][:CHURN]
-    _check(len(fresh) == CHURN, "churn workload too small")
-    uploads0, key0 = svc.dev.uploads, svc.inc.shape_key()
+    extra, _ = build_workload(np.random.default_rng(seed), 4 * n, 0)
+    fresh = list(dict.fromkeys(f for f in extra if f not in have))[:n]
+    _check(len(fresh) == n, "churn workload too small")
+    return fresh
+
+
+def _churn(torch, device, svc, trie, gone, fresh) -> float:
+    """Remove ``gone`` and add ``fresh`` in the service and the oracle,
+    then sync; returns the sync seconds."""
     for f in gone:
         _check(svc.remove(f), f"remove {f!r}")
         trie.delete(f)
     for f in fresh:
         _check(svc.add(f), f"add {f!r}")
         trie.insert(f)
-    t0 = time.perf_counter()
-    svc.sync()
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    sync_s = time.perf_counter() - t0
+    return _sync(torch, device, svc)
+
+
+def _serve_batches(svc, trie, topics, first: int, count: int) -> int:
+    bad = 0
+    for i in range(first, first + count):
+        bad += _serve_checked(svc, trie, topics[i * BATCH:(i + 1) * BATCH])
+    return bad
+
+
+def phase_slice(torch, device, n_filters: int) -> Dict:
+    from emqx_tpu_torch.ops import walk_kernel
+
+    svc, trie, filters, topics = _build_service(
+        torch, device, n_filters, SERVE_BATCHES + AFTER_BATCHES, "hash")
+
+    # -- the main path: counts zeroed just before, read just after -------
+    walk_kernel.launches = 0
+    walk_kernel.join_launches = 0
+    d0 = svc.dispatches
+    bad = _serve_batches(svc, trie, topics, 0, SERVE_BATCHES)
+    rng = np.random.default_rng(1)
+    gone = [filters[i] for i in rng.choice(len(filters), CHURN,
+                                           replace=False)]
+    fresh = _fresh_filters(filters, CHURN, 2)
+    uploads0, key0 = svc.dev.uploads, svc.inc.shape_key()
+    sync_s = _churn(torch, device, svc, trie, gone, fresh)
     grew = svc.inc.shape_key() != key0
     _check(grew or svc.dev.uploads == uploads0,
            "churn re-uploaded the tables without growth")
-    lo = SERVE_BATCHES * BATCH
-    for i in range(AFTER_BATCHES):
-        bad += _serve_checked(svc, trie,
-                              topics[lo + i * BATCH:lo + (i + 1) * BATCH])
+    bad += _serve_batches(svc, trie, topics, SERVE_BATCHES, AFTER_BATCHES)
     launches = walk_kernel.launches
+    join_launches = walk_kernel.join_launches
     dispatches = svc.dispatches - d0
     # ---------------------------------------------------------------------
     _check(bad == 0, f"{bad} served answers differ from the trie oracle")
     if device.type == "cuda":
         _check(launches == dispatches > 0,
                f"kernel launches {launches} != walk dispatches {dispatches}")
+        _check(join_launches == 0, "the join kernel ran on the hash path")
     info = {"phase": "slice", "ok": bad == 0, "served_topics": svc.topics,
             "batches": SERVE_BATCHES + AFTER_BATCHES,
             "mismatches": bad, "walk_dispatches": dispatches,
-            "kernel_launches": launches, "churn_removed": len(gone),
+            "kernel_launches": launches,
+            "join_kernel_launches": join_launches,
+            "churn_removed": len(gone),
             "churn_added": len(fresh), "churn_sync_s": sync_s,
             "churn_grew_table": grew, "uploads": svc.dev.uploads,
             "delta_applies": svc.dev.delta_applies,
@@ -346,27 +477,125 @@ def phase_slice(torch, device, n_filters: int) -> Dict:
             "spill_share": svc.fallback_host / svc.topics}
 
 
+def phase_slice_join(torch, device, n_filters: int) -> Dict:
+    """The join backend's serve path at 1M filters, through a churn that
+    fits the overlay and one that overflows it."""
+    from emqx_tpu_torch.ops import walk_kernel
+
+    n_small = 2
+    svc, trie, filters, topics = _build_service(
+        torch, device, n_filters, SERVE_BATCHES + n_small + AFTER_BATCHES,
+        "join")
+    dev = svc.dev
+
+    # -- the main path: counts zeroed just before, read just after -------
+    walk_kernel.launches = 0
+    walk_kernel.join_launches = 0
+    d0, j0 = svc.dispatches, svc.join_dispatches
+    bad = _serve_batches(svc, trie, topics, 0, SERVE_BATCHES)
+    rng = np.random.default_rng(4)
+    order = rng.permutation(len(filters))
+    n_rm, n_add = SMALL_CHURN
+    gone_small = [filters[i] for i in order[:n_rm]]
+    gone_big = [filters[i] for i in order[n_rm:n_rm + CHURN]]
+    fresh = _fresh_filters(filters, n_add + CHURN, 5)
+    # 1. new edges that fit the overlay: written in place
+    rebuilds0, uploads0 = dev.join_rebuilds, dev.uploads
+    small_s = _churn(torch, device, svc, trie, gone_small, fresh[:n_add])
+    rel_small = _relation_state(dev)
+    _check(dev.join_rebuilds == rebuilds0 and dev.uploads == uploads0,
+           "the in-overlay churn rebuilt the relation or the tables")
+    _check(rel_small["overlay_rows"] > 0 and rel_small["tombstones"] > 0,
+           f"the in-overlay churn left no overlay rows or tombstones: "
+           f"{rel_small}")
+    bad += _serve_batches(svc, trie, topics, SERVE_BATCHES, n_small)
+    # 2. 1000 removes + 1000 adds: the overlay overflows, one rebuild
+    key1 = svc.inc.shape_key()
+    big_s = _churn(torch, device, svc, trie, gone_big, fresh[n_add:])
+    grew = svc.inc.shape_key() != key1
+    rel_big = _relation_state(dev)
+    _check(dev.join_rebuilds > rebuilds0,
+           "the overflowing churn did not rebuild the relation")
+    _check(grew or dev.uploads == uploads0,
+           "the overflowing churn re-uploaded the tables without growth")
+    bad += _serve_batches(svc, trie, topics, SERVE_BATCHES + n_small,
+                          AFTER_BATCHES)
+    launches = walk_kernel.join_launches
+    hash_launches = walk_kernel.launches
+    dispatches = svc.dispatches - d0
+    join_dispatches = svc.join_dispatches - j0
+    # ---------------------------------------------------------------------
+    _check(bad == 0, f"{bad} served answers differ from the trie oracle")
+    _check(join_dispatches == dispatches, "a dispatch left the join backend")
+    if device.type == "cuda":
+        _check(launches == join_dispatches > 0,
+               f"join kernel launches {launches} != join dispatches "
+               f"{join_dispatches}")
+        _check(hash_launches == 0, "the hash kernel ran on the join path")
+    emit({"phase": "slice_join", "ok": True, "served_topics": svc.topics,
+          "batches": SERVE_BATCHES + n_small + AFTER_BATCHES,
+          "mismatches": bad, "join_dispatches": join_dispatches,
+          "join_kernel_launches": launches,
+          "hash_kernel_launches": hash_launches,
+          "small_churn": {"removed": n_rm, "added": n_add, "sync_s": small_s,
+                          "relation": rel_small},
+          "big_churn": {"removed": len(gone_big), "added": CHURN,
+                        "sync_s": big_s, "grew_table": grew,
+                        "relation": rel_big},
+          "join_rebuilds": dev.join_rebuilds, "uploads": dev.uploads,
+          "delta_applies": dev.delta_applies,
+          "host_reruns": svc.fallback_host})
+    return {"svc": svc, "topics": topics, "launches": launches,
+            "spill_share": svc.fallback_host / svc.topics}
+
+
 def _pct(xs, q) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
 
-def _walk_bytes(traffic: Dict[str, int], depth: int, A: int) -> int:
-    """Bytes the walk must move on one 2048-row batch: the table rows its
-    valid slots gather (16 B node row, 32 B bucket row) plus the row I/O
-    (words, lens, is_sys, seeds in; acc, aover out)."""
+def _io_bytes(depth: int, A: int) -> int:
+    """Row I/O of one 2048-row walk: words, lens, is_sys in; acc, aover
+    out."""
     from emqx_tpu_torch.ops.walk_kernel import accept_cols
 
-    io = (BATCH * depth * 4 + BATCH * 4 + BATCH + 8
-          + BATCH * accept_cols(depth, A) * 4 + BATCH * 4)
-    return traffic["node_rows"] * 16 + traffic["bucket_rows"] * 32 + io
+    return (BATCH * depth * 4 + BATCH * 4 + BATCH
+            + BATCH * accept_cols(depth, A) * 4 + BATCH * 4)
 
 
-def phase_times(torch, device, s: Dict, card: str) -> List[Dict]:
-    from emqx_tpu_torch.ops.walk_kernel import nfa_walk, nfa_walk_plain
+def _walk_bytes(traffic: Dict[str, int], depth: int, A: int) -> int:
+    """Bytes the hash walk must move on one 2048-row batch: the table
+    rows its valid slots gather (16 B node row, 32 B bucket row), the
+    two seeds and the row I/O."""
+    return (traffic["node_rows"] * 16 + traffic["bucket_rows"] * 32 + 8
+            + _io_bytes(depth, A))
+
+
+def _join_bytes(traffic: Dict[str, int], depth: int, A: int) -> int:
+    """Bytes the join walk must move on one 2048-row batch: per valid
+    slot and step a 16 B node row; per lookup an 8 B CSR bound pair,
+    4 B per ``edge_word`` probe and 4 B of ``edge_next`` on a hit; the
+    3 KB overlay once; and the row I/O."""
+    from emqx_tpu_torch.ops.walk_kernel import OVERLAY_CAP
+
+    return (traffic["node_rows"] * 16 + traffic["csr_pairs"] * 8
+            + traffic["word_probes"] * 4 + traffic["next_reads"] * 4
+            + OVERLAY_CAP * 12 + _io_bytes(depth, A))
+
+
+def phase_times(torch, device, s: Dict, card: str,
+                backend: str = "hash") -> List[Dict]:
+    from emqx_tpu_torch.ops.walk_kernel import (
+        join_walk, join_walk_plain, nfa_walk, nfa_walk_plain)
 
     svc, topics = s["svc"], s["topics"]
     time_ms = timer(torch, device)
     node, edge, seeds = svc.dev.arrays()
+    if backend == "hash":
+        walk, plain, nbytes_of = nfa_walk, nfa_walk_plain, _walk_bytes
+        tables = (node, edge, seeds)
+    else:
+        walk, plain, nbytes_of = join_walk, join_walk_plain, _join_bytes
+        tables = (node, *svc.dev._jarrs)
     A = svc.dev.active_slots
     long_t = [t for t in topics if t.count("/") >= svc.short_depth]
     short_t = [t for t in topics if t.count("/") < svc.short_depth]
@@ -379,43 +608,44 @@ def phase_times(torch, device, s: Dict, card: str) -> List[Dict]:
         # the serve path walks a new batch each call
         n_dist = len(pool) // BATCH
         _check(n_dist >= 2, f"fewer than 2 distinct batches at D={depth}")
-        batches, nbytes = [], []
+        batches, nbytes, traffics = [], [], []
         for i in range(n_dist):
             w, ln, sy = _operands(torch, svc.inc, pool[i * BATCH:],
                                   depth, BATCH, device)[:3]
-            args = (w, ln, sy, node, edge, seeds)
+            args = (w, ln, sy, *tables)
             traffic: Dict[str, int] = {}
-            acc_p, aover_p = nfa_walk_plain(*args, active_slots=A,
-                                            traffic=traffic)
-            acc, aover = nfa_walk(*args, active_slots=A)
+            acc_p, aover_p = plain(*args, active_slots=A, traffic=traffic)
+            acc, aover = walk(*args, active_slots=A)
             # the main path's own shapes and 1M-filter table: exact
             err = max(int((acc.long() - acc_p.long()).abs().max()),
                       int((aover.long() - aover_p.long()).abs().max()))
             _check(err == 0,
-                   f"kernel != plain on the served table at D={depth}")
+                   f"{walk.__name__} != plain on the served table at "
+                   f"D={depth}")
             batches.append(args)
-            nbytes.append(_walk_bytes(traffic, depth, A))
+            traffics.append(traffic)
+            nbytes.append(nbytes_of(traffic, depth, A))
         turn = [0]
 
         def rotate():
             turn[0] += 1
-            nfa_walk(*batches[turn[0] % n_dist], active_slots=A)
+            walk(*batches[turn[0] % n_dist], active_slots=A)
 
-        warm = time_ms(lambda: nfa_walk(*batches[0], active_slots=A), 200)
+        warm = time_ms(lambda: walk(*batches[0], active_slots=A), 200)
         rot = time_ms(rotate, 20 * n_dist)
         cold = time_ms(rotate, 4 * n_dist, before=flush)
 
-        def plain():
-            nfa_walk_plain(*batches[0], active_slots=A)
+        def plain_call():
+            plain(*batches[0], active_slots=A)
 
-        pt = time_ms(plain, 2)
+        pt = time_ms(plain_call, 2)
         plain_timing = "host loop"
         if device.type == "cuda":
             # over a thousand small launches per call at D=16, more than
             # the driver queues ahead of a sleep: replayed from a CUDA
             # graph instead, so the host's launch rate stays out of it
             call_ms = pt["call_ms"]
-            pt = time_ms(graph_replay(torch, plain), 20)
+            pt = time_ms(graph_replay(torch, plain_call), 20)
             pt["call_ms"] = call_ms
             plain_timing = "cuda graph replay"
         _check(device.type != "cuda" or all(
@@ -430,6 +660,8 @@ def phase_times(torch, device, s: Dict, card: str) -> List[Dict]:
             "bound_ms": float(np.mean(nbytes)) / HBM_BYTES_PER_S * 1e3,
             "bound_bytes": float(np.mean(nbytes)),
             "warm_bound_ms": nbytes[0] / HBM_BYTES_PER_S * 1e3,
+            "traffic_mean": {k: float(np.mean([t[k] for t in traffics]))
+                             for k in traffics[0]},
             "max_abs_err": 0})
     flush = None
     stages = _stage_breakdown(torch, device, svc, topics)
@@ -445,7 +677,8 @@ def phase_times(torch, device, s: Dict, card: str) -> List[Dict]:
         busy = device_busy(torch, lambda: [
             svc.serve(topics[i * BATCH:(i + 1) * BATCH])
             for i in range(n_batches)])
-    emit({"phase": "times", "ok": True, "card": card, "walk": shapes,
+    emit({"phase": "times" if backend == "hash" else "times_join",
+          "ok": True, "card": card, "backend": backend, "walk": shapes,
           "serve_topics_per_s": len(lat) * BATCH / sum(lat),
           "serve_p50_ms": _pct(lat, 50) * 1e3,
           "serve_p99_ms": _pct(lat, 99) * 1e3, "serve_samples": len(lat),
@@ -486,11 +719,30 @@ def _stage_breakdown(torch, device, svc, topics) -> Dict[str, float]:
     return acc
 
 
+def _kernel_entry(backend: str, launches: int, max_err: int,
+                  shapes: List[Dict]) -> Dict:
+    """One kernel's entry of the kernels line: the main path's launches,
+    the serve shape's (B=2048, D=16) times and bound, every shape."""
+    name, source, replaces = KERNELS[backend]
+    main_shape = shapes[0]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(max_err, *(x["max_abs_err"] for x in shapes)),
+        "ms": main_shape["ms"], "ms_cold": main_shape["ms_cold"],
+        "ms_warm": main_shape["ms_warm"],
+        "plain_ms": main_shape["plain_ms"],
+        "plain_covered": main_shape["plain_covered"],
+        "plain_timing": main_shape["plain_timing"],
+        "bound_ms": main_shape["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "shapes": shapes}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--filters", type=int, default=1_000_000)
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="dry run of phases 4-5 on the CPU; prints no result")
+                    help="dry run of phases 4-7 on the CPU; prints no result")
     args = ap.parse_args(argv)
 
     import torch
@@ -508,6 +760,7 @@ def main(argv=None) -> int:
     try:
         card = "not measured (CPU rehearsal)"
         kind = "cpu"
+        max_err = {"hash": 0, "join": 0}
         if device.type == "cuda":
             card = nvidia_smi()
             kind = torch.cuda.get_device_name(0)
@@ -520,17 +773,26 @@ def main(argv=None) -> int:
             emit({"phase": "build", "ok": True,
                   "seconds": time.perf_counter() - t0, "per_source_s": took,
                   "built": sorted(took),
-                  "ptxas": [ln.strip() for name in took
-                            for ln in cuda_build.ptxas_log(name).splitlines()
-                            if "registers" in ln or "spill" in ln]})
+                  "ptxas": {name: [
+                      ln.strip()
+                      for ln in cuda_build.ptxas_log(name).splitlines()
+                      if "registers" in ln or "spill" in ln]
+                      for name in took}})
             phase = "kernel"
             max_err = phase_kernel(torch, device)
-        else:
-            max_err = 0
         phase = "slice"
         s = phase_slice(torch, device, args.filters)
         phase = "times"
         shapes = phase_times(torch, device, s, card)
+        hash_launches = s["launches"]
+        # one 1M-filter table in host memory at a time
+        s = None
+        gc.collect()
+        phase = "slice_join"
+        s = phase_slice_join(torch, device, args.filters)
+        phase = "times_join"
+        join_shapes = phase_times(torch, device, s, card, backend="join")
+        join_launches = s["launches"]
     except Exception as e:  # any failed phase: report it and fail the run
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}"})
@@ -538,19 +800,10 @@ def main(argv=None) -> int:
     if device.type != "cuda":
         print("chip_smoke: CPU rehearsal finished; no result", file=sys.stderr)
         return 3
-    main_shape = shapes[0]
     print(card, flush=True)
-    emit({"kernels": [{
-        "name": "nfa_walk", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": s["launches"],
-        "max_abs_err": max(max_err, *(x["max_abs_err"] for x in shapes)),
-        "ms": main_shape["ms"], "ms_cold": main_shape["ms_cold"],
-        "ms_warm": main_shape["ms_warm"],
-        "plain_ms": main_shape["plain_ms"],
-        "plain_covered": main_shape["plain_covered"],
-        "plain_timing": main_shape["plain_timing"],
-        "bound_ms": main_shape["bound_ms"], "bound_by": "bytes",
-        "library_ms": None, "shapes": shapes}]})
+    emit({"kernels": [
+        _kernel_entry("hash", hash_launches, max_err["hash"], shapes),
+        _kernel_entry("join", join_launches, max_err["join"], join_shapes)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

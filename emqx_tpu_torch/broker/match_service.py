@@ -20,6 +20,10 @@ stages, with their names:
 
 Filter upkeep goes through :meth:`add` / :meth:`remove` and
 :meth:`sync`; ``serve`` answers against the table as of the last sync.
+``backend`` picks the walk, as the reference's ``match.backend`` does:
+``hash`` (the cuckoo-probe kernel) or ``join`` / ``join-pallas`` (the
+join kernel over the sorted edge relation, which the device table then
+mirrors).
 The reference's asyncio loops, deadline scheduler, pipeline, breaker,
 autotuner, segments and mesh are not part of this core.  Nothing here
 stands in for a failing kernel: a kernel error propagates to the caller.
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from .. import topic as T
-from ..ops.device_table import DeviceNfa
+from ..ops.device_table import JOIN_BACKENDS, DeviceNfa, check_backend
 from ..ops.encode import encode_batch
 from ..ops.incremental import IncrementalNfa
 from ..ops.match_kernel import SERVE_FLAT_MULT, decode_flat
@@ -55,14 +59,18 @@ class MatchService:
     batches matched on the device with host fail-open for spilled rows.
     Defaults are the node's (``tpu.max_levels`` 16, ``tpu.short_depth``
     4, ``tpu.split_min`` 256, ``tpu.active_slots`` 16,
-    ``tpu.max_matches`` 128, ``tpu.batch_size`` 2048)."""
+    ``tpu.max_matches`` 128, ``tpu.batch_size`` 2048, ``match.backend``
+    hash)."""
 
     FLAT_MULT = SERVE_FLAT_MULT
 
     def __init__(self, depth: int = 16, active_slots: int = 16,
                  max_matches: int = 128, short_depth: int = 4,
                  split_min: int = 256, max_batch: int = 2048,
-                 device: Union[None, str, torch.device] = None) -> None:
+                 device: Union[None, str, torch.device] = None,
+                 backend: str = "hash") -> None:
+        check_backend(backend)
+        self.backend = backend
         self.depth = depth
         self.short_depth = short_depth
         self.split_min = split_min
@@ -71,11 +79,15 @@ class MatchService:
         self.dev = DeviceNfa(self.inc, active_slots=active_slots,
                              max_matches=max_matches, device=device,
                              lazy=True)
+        if backend in JOIN_BACKENDS:
+            self.dev.enable_join()
         self._deep: Dict[str, int] = {}    # too-deep filter -> alias aid
         self._deep_trie = FilterTrie()     # host match for too-deep filters
         self._routing_aids: Set[int] = set()
-        # counters: walk dispatches, served batches/topics, host re-runs
+        # counters: walk dispatches (join_dispatches: those of a join
+        # backend), served batches/topics, host re-runs
         self.dispatches = 0
+        self.join_dispatches = 0
         self.batches = 0
         self.topics = 0
         self.fallback_host = 0
@@ -161,8 +173,11 @@ class MatchService:
             enc = encode_batch(self.inc, [topics[i] for i in idx],
                                batch=_bucket(len(idx)), depth=d)
             res = self.dev.match(*self.dev.put_batch(*enc),
-                                 flat_cap=self.FLAT_MULT * enc[0].shape[0])
+                                 flat_cap=self.FLAT_MULT * enc[0].shape[0],
+                                 backend=self.backend)
             self.dispatches += 1
+            if self.backend in JOIN_BACKENDS:
+                self.join_dispatches += 1
             handles.append((res, len(idx)))
         return handles
 

@@ -4,7 +4,11 @@
 ``seeds`` arrays, accept-id table and vocab in a read-only host table
 and uploads it as the port's :class:`~emqx_tpu_torch.ops.device_table
 .DeviceNfa`, so a table compiled by the JAX package answers through the
-port's walk.  The layouts are the same, so nothing is converted.
+port's walk.  With ``join``, the reference's join relation (its
+``JoinRelation.arrays()``: ``state_start, edge_word, edge_next,
+overlay``) is mirrored as it is, tombstones and overlay rows included,
+so that a relation the reference built and churned answers through the
+port's join kernel.  The layouts are the same, so nothing is converted.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from .ops.device_table import DeviceNfa
+from .ops.join_match import JoinRelation
 from .ops.incremental import NfaDelta
 
 __all__ = ["FrozenTable", "from_reference"]
@@ -53,9 +58,17 @@ class FrozenTable:
 def from_reference(node_tab, edge_tab, seeds, accept_filters, vocab,
                    device: Union[None, str, torch.device] = None, *,
                    depth: int = 16, active_slots: int = 16,
-                   max_matches: int = 32) -> DeviceNfa:
-    """The port's resident table, uploaded from the reference's arrays."""
+                   max_matches: int = 32, join=None) -> DeviceNfa:
+    """The port's resident table, uploaded from the reference's arrays;
+    with ``join`` (the reference relation's four arrays), its join
+    relation mirrored too.  Raises ValueError for a relation whose
+    shapes do not fit the table or whose overlay is not sorted."""
     table = FrozenTable(node_tab, edge_tab, seeds, accept_filters, vocab,
                         depth)
-    return DeviceNfa(table, active_slots=active_slots,
-                     max_matches=max_matches, device=device)
+    dev = DeviceNfa(table, active_slots=active_slots,
+                    max_matches=max_matches, device=device)
+    if join is not None:
+        dev.enable_join(seed=JoinRelation(
+            int(table.node_tab.shape[0]), table.edge_tab,
+            arrays=tuple(np.asarray(a) for a in join)))
+    return dev

@@ -7,19 +7,10 @@
 // acc (B, C) int32 with C = sum_t 2*w_t (w_0 = 1, w_{t+1} = min(2*w_t, A)),
 // and aover (B,) int32, the per-row active-set spill.
 //
-// Per step t of row r, for each active slot j (w_t slots):
-//   * a valid slot (state >= 0) loads its 16 B node row
-//     [plus_child, hash_accept, accept, 0];
-//   * acc[col + j]       = hash_accept  (-1 at t = 0 for $-topics)
-//     acc[col + w + j]   = accept if t == len else -1;
-//   * for t < min(D, len): cand[j] = literal edge from two cuckoo probes
-//     (32 B bucket rows of 2 [state, word, next, 0] slots, the max over
-//     matching slots), cand[w + j] = plus_child (-1 at t = 0 for
-//     $-topics);
-//   * invalid slots emit -1 everywhere and load nothing.
-// Then the next active set is cand itself when 2*w <= A, else the A
-// largest candidates in descending order (lax.top_k), with the dropped
-// valid candidates added to the row's spill.
+// The walk itself is nfa::walk_row (walk_common.cuh); this file holds
+// the lookup: for t < min(D, len), the literal edge of a valid slot comes
+// from two cuckoo probes (32 B bucket rows of 2 [state, word, next, 0]
+// slots, the max over matching slots).
 //
 // What bounds it on the H100: the random 16 B node-row and 2 x 32 B
 // bucket-row gathers, one set per valid slot and step, each a separate
@@ -34,10 +25,8 @@
 // possible.  A warp per row (or a thread per row and slot) would put
 // more gathers in flight.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "walk_common.cuh"
 
-#define NFA_MAX_A 32
 #define NFA_BLOCK 32
 
 namespace {
@@ -62,6 +51,15 @@ __device__ __forceinline__ int probe(const int4* __restrict__ edge,
   return best;
 }
 
+struct CuckooLookup {
+  const int4* edge;
+  uint32_t seed0, seed1, mask;
+  __device__ __forceinline__ int operator()(int s, int word) const {
+    return max(probe(edge, bucket_hash(s, word, seed0) & mask, s, word),
+               probe(edge, bucket_hash(s, word, seed1) & mask, s, word));
+  }
+};
+
 __global__ void __launch_bounds__(NFA_BLOCK)
 nfa_walk_kernel(const int* __restrict__ words, const int* __restrict__ lens,
                 const uint8_t* __restrict__ is_sys,
@@ -72,70 +70,10 @@ nfa_walk_kernel(const int* __restrict__ words, const int* __restrict__ lens,
                 int* __restrict__ aover) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= B) return;
-
-  int active[NFA_MAX_A];
-  int cand[2 * NFA_MAX_A];
-  const int len = lens[r];
-  const bool sys = is_sys[r] != 0;
-  const uint32_t seed0 = (uint32_t)seeds[0];
-  const uint32_t seed1 = (uint32_t)seeds[1];
-  const int* row_words = words + (size_t)r * D;
-  int* out = acc + (size_t)r * C;
-
-  int w = 1;
-  active[0] = 0;  // {root}
-  int col = 0;
-  int spill = 0;
-  for (int t = 0; t <= D; ++t) {
-    const bool step = t < D && t < len;
-    const int word = step ? row_words[t] : 0;
-    const bool root_sys = t == 0 && sys;
-    for (int j = 0; j < w; ++j) {
-      const int s = active[j];
-      int hacc = -1, eacc = -1, lit = -1, plus = -1;
-      if (s >= 0) {
-        const int4 nd = __ldg(node_tab + s);
-        hacc = root_sys ? -1 : nd.y;
-        eacc = t == len ? nd.z : -1;
-        if (step) {
-          plus = root_sys ? -1 : nd.x;
-          lit = max(probe(edge_tab, bucket_hash(s, word, seed0) & mask, s, word),
-                    probe(edge_tab, bucket_hash(s, word, seed1) & mask, s, word));
-        }
-      }
-      out[col + j] = hacc;
-      out[col + w + j] = eacc;
-      cand[j] = lit;
-      cand[w + j] = plus;
-    }
-    col += 2 * w;
-    if (t == D) break;
-    const int n = 2 * w;
-    if (n <= A) {
-      for (int j = 0; j < n; ++j) active[j] = cand[j];
-      w = n;
-      continue;
-    }
-    // top_k(cand, A): the valid candidates, largest first; states are
-    // unique within a row, so the order is fully determined.
-    int nv = 0;
-    for (int j = 0; j < n; ++j)
-      if (cand[j] >= 0) cand[nv++] = cand[j];
-    for (int i = 1; i < nv; ++i) {
-      const int v = cand[i];
-      int k = i - 1;
-      while (k >= 0 && cand[k] < v) {
-        cand[k + 1] = cand[k];
-        --k;
-      }
-      cand[k + 1] = v;
-    }
-    const int kept = nv < A ? nv : A;
-    for (int j = 0; j < A; ++j) active[j] = j < kept ? cand[j] : -1;
-    spill += nv - kept;
-    w = A;
-  }
-  aover[r] = spill;
+  const CuckooLookup lookup{edge_tab, (uint32_t)seeds[0], (uint32_t)seeds[1],
+                            mask};
+  nfa::walk_row(r, words, lens, is_sys, node_tab, D, A, C, acc, aover,
+                lookup);
 }
 
 }  // namespace

@@ -2,9 +2,9 @@
 
 Each source under ``csrc/`` compiles, at first use, into a shared
 library with a plain C interface in ``BUILD_DIR`` (listed in
-``.gitignore``).  The library's name carries a digest of the source and
-the flags, so an edited source is rebuilt and a stale build is never
-loaded.  Sources include no PyTorch header: ``nvcc`` takes seconds for
+``.gitignore``).  The library's name carries a digest of the flags, the
+source and every ``csrc/`` header it includes, so an edited source or
+header is rebuilt and a stale build is never loaded.  Sources include no PyTorch header: ``nvcc`` takes seconds for
 them, where a PyTorch extension build takes minutes.  :func:`build`
 starts one ``nvcc`` per source, all at once.
 """
@@ -14,11 +14,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 __all__ = ["BUILD_DIR", "SOURCES", "build", "load", "ptxas_log"]
 
@@ -26,7 +27,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: kernel name → source file under csrc/
-SOURCES = {"nfa_walk": "nfa_walk.cu"}
+SOURCES = {"nfa_walk": "nfa_walk.cu", "nfa_join_walk": "nfa_join_walk.cu"}
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,10 +48,30 @@ def _nvcc() -> str:
     return found
 
 
+def _sources(name: str) -> List[str]:
+    """The source of kernel ``name`` and every ``csrc/`` file it
+    includes with ``#include "..."``, directly or through another."""
+    seen: List[str] = []
+    todo = [SOURCES[name]]
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.append(f)
+        text = (CSRC / f).read_text()
+        todo.extend(m for m in _INCLUDE.findall(text)
+                    if (CSRC / m).is_file())
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of kernel ``name``: its name carries a digest of the
+    flags and of every file the source is built from, headers included,
+    so an edit of any of them builds a new library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(_sources(name)):
+        h.update(f.encode() + b"\0" + (CSRC / f).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

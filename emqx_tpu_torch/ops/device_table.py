@@ -5,7 +5,13 @@ table is the authority, and this class keeps the resident device copy
 fresh.  ``drain()`` flushes the host's dirty rows into a stable
 :class:`PendingSync`; ``apply_pending()`` writes them into the resident
 tables in place (one ``index_copy_`` per table) or, after the host table
-grew, uploads the tables whole.  ``match()`` runs the hash-backend walk.
+grew, uploads the tables whole.  ``match()`` runs the walk of the
+``hash`` backend, or of ``join`` / ``join-pallas`` once
+:meth:`DeviceNfa.enable_join` mirrors the sorted edge relation
+(``join_match.JoinRelation``) beside the tables: its upkeep rides the
+same drain/apply cycle (tombstones, revivals and overlay rows written in
+place per delta; the relation rebuilt and uploaded whole on a table
+upload or when the overlay fills).
 
 A lock serialises applies and dispatches, so a reader never sees a
 half-applied (node, edge) pair; :meth:`arrays` returns one consistent
@@ -21,9 +27,27 @@ import numpy as np
 import torch
 
 from .incremental import NfaDelta
+from .join_match import JoinRelation, OverlayFull, join_match
 from .match_kernel import MatchResult, nfa_match
 
-__all__ = ["DeviceNfa", "PendingSync", "resolve_device"]
+__all__ = ["BACKENDS", "JOIN_BACKENDS", "DeviceNfa", "PendingSync",
+           "check_backend", "resolve_device"]
+
+#: the walk backends ``DeviceNfa.match`` serves; both join names run the
+#: one join kernel
+JOIN_BACKENDS = ("join", "join-pallas")
+BACKENDS = ("hash",) + JOIN_BACKENDS
+
+
+def check_backend(backend: str) -> None:
+    """Raise unless ``backend`` is one that ``DeviceNfa.match`` serves:
+    NotImplementedError for ``auto`` (the reference's measured hash/join
+    pick, not ported yet), ValueError for a name it does not know."""
+    if backend == "auto":
+        raise NotImplementedError(
+            "backend 'auto' (the measured hash/join pick) is not ported yet")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown match backend {backend!r}")
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -65,6 +89,11 @@ class DeviceNfa:
         self._shape_key = None
         self._arrs: Optional[Tuple[torch.Tensor, torch.Tensor,
                                    torch.Tensor]] = None
+        # the join relation mirror (off until enable_join)
+        self.join_enabled = False
+        self._join: Optional[JoinRelation] = None    # host relation
+        self._jarrs: Optional[Tuple[torch.Tensor, ...]] = None  # on device
+        self.join_rebuilds = 0      # whole relation uploads
         self._lock = threading.Lock()
         # freed accept ids stay unused until the device acks their epoch
         inc.device_epoch = -1
@@ -87,8 +116,10 @@ class DeviceNfa:
 
     @property
     def table_bytes(self) -> int:
-        """Device bytes of the resident tables."""
-        return sum(a.numel() * a.element_size() for a in self.arrays())
+        """Device bytes of the resident tables, the join relation
+        included when it is mirrored."""
+        return sum(a.numel() * a.element_size()
+                   for a in self.arrays() + (self._jarrs or ()))
 
     def drain(self, full: bool = False) -> PendingSync:
         """Flush host dirty state into a stable :class:`PendingSync`:
@@ -115,6 +146,8 @@ class DeviceNfa:
             except Exception:
                 self._arrs = None
                 self._shape_key = None
+                self._join = None       # rebuilt with the next upload
+                self._jarrs = None
                 raise
 
     def _apply_locked(self, p: PendingSync) -> bool:
@@ -122,6 +155,8 @@ class DeviceNfa:
             self._arrs = tuple(self._put(a) for a in p.full)
             self._shape_key = p.shape_key
             self.uploads += 1
+            if self.join_enabled:
+                self._join_full(p)
             self._ack(p.epoch)
             return True
         if p.delta.empty:
@@ -135,6 +170,8 @@ class DeviceNfa:
         if len(d.bucket_idx):
             edge.index_copy_(0, self._put(d.bucket_idx).long(),
                              self._put(d.bucket_rows))
+        if self.join_enabled and self._join is not None:
+            self._join_delta(d)
         self.delta_applies += 1
         self._ack(d.epoch)
         return True
@@ -147,26 +184,83 @@ class DeviceNfa:
         """Drain + apply in one call."""
         return self.apply_pending(self.drain(full=full))
 
+    # -- join relation mirror ----------------------------------------------
+
+    def enable_join(self, seed: Optional[JoinRelation] = None) -> None:
+        """Mirror the sorted edge relation beside the tables, so that
+        ``match`` serves the join backends.  On a synced twin the
+        relation is ``seed`` (one built elsewhere on the same table,
+        mirrored as it is) or is built now from the device copy of the
+        edge table; otherwise it is built at the first upload, and a
+        ``seed`` is refused."""
+        with self._lock:
+            self.join_enabled = True
+            if self._arrs is None:
+                if seed is not None:
+                    raise ValueError("a seed relation needs a synced twin")
+                return
+            if seed is None:
+                if self._jarrs is not None:
+                    return          # already mirrored
+                node, edge, _seeds = self._arrs
+                seed = JoinRelation(int(node.shape[0]), edge.cpu().numpy())
+            self._join = seed
+            self._put_join()
+
+    def _join_full(self, p: PendingSync) -> None:
+        """Whole-upload half of the mirror: sort the relation from the
+        uploaded table."""
+        self._join = JoinRelation(int(p.full[0].shape[0]), p.full[1])
+        self._put_join()
+
+    def _put_join(self) -> None:
+        """Upload the whole relation."""
+        self._jarrs = tuple(self._put(a) for a in self._join.arrays())
+        self.join_rebuilds += 1
+
+    def _join_delta(self, delta: NfaDelta) -> None:
+        """Delta half: tombstones and revivals written into ``edge_next``
+        and the re-sorted overlay into ``overlay``, in place.  When the
+        overlay fills, the relation is rebuilt from the (already
+        updated) shadow and uploaded whole."""
+        try:
+            mpos, mval, opos, orows = self._join.apply_bucket_delta(
+                delta.bucket_idx, delta.bucket_rows)
+        except OverlayFull:
+            self._join.rebuild(len(self._join.state_start) - 1)
+            self._put_join()
+            return
+        _ss, _ew, en, ov = self._jarrs
+        if len(mpos):
+            en.index_copy_(0, self._put(mpos).long(), self._put(mval))
+        if len(opos):
+            ov.index_copy_(0, self._put(opos).long(), self._put(orows))
+
     # -- serving -----------------------------------------------------------
 
     def match(self, words, lens, is_sys, *, flat_cap: int = 0,
               backend: Optional[str] = None) -> MatchResult:
         """Run the walk on already-encoded device operands: the flat
-        output when ``flat_cap`` > 0, else the compact one.  Only the
-        ``hash`` backend is served; ``join`` and ``join-pallas`` raise
+        output when ``flat_cap`` > 0, else the compact one.  ``backend``
+        is ``hash`` (default: the cuckoo-probe walk) or ``join`` /
+        ``join-pallas`` (both the join walk, at every batch shape and
+        output mode).  A join backend without the relation mirror
+        raises, where the reference quietly serves ``hash``; ``auto``
+        (the measured per-shape pick) is not ported and raises
         NotImplementedError."""
         be = backend or "hash"
-        if be in ("join", "join-pallas"):
-            raise NotImplementedError(
-                f"backend {be!r} is not ported yet; use 'hash'")
-        if be != "hash":
-            raise ValueError(f"unknown match backend {be!r}")
+        check_backend(be)
         with self._lock:
             node, edge, seeds = self.arrays()
-            return nfa_match(
-                words, lens, is_sys, node, edge, seeds,
-                active_slots=self.active_slots,
-                max_matches=self.max_matches, flat_cap=flat_cap)
+            kw = dict(active_slots=self.active_slots,
+                      max_matches=self.max_matches, flat_cap=flat_cap)
+            if be == "hash":
+                return nfa_match(words, lens, is_sys, node, edge, seeds, **kw)
+            if self._jarrs is None:
+                raise RuntimeError(
+                    f"backend {be!r} needs the join relation mirror: "
+                    "call enable_join() first")
+            return join_match(words, lens, is_sys, node, *self._jarrs, **kw)
 
     def put_batch(self, words: np.ndarray, lens: np.ndarray,
                   is_sys: np.ndarray):

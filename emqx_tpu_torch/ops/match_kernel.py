@@ -1,9 +1,10 @@
 """Batched NFA wildcard match: the walk plus its output epilogues.
 
 The port of ``emqx_tpu/ops/match_kernel.py``.  :func:`nfa_match` runs the
-fused walk (:func:`~emqx_tpu_torch.ops.walk_kernel.nfa_walk`: the CUDA
-kernel on the card, its plain version on the CPU) for the raw accept
-slots, then one of three epilogues, written as PyTorch ops:
+fused hash walk (:func:`~emqx_tpu_torch.ops.walk_kernel.nfa_walk`: the
+CUDA kernel on the card, its plain version on the CPU) for the raw
+accept slots, then :func:`epilogue`, which ``join_match.join_match``
+shares, picks one of three outputs, written as PyTorch ops:
 
 * raw — all Σ2·w_t accept slots with -1 holes (nothing truncates, only
   active-set spill is a fail-open cause);
@@ -27,7 +28,7 @@ from .walk_kernel import nfa_walk
 
 __all__ = ["MatchResult", "SERVE_FLAT_MULT", "ROW_META_COUNT_MASK",
            "ROW_META_SPILL_SHIFT", "decode_flat", "decode_row_meta",
-           "flat_epilogue", "nfa_match"]
+           "epilogue", "flat_epilogue", "nfa_match"]
 
 #: serving flat-output capacity per padded batch row (ids per topic)
 SERVE_FLAT_MULT = 8
@@ -99,13 +100,11 @@ def flat_epilogue(flat, n, aover, max_matches: int, flat_cap: int):
     return matches, mover, row_meta
 
 
-def nfa_match(words, lens, is_sys, node_tab, edge_tab, seeds, *,
-              active_slots: int = 16, max_matches: int = 32,
-              compact_output: bool = True, flat_cap: int = 0) -> MatchResult:
-    """The walk over one encoded batch, then the flat (``flat_cap`` > 0),
-    compact or raw epilogue."""
-    acc, aover = nfa_walk(words, lens, is_sys, node_tab, edge_tab, seeds,
-                          active_slots=active_slots)
+def epilogue(acc, aover, max_matches: int, compact_output: bool,
+             flat_cap: int) -> MatchResult:
+    """The output of a walk's raw accept slots ``acc`` and spills
+    ``aover``: flat when ``flat_cap`` > 0, else compact or raw.  Shared
+    by every walk backend."""
     n = (acc >= 0).sum(dim=1, dtype=torch.int32)
     K = max_matches
     row_meta = None
@@ -119,3 +118,13 @@ def nfa_match(words, lens, is_sys, node_tab, edge_tab, seeds, *,
         mover = torch.zeros_like(n)
     return MatchResult(matches=matches, n_matches=n, active_overflow=aover,
                        match_overflow=mover, row_meta=row_meta)
+
+
+def nfa_match(words, lens, is_sys, node_tab, edge_tab, seeds, *,
+              active_slots: int = 16, max_matches: int = 32,
+              compact_output: bool = True, flat_cap: int = 0) -> MatchResult:
+    """The hash walk over one encoded batch, then the flat
+    (``flat_cap`` > 0), compact or raw epilogue."""
+    acc, aover = nfa_walk(words, lens, is_sys, node_tab, edge_tab, seeds,
+                          active_slots=active_slots)
+    return epilogue(acc, aover, max_matches, compact_output, flat_cap)

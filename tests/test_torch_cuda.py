@@ -1,5 +1,5 @@
-"""The port's CUDA walk kernel against its plain PyTorch version, on the
-card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
+"""The port's CUDA walk kernels (hash and join) against their plain
+PyTorch versions, on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
 module imports neither JAX nor the reference package, so it also runs
 where only the port is installed:
 
@@ -10,9 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from emqx_tpu_torch.ops import IncrementalNfa, encode_batch, nfa_match
+from emqx_tpu_torch.ops import (DeviceNfa, IncrementalNfa, encode_batch,
+                                join_match, nfa_match)
 from emqx_tpu_torch.ops import walk_kernel
-from emqx_tpu_torch.ops.walk_kernel import nfa_walk, nfa_walk_plain
+from emqx_tpu_torch.ops.join_match import OVERLAY_EMPTY
+from emqx_tpu_torch.ops.walk_kernel import (join_walk, join_walk_plain,
+                                            nfa_walk, nfa_walk_plain)
 from emqx_tpu_torch.workload import build_workload
 
 EDGE_FILTERS = ["#", "+", "+/+", "$SYS/#", "$SYS/+/x", "x//y", "/", "//#",
@@ -21,10 +24,7 @@ EDGE_TOPICS = ["$SYS/a/x", "$SYS", "x//y", "/", "//", "a/b/c/d",
                "d/" + "/".join(["q"] * 14), "d/" + "/".join(["q"] * 30)]
 
 
-@pytest.fixture(scope="module")
-def table():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc")
+def _build_table():
     filters, topics = build_workload(np.random.default_rng(1), 20000, 2048)
     deep, deep_topics = build_workload(np.random.default_rng(2), 5000, 2048,
                                        depth=16)
@@ -32,6 +32,13 @@ def table():
     for f in filters + deep + EDGE_FILTERS:
         inc.add(f)
     return inc, EDGE_TOPICS + topics + deep_topics
+
+
+@pytest.fixture(scope="module")
+def table():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    return _build_table()
 
 
 def _operands(inc, topics, depth, B):
@@ -75,3 +82,74 @@ def test_kernel_rejects_cpu_cuda_mix(table):
     args[3] = args[3].cpu()
     with pytest.raises(ValueError, match="node_tab"):
         nfa_walk(*args, active_slots=16)
+
+
+@pytest.fixture(scope="module")
+def join_table():
+    """A table's join relation after a churn through the device table's
+    mirror (on the CPU): tombstones, revivals and overlay rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    inc, topics = _build_table()
+    dev = DeviceNfa(inc, device="cpu")
+    dev.enable_join()
+    rng = np.random.default_rng(3)
+    live = [f for f in inc.accept_filters if f is not None]
+    gone = [live[i] for i in rng.choice(len(live), 300, replace=False)]
+    for f in gone:
+        inc.remove(f)
+    for f in gone[:20] + [f"zz{i}/new/+" for i in range(40)]:
+        inc.add(f)
+    dev.sync()
+    start, word, nxt, overlay = dev._jarrs
+    assert (nxt[:int(start[-1])] == -1).any()
+    assert (overlay[:, 0] != int(OVERLAY_EMPTY)).sum() >= 40
+    return inc, dev._jarrs, topics + [f"zz{i}/new/x" for i in range(40)]
+
+
+def _join_operands(inc, jarrs, topics, depth, B):
+    enc = encode_batch(inc, topics[:B], batch=B, depth=depth)
+    arrs = enc + (inc.node_tab,)
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in arrs] + [a.cuda() for a in jarrs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,A,B", [(4, 16, 64), (8, 2, 2048),
+                                       (16, 16, 2048)])
+def test_join_kernel_equals_plain(join_table, depth, A, B):
+    inc, jarrs, topics = join_table
+    args = _join_operands(inc, jarrs, topics[::-1], depth, B)
+    before = (walk_kernel.launches, walk_kernel.join_launches)
+    acc, aover = join_walk(*args, active_slots=A)
+    torch.cuda.synchronize()
+    assert (walk_kernel.launches, walk_kernel.join_launches) == (
+        before[0], before[1] + 1)
+    acc_p, aover_p = join_walk_plain(*args, active_slots=A)
+    assert torch.equal(acc, acc_p)
+    assert torch.equal(aover, aover_p)
+    if A == 2:
+        assert int((aover_p > 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_flat_join_match_on_card_equals_cpu(join_table):
+    inc, jarrs, topics = join_table
+    args = _join_operands(inc, jarrs, topics[::-1], 16, 2048)
+    kw = dict(active_slots=16, max_matches=8, flat_cap=4 * 2048)
+    got = join_match(*args, **kw)
+    want = join_match(*[a.cpu() for a in args], **kw)
+    for f in ("matches", "n_matches", "active_overflow", "match_overflow",
+              "row_meta"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i,name", [(3, "node_tab"), (5, "edge_word"),
+                                    (7, "overlay")])
+def test_join_kernel_rejects_cpu_cuda_mix(join_table, i, name):
+    inc, jarrs, topics = join_table
+    args = _join_operands(inc, jarrs, topics, 4, 64)
+    args[i] = args[i].cpu()
+    with pytest.raises(ValueError, match=name):
+        join_walk(*args, active_slots=16)

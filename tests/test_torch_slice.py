@@ -128,16 +128,23 @@ def test_device_table_churn_equals_reference():
     assert port.uploads == ref.uploads
 
 
-def test_device_table_rejects_unported_backends():
+@pytest.mark.parametrize("backend,raises,match", [
+    ("dense", ValueError, "unknown"),
+    ("auto", NotImplementedError, "auto"),
+    ("join", RuntimeError, "enable_join"),
+    ("join-pallas", RuntimeError, "enable_join"),
+])
+def test_device_table_rejects_unported_backends(backend, raises, match):
+    """An unknown backend raises ValueError and ``auto`` (not ported)
+    NotImplementedError.  A join backend without the relation mirror
+    raises, where the reference quietly serves ``hash``: a join dispatch
+    never runs the hash walk in its place."""
     dev = DeviceNfa(IncrementalNfa(depth=4), device="cpu")
     words = torch.zeros((64, 4), dtype=torch.int32)
     lens = torch.full((64,), 6, dtype=torch.int32)
     is_sys = torch.ones(64, dtype=torch.bool)
-    for be in ("join", "join-pallas"):
-        with pytest.raises(NotImplementedError):
-            dev.match(words, lens, is_sys, backend=be)
-    with pytest.raises(ValueError):
-        dev.match(words, lens, is_sys, backend="dense")
+    with pytest.raises(raises, match=match):
+        dev.match(words, lens, is_sys, backend=backend)
 
 
 def test_no_cuda_and_no_cpu_request_raises(monkeypatch):
