@@ -14,7 +14,10 @@ runs these phases, one JSON line each; any failure exits non-zero:
 3. kernel  — each walk kernel (hash: ``nfa_walk``; join:
    ``nfa_join_walk``) against its plain PyTorch version on the card, bit
    for bit on the raw accept slots and the spill counts, for D in
-   {4, 8, 16} at A=16 and D=8 at A=2, B in {64, 2048}; the join relation
+   {4, 8, 16} at A=16, D=8 at A in {1, 2, 32} and D=16 at A=12 (one
+   lane per slot: a single lane a row, a power of two not filled, a
+   whole warp a row), B in {64, 1000, 2048} (1000 fills no whole number
+   of blocks); the A=1, 2 and 12 cases must spill.  The join relation
    is first churned through a ``DeviceNfa`` with its mirror on, so it
    holds tombstones and overlay rows.  Then ``nfa_match`` and
    ``join_match`` in flat mode on the card against the same calls on the
@@ -45,7 +48,8 @@ runs these phases, one JSON line each; any failure exits non-zero:
    must not launch on it;
 7. times_join — phase 5's readings for the join kernel and service.
 
-The line before the last names every kernel with its numbers; the last
+The line before the last names every kernel with its numbers (and its
+launch shape and ``ptxas`` register count); the last
 line is ``{"ok": true, "device": {...}}``.  With no CUDA device the
 script prints no result and exits 2.  ``--rehearse-cpu`` runs phases 4
 and 5 on the CPU at a small size with the plain versions and prints no
@@ -57,6 +61,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -78,10 +83,19 @@ KERNELS = {
     "join": ("nfa_join_walk", "emqx_tpu_torch/ops/csrc/nfa_join_walk.cu",
              "emqx_tpu/ops/pallas_match.py:146"),
 }
+#: a fan of 64 filters, each level of w/a/b/c/d/e/f literal or '+': the
+#: topic w/a/b/c/d/e/f has 2**k live states after k levels, so its walk
+#: spills at every A of the kernel cases
+FAN_FILTERS = ["w/" + "/".join("+" if m >> k & 1 else c
+                               for k, c in enumerate("abcdef"))
+               for m in range(64)]
 EDGE_FILTERS = ["#", "+", "+/+", "$SYS/#", "$SYS/+/x", "x//y", "/", "//#",
-                "a/+/c/#", "d/" + "/".join(["+"] * 14)]
+                "a/+/c/#", "d/" + "/".join(["+"] * 14)] + FAN_FILTERS
 EDGE_TOPICS = ["$SYS/a/x", "$SYS", "x//y", "/", "//", "a/b/c/d",
-               "d/" + "/".join(["q"] * 14), "d/" + "/".join(["q"] * 30)]
+               "d/" + "/".join(["q"] * 14), "d/" + "/".join(["q"] * 30),
+               "w/a/b/c/d/e/f"]
+#: (D, A) of the kernel cases, each at B = 64, 1000 and 2048
+WALK_CASES = ((4, 16), (8, 16), (16, 16), (8, 2), (8, 1), (16, 12), (8, 32))
 
 
 def emit(obj) -> None:
@@ -251,8 +265,8 @@ def _walk_cases(torch, walk, plain, operands) -> List[Dict]:
     """``walk`` (the kernel) against ``plain`` on the card, bit for bit,
     at each listed shape; ``operands(depth, B)`` gives the inputs."""
     cases = []
-    for depth, A in ((4, 16), (8, 16), (16, 16), (8, 2)):
-        for B in (64, BATCH):
+    for depth, A in WALK_CASES:
+        for B in (64, 1000, BATCH):
             args = operands(depth, B)
             acc, aover = walk(*args, active_slots=A)
             acc_p, aover_p = plain(*args, active_slots=A)
@@ -265,8 +279,9 @@ def _walk_cases(torch, walk, plain, operands) -> List[Dict]:
                           "accepts": int((acc_p >= 0).sum())})
             _check(err == 0, f"{walk.__name__} != plain at D={depth} A={A} "
                    f"B={B}")
-    _check(any(c["spilled_rows"] for c in cases if c["A"] == 2),
-           "the A=2 case did not spill")
+    for A in (1, 2, 12):
+        _check(any(c["spilled_rows"] for c in cases if c["A"] == A),
+               f"the A={A} case did not spill")
     return cases
 
 
@@ -719,15 +734,30 @@ def _stage_breakdown(torch, device, svc, topics) -> Dict[str, float]:
     return acc
 
 
+def _registers(name: str):
+    """Registers a thread of kernel ``name``, from its build's ``ptxas``
+    report; None if the report holds no count."""
+    from emqx_tpu_torch.ops import cuda_build
+
+    found = re.search(r"Used (\d+) registers", cuda_build.ptxas_log(name))
+    return int(found.group(1)) if found else None
+
+
 def _kernel_entry(backend: str, launches: int, max_err: int,
                   shapes: List[Dict]) -> Dict:
     """One kernel's entry of the kernels line: the main path's launches,
-    the serve shape's (B=2048, D=16) times and bound, every shape."""
+    the serve shape's (B=2048, D=16) times and bound, its launch shape
+    and registers, every shape."""
+    from emqx_tpu_torch.ops.walk_kernel import launch_shape
+
     name, source, replaces = KERNELS[backend]
     main_shape = shapes[0]
+    threads, lanes = launch_shape(main_shape["A"])
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
+        "threads_per_block": threads, "lanes_per_row": lanes,
+        "registers": _registers(name),
         "max_abs_err": max(max_err, *(x["max_abs_err"] for x in shapes)),
         "ms": main_shape["ms"], "ms_cold": main_shape["ms_cold"],
         "ms_warm": main_shape["ms_warm"],

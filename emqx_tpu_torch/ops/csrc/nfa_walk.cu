@@ -7,27 +7,25 @@
 // acc (B, C) int32 with C = sum_t 2*w_t (w_0 = 1, w_{t+1} = min(2*w_t, A)),
 // and aover (B,) int32, the per-row active-set spill.
 //
-// The walk itself is nfa::walk_row (walk_common.cuh); this file holds
+// The walk itself is nfa::walk_rows (walk_common.cuh); this file holds
 // the lookup: for t < min(D, len), the literal edge of a valid slot comes
 // from two cuckoo probes (32 B bucket rows of 2 [state, word, next, 0]
 // slots, the max over matching slots).
 //
-// What bounds it on the H100: the random 16 B node-row and 2 x 32 B
-// bucket-row gathers, one set per valid slot and step, each a separate
-// 32 B sector from tables (about 100 MB at 1M filters) larger than the
-// 50 MB L2.  The arithmetic (a uint32 hash, compares, a sort of at most
-// 2A ints) is small beside that.  Design: one thread per topic row, the
-// tables read with 16 B read-only loads (a node row is one int4, a
-// bucket two), invalid slots skip their loads, and the row's active set
-// and candidates live in thread-local arrays.  At B = 2048 that is only
-// 2048 threads for 132 SMs, so the walk is latency bound with few loads
-// in flight; blocks of 32 threads spread the rows over as many SMs as
-// possible.  A warp per row (or a thread per row and slot) would put
-// more gathers in flight.
+// What bounds it on the H100: a chain of dependent loads per step.  A
+// slot's node row (16 B) and its two bucket rows (2 x 32 B, two int4
+// each) are independent loads, issued together once the slot's state is
+// known, so a step is one round trip to L2 or device memory plus the
+// frontier exchange (shuffles and a shared-memory scatter); the walk is
+// D + 1 such rounds back to back.  The bytes bound stays far off: a
+// round moves 80 B per valid slot, a frontier holds only a few valid
+// slots (about 20 lookups a row over a served walk at D = 16), and each
+// load is its own 32 B sector of a table larger than the 50 MB L2, so
+// the card's bandwidth idles while each round waits on its latency.  Design: one
+// lane per frontier slot (walk_common.cuh), the tables read with 16 B
+// read-only loads, invalid slots skip their loads.
 
 #include "walk_common.cuh"
-
-#define NFA_BLOCK 32
 
 namespace {
 
@@ -60,7 +58,7 @@ struct CuckooLookup {
   }
 };
 
-__global__ void __launch_bounds__(NFA_BLOCK)
+__global__ void __launch_bounds__(NFA_THREADS)
 nfa_walk_kernel(const int* __restrict__ words, const int* __restrict__ lens,
                 const uint8_t* __restrict__ is_sys,
                 const int4* __restrict__ node_tab,
@@ -68,12 +66,11 @@ nfa_walk_kernel(const int* __restrict__ words, const int* __restrict__ lens,
                 const int* __restrict__ seeds, int B, int D, int A,
                 uint32_t mask, int C, int* __restrict__ acc,
                 int* __restrict__ aover) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= B) return;
-  const CuckooLookup lookup{edge_tab, (uint32_t)seeds[0], (uint32_t)seeds[1],
-                            mask};
-  nfa::walk_row(r, words, lens, is_sys, node_tab, D, A, C, acc, aover,
-                lookup);
+  __shared__ int scratch[NFA_THREADS];
+  const CuckooLookup lookup{edge_tab, (uint32_t)__ldg(seeds),
+                            (uint32_t)__ldg(seeds + 1), mask};
+  nfa::walk_rows(words, lens, is_sys, node_tab, B, D, A, C, acc, aover,
+                 scratch, lookup);
 }
 
 }  // namespace
@@ -88,8 +85,8 @@ extern "C" int nfa_walk_launch(const int* words, const int* lens,
   if (B <= 0 || D <= 0 || A < 1 || A > NFA_MAX_A || Hb <= 0 ||
       (Hb & (Hb - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (B + NFA_BLOCK - 1) / NFA_BLOCK;
-  nfa_walk_kernel<<<blocks, NFA_BLOCK, 0, (cudaStream_t)stream>>>(
+  nfa_walk_kernel<<<nfa::walk_blocks(B, A), NFA_THREADS, 0,
+                    (cudaStream_t)stream>>>(
       words, lens, is_sys, reinterpret_cast<const int4*>(node_tab),
       reinterpret_cast<const int4*>(edge_tab), seeds, B, D, A,
       (uint32_t)(Hb - 1), C, acc, aover);

@@ -35,7 +35,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_ptxas: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -98,20 +97,26 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         took[name] = time.perf_counter() - t0
-        _ptxas[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue
+        _ptxas_path(out).write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return took
 
 
+def _ptxas_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
 def ptxas_log(name: str) -> str:
-    """The compiler's output of this process's build of ``name`` (register
-    and spill counts from ``-Xptxas -v``), '' if it was not built here."""
-    return _ptxas.get(name, "")
+    """The compiler's output of the current build of ``name`` (register
+    and spill counts from ``-Xptxas -v``), kept beside its library; ''
+    if it is not built."""
+    path = _ptxas_path(_lib_path(name))
+    return path.read_text() if path.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

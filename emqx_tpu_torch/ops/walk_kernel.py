@@ -21,12 +21,14 @@ Layout (shared with the reference, so the two agree bit for bit): the
 frontier width starts at 1 and doubles each step up to A; step t writes
 ``w_t`` hash-accept columns then ``w_t`` end-accept columns; when 2·w_t
 exceeds A the next frontier is the A largest candidate states in
-descending order (``top_k``).
+descending order (``top_k``).  Both kernels walk a row with one lane
+per frontier slot (:func:`launch_shape`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -34,10 +36,10 @@ import torch
 from .compiler import BUCKET_SLOTS
 from . import cuda_build
 
-__all__ = ["accept_cols", "join_walk", "join_walk_plain", "nfa_walk",
-           "nfa_walk_plain", "MAX_ACTIVE_SLOTS", "OVERLAY_CAP"]
+__all__ = ["accept_cols", "join_walk", "join_walk_plain", "launch_shape",
+           "nfa_walk", "nfa_walk_plain", "MAX_ACTIVE_SLOTS", "OVERLAY_CAP"]
 
-#: widest frontier the CUDA kernel takes (its thread-local arrays)
+#: widest frontier the CUDA kernels take (one warp's lanes a row)
 MAX_ACTIVE_SLOTS = 32
 
 #: launches of the hash-walk kernel since the count was last reset (set
@@ -54,6 +56,15 @@ OVERLAY_CAP = 256
 
 _U32 = 0xFFFFFFFF
 _entries: Dict[str, object] = {}
+
+
+def launch_shape(active_slots: int) -> Tuple[int, int]:
+    """``(threads per block, lanes per row)`` of both walk kernels: the
+    block size ``NFA_THREADS`` of ``csrc/walk_common.cuh`` and the
+    smallest power of two >= A, one lane per frontier slot."""
+    header = (cuda_build.CSRC / "walk_common.cuh").read_text()
+    threads = int(re.search(r"#define NFA_THREADS (\d+)", header).group(1))
+    return threads, 1 << (active_slots - 1).bit_length()
 
 
 def accept_cols(depth: int, active_slots: int) -> int:

@@ -18,10 +18,22 @@ from emqx_tpu_torch.ops.walk_kernel import (join_walk, join_walk_plain,
                                             nfa_walk, nfa_walk_plain)
 from emqx_tpu_torch.workload import build_workload
 
+#: every level of w/a/b/c/d/e/f literal or '+': that topic's frontier
+#: doubles each level, so its walk spills at every A below
+FAN_FILTERS = ["w/" + "/".join("+" if m >> k & 1 else c
+                               for k, c in enumerate("abcdef"))
+               for m in range(64)]
 EDGE_FILTERS = ["#", "+", "+/+", "$SYS/#", "$SYS/+/x", "x//y", "/", "//#",
-                "a/+/c/#", "d/" + "/".join(["+"] * 14)]
+                "a/+/c/#", "d/" + "/".join(["+"] * 14)] + FAN_FILTERS
 EDGE_TOPICS = ["$SYS/a/x", "$SYS", "x//y", "/", "//", "a/b/c/d",
-               "d/" + "/".join(["q"] * 14), "d/" + "/".join(["q"] * 30)]
+               "d/" + "/".join(["q"] * 14), "d/" + "/".join(["q"] * 30),
+               "w/a/b/c/d/e/f"]
+#: (depth, A, B): the lane layouts (A = 1, 12, 16, 32: one lane a row, a
+#: power of two not filled, half and all of a warp) and B = 1000, which
+#: fills no whole number of blocks
+LAYOUT_CASES = [(8, 1, 64), (8, 1, 1000), (16, 12, 64), (16, 12, 1000),
+                (16, 12, 2048), (8, 32, 1000), (8, 32, 2048),
+                (16, 16, 1000)]
 
 
 def _build_table():
@@ -50,7 +62,7 @@ def _operands(inc, topics, depth, B):
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth,A,B", [(4, 16, 64), (8, 2, 2048),
                                        (16, 16, 2048), (8, 32, 256),
-                                       (16, 1, 64)])
+                                       (16, 1, 64)] + LAYOUT_CASES)
 def test_kernel_equals_plain(table, depth, A, B):
     inc, topics = table
     args = _operands(inc, topics, depth, B)
@@ -61,6 +73,8 @@ def test_kernel_equals_plain(table, depth, A, B):
     acc_p, aover_p = nfa_walk_plain(*args, active_slots=A)
     assert torch.equal(acc, acc_p)
     assert torch.equal(aover, aover_p)
+    if A in (1, 2, 12):
+        assert int((aover_p > 0).sum()) > 0, "the spill case must spill"
 
 
 @pytest.mark.cuda
@@ -116,7 +130,7 @@ def _join_operands(inc, jarrs, topics, depth, B):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth,A,B", [(4, 16, 64), (8, 2, 2048),
-                                       (16, 16, 2048)])
+                                       (16, 16, 2048)] + LAYOUT_CASES)
 def test_join_kernel_equals_plain(join_table, depth, A, B):
     inc, jarrs, topics = join_table
     args = _join_operands(inc, jarrs, topics[::-1], depth, B)

@@ -133,7 +133,7 @@ def _operands(inc, arrays, topics, depth, batch):
 
 
 @pytest.mark.parametrize("depth,A", [(4, 16), (8, 16), (16, 16), (8, 2),
-                                     (4, 2)])
+                                     (4, 2), (8, 1), (16, 12), (8, 32)])
 def test_join_walk_plain_equals_reference_raw(depth, A):
     inc, arrays, topics = _churned(depth + A, max(depth, 8))
     args = _operands(inc, _with_overlay_conflicts(inc, arrays), topics,
@@ -146,7 +146,7 @@ def test_join_walk_plain_equals_reference_raw(depth, A):
     np.testing.assert_array_equal(aover.numpy(),
                                   np.asarray(ref.active_overflow))
     assert (acc.numpy() >= 0).sum() > 256, "the batch must match"
-    if A == 2:
+    if A <= 2:
         assert aover.numpy().max() > 0, "the spill case must spill"
 
 
