@@ -6,11 +6,13 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``emqx_tpu_torch/ops/csrc`` and
-runs these phases, one JSON line each; any failure exits non-zero:
+its native host libraries from ``emqx_tpu_torch/native``, and runs these
+phases, one JSON line each; any failure exits non-zero:
 
 1. device  — the card's name and power limit;
 2. build   — ``nvcc`` of every kernel source (all started together),
-   with each one's register and spill report;
+   with each one's register and spill report, and ``g++`` of the native
+   table and encoder beside them;
 3. kernel  — each walk kernel (hash: ``nfa_walk``; join:
    ``nfa_join_walk``) against its plain PyTorch version on the card, bit
    for bit on the raw accept slots and the spill counts, for D in
@@ -22,38 +24,59 @@ runs these phases, one JSON line each; any failure exits non-zero:
    holds tombstones and overlay rows.  Then ``nfa_match`` and
    ``join_match`` in flat mode on the card against the same calls on the
    CPU, all five ``MatchResult`` fields equal;
-4. slice   — the serve core (``MatchService``) over 1M wildcard filters
+4. slice   — the serve core (``MatchService``, ``table="native"``: the
+   C++ host table started with one ``load``) over 1M wildcard filters
    of the BASELINE config-2 workload: 16 batches of 2048 topics through
    ``serve()``, each answer equal to the ``FilterTrie`` oracle; then
    1,000 removes and 1,000 adds written into the resident tables in place,
    and 4 more batches re-checked.  The kernel's launch count over this
-   main path must equal the walk dispatches;
+   main path must equal the walk dispatches, and the native encoder
+   must have encoded every dispatch;
 5. times   — kernel device ms at (B=2048, D=16) and (B=2048, D=4) from
    CUDA events, three ways: rotating over the distinct batches of the
    served topics (``ms``, as the serve path walks them), the same with
    the L2 flushed before each launch (``ms_cold``), and one batch
    repeated (``ms_warm``, tables' rows L2-resident); the plain version's
    device ms from a CUDA graph replay; the kernel's bytes bound on this
-   run's data; the serve stage breakdown; serve throughput with p50/p99
-   over 1000 timed ``serve()`` calls of 2048 topics; the card's busy and
-   idle share over 20 ``serve()`` calls from a ``torch.profiler`` trace;
-   table bytes and the spill share of the main path;
-6. slice_join — the hash service is dropped, and a ``MatchService`` on
-   the ``join`` backend serves the same 1M filters: 16 batches against
-   the oracle; a churn whose new edges fit the relation's overlay
-   (written in place, no relation rebuild) and 2 batches; 1,000 removes
-   and 1,000 adds, which overflow the overlay (one relation rebuild, no
-   table re-upload without growth) and 4 batches.  Join-kernel launches
-   over this path must equal its join dispatches, and the hash kernel
-   must not launch on it;
-7. times_join — phase 5's readings for the join kernel and service.
+   run's data; the serve stage breakdown (with the ids the split stage
+   turned into filters); serve throughput with p50/p99 over 1000 timed
+   ``serve()`` calls of 2048 topics; the card's busy and idle share over
+   20 ``serve()`` calls from a ``torch.profiler`` trace; table bytes and
+   the spill share of the main path;
+6. slice_join — the hash service is dropped, and a native-table
+   ``MatchService`` on the ``join`` backend serves the same 1M filters:
+   16 batches against the oracle; a churn whose new edges fit the
+   relation's overlay (written in place, no relation rebuild) and 2
+   batches; 1,000 removes and 1,000 adds, which overflow the overlay
+   (one relation rebuild, no table re-upload without growth) and 4
+   batches.  Join-kernel launches over this path must equal its join
+   dispatches, and the hash kernel must not launch on it;
+7. times_join — phase 5's readings for the join kernel and service;
+8. slice_python — phase 4 on the Python ``IncrementalNfa`` table (the
+   reference's debug twin) at 100k filters, and its serve stages; then
+   ``split_per_id``: the split stage's µs per id of the 1M native table
+   (phase 5) beside this one's;
+9. slice_10m_build — BASELINE config 3: 10M filters (seed 0, depth-8
+   Zipfian) started with ``load`` on ``table="auto"`` (native), the
+   join mirror enabled on the same ``DeviceNfa``, and the ``FilterSet``
+   oracle built after the table; seconds of each step and the sizes;
+10. slice_10m — 16 batches served on ``hash`` and on ``join`` from the
+   one table, each topic equal to the oracle; 1,000 removes (synced),
+   then 1,000 adds that reuse freed accept ids (synced); 4 more batches
+   on both.  Launches of each kernel must equal its dispatches, and the
+   native encoder must have encoded every batch;
+11. times_10m — phase 5's readings at 10M, once for each kernel (a
+   fifth of the timed ``serve()`` calls).
 
+Each phase's line carries its wall seconds.
 The line before the last names every kernel with its numbers (and its
-launch shape and ``ptxas`` register count); the last
-line is ``{"ok": true, "device": {...}}``.  With no CUDA device the
-script prints no result and exits 2.  ``--rehearse-cpu`` runs phases 4
-and 5 on the CPU at a small size with the plain versions and prints no
-result either (a dry run of the control flow).
+launch shape, ``ptxas`` register count, launches on each path and its
+10M readings); the last line is ``{"ok": true, "device": {...}}``.
+With no CUDA device the script prints no result and exits 2.
+``--rehearse-cpu`` runs phases 4-11 on the CPU with the plain versions
+(give it small ``--filters``, ``--python-filters``, ``--large-filters``
+and ``--timed-batches``) and prints no result either (a dry run of the
+control flow).
 """
 
 from __future__ import annotations
@@ -74,6 +97,10 @@ SERVE_BATCHES = 16          # batches served before the churn
 CHURN = 1000                # filters removed, then added
 AFTER_BATCHES = 4           # batches served after the churn
 TIMED_BATCHES = 1000        # serve() calls timed for p50/p99 (phase 5)
+PYTHON_FILTERS = 100_000    # slice_python: the Python table's size
+LARGE_FILTERS = 10_000_000  # slice_10m: BASELINE config 3
+BATCHES_10M = 20            # 10M batches served on each backend ...
+AFTER_BATCHES_10M = 4       # ... the last of them after the churn
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 SMALL_CHURN = (100, 40)     # join path: removes, adds within the overlay
 #: name, source and replaced TPU kernel of each walk kernel
@@ -184,6 +211,41 @@ def timer(torch, device) -> Callable[..., Dict[str, float]]:
     return time_cuda
 
 
+class GcPauses:
+    """Collections of Python's cyclic garbage collector while active:
+    their count and pause ms per generation (``gc.callbacks``), and
+    ``ms``, the running total of pause ms."""
+
+    def __init__(self) -> None:
+        self.count = [0, 0, 0]
+        self.pause_ms = [0.0, 0.0, 0.0]
+        self.max_ms = 0.0
+        self.ms = 0.0
+        self._t0 = 0.0
+
+    def _cb(self, phase: str, info: Dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+            return
+        dt = (time.perf_counter() - self._t0) * 1e3
+        gen = info["generation"]
+        self.count[gen] += 1
+        self.pause_ms[gen] += dt
+        self.max_ms = max(self.max_ms, dt)
+        self.ms += dt
+
+    def __enter__(self) -> "GcPauses":
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self._cb)
+
+    def summary(self) -> Dict:
+        return {"collections_by_gen": self.count,
+                "pause_ms_by_gen": self.pause_ms, "max_pause_ms": self.max_ms}
+
+
 def graph_replay(torch, fn) -> Callable[[], None]:
     """``fn`` captured once into a CUDA graph; the returned callable
     replays it with one launch, so a function of many small launches is
@@ -231,13 +293,21 @@ def device_busy(torch, fn) -> Dict[str, object]:
             "device_spans": len(spans)}
 
 
-def _operands(torch, inc, topics, depth, B, device):
+def _encoded(torch, inc, topics, depth, B, device):
+    """The first ``B`` topics encoded against host table ``inc``, on
+    ``device``: words, lens, is_sys."""
     from emqx_tpu_torch.ops import encode_batch
 
     enc = encode_batch(inc, topics[:B], batch=B, depth=depth)
-    arrs = enc + (inc.node_tab, inc.edge_tab, inc.seeds)
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in arrs]
+            for a in enc]
+
+
+def _operands(torch, inc, topics, depth, B, device):
+    """``_encoded`` and the Python table's arrays: the walk's inputs."""
+    return _encoded(torch, inc, topics, depth, B, device) + [
+        torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        for a in (inc.node_tab, inc.edge_tab, inc.seeds)]
 
 
 def _join_operands(torch, dev, topics, depth, B):
@@ -380,10 +450,26 @@ def _sync(torch, device, svc) -> float:
     return time.perf_counter() - t0
 
 
+def _table_info(svc) -> Dict:
+    """Sizes of a service's host and device tables, from the arrays it
+    really built."""
+    node, edge, _seeds = svc.dev.arrays()
+    info = {"table_kind": svc.table_kind, "states": svc.inc.n_states,
+            "edges": svc.inc.n_edges, "S": int(node.shape[0]),
+            "Hb": int(edge.shape[0]), "node_bytes": node.numel() * 4,
+            "edge_bytes": edge.numel() * 4,
+            "table_bytes": svc.dev.table_bytes}
+    if svc.dev._jarrs is not None:
+        info["relation_bytes"] = sum(a.numel() * 4 for a in svc.dev._jarrs)
+        info["relation"] = _relation_state(svc.dev)
+    return info
+
+
 def _build_service(torch, device, n_filters: int, n_batches: int,
-                   backend: str):
-    """A ``MatchService`` on ``backend`` over the BASELINE config-2
-    filters (seed 0) and its trie oracle; emits the build line."""
+                   backend: str, table: str, phase: str):
+    """A ``MatchService`` on ``backend`` and host ``table`` over the
+    BASELINE config-2 filters (seed 0), started with ``load``, and its
+    trie oracle; emits the build line ``phase``."""
     from emqx_tpu_torch.broker.match_service import MatchService
     from emqx_tpu_torch.broker.trie import FilterTrie
     from emqx_tpu_torch.workload import build_workload
@@ -392,36 +478,28 @@ def _build_service(torch, device, n_filters: int, n_batches: int,
     filters, topics = build_workload(np.random.default_rng(0), n_filters,
                                      n_batches * BATCH)
     t1 = time.perf_counter()
-    svc = MatchService(device=device, backend=backend)
-    for f in filters:
-        svc.add(f)
+    svc = MatchService(device=device, backend=backend, table=table)
+    _check(svc.load(filters) == len(filters), "load() lost filters")
     t2 = time.perf_counter()
     upload_s = _sync(torch, device, svc)
     t3 = time.perf_counter()
     trie = FilterTrie()
     for f in filters:
         trie.insert(f)
-    node, edge, seeds = svc.dev.arrays()
-    info = {"phase": "slice_build" if backend == "hash" else
-            "slice_join_build", "ok": True, "backend": backend,
-            "filters": len(filters), "states": svc.inc.n_states,
-            "edges": svc.inc.n_edges, "S": svc.inc.S, "Hb": svc.inc.Hb,
-            "node_bytes": node.numel() * 4, "edge_bytes": edge.numel() * 4,
-            "table_bytes": svc.dev.table_bytes, "workload_s": t1 - t0,
-            "host_build_s": t2 - t1, "upload_s": upload_s,
-            "oracle_build_s": time.perf_counter() - t3}
-    if svc.dev._jarrs is not None:
-        info["relation_bytes"] = sum(a.numel() * 4 for a in svc.dev._jarrs)
-        info["relation"] = _relation_state(svc.dev)
-    emit(info)
+    emit({"phase": phase, "ok": True, "backend": backend,
+          "filters": len(filters), **_table_info(svc),
+          "workload_s": t1 - t0, "host_build_s": t2 - t1,
+          "load_seconds": svc.load_seconds, "upload_s": upload_s,
+          "oracle_build_s": time.perf_counter() - t3,
+          "wall_s": time.perf_counter() - t0})
     return svc, trie, filters, topics
 
 
-def _fresh_filters(filters, n: int, seed: int) -> List[str]:
-    """``n`` workload filters that ``filters`` does not hold."""
+def _fresh_filters(have, n: int, seed: int) -> List[str]:
+    """``n`` workload filters that ``have`` (a container) does not
+    hold."""
     from emqx_tpu_torch.workload import build_workload
 
-    have = set(filters)
     extra, _ = build_workload(np.random.default_rng(seed), 4 * n, 0)
     fresh = list(dict.fromkeys(f for f in extra if f not in have))[:n]
     _check(len(fresh) == n, "churn workload too small")
@@ -447,11 +525,17 @@ def _serve_batches(svc, trie, topics, first: int, count: int) -> int:
     return bad
 
 
-def phase_slice(torch, device, n_filters: int) -> Dict:
+def phase_slice(torch, device, n_filters: int, table: str = "native",
+                name: str = "slice") -> Dict:
+    """The hash backend's serve path on host ``table``: served batches
+    against the oracle, a churn written in place, more batches."""
     from emqx_tpu_torch.ops import walk_kernel
 
+    t_start = time.perf_counter()
     svc, trie, filters, topics = _build_service(
-        torch, device, n_filters, SERVE_BATCHES + AFTER_BATCHES, "hash")
+        torch, device, n_filters, SERVE_BATCHES + AFTER_BATCHES, "hash",
+        table, name + "_build")
+    encoded0 = svc.encoder.native_batches
 
     # -- the main path: counts zeroed just before, read just after -------
     walk_kernel.launches = 0
@@ -461,7 +545,7 @@ def phase_slice(torch, device, n_filters: int) -> Dict:
     rng = np.random.default_rng(1)
     gone = [filters[i] for i in rng.choice(len(filters), CHURN,
                                            replace=False)]
-    fresh = _fresh_filters(filters, CHURN, 2)
+    fresh = _fresh_filters(set(filters), CHURN, 2)
     uploads0, key0 = svc.dev.uploads, svc.inc.shape_key()
     sync_s = _churn(torch, device, svc, trie, gone, fresh)
     grew = svc.inc.shape_key() != key0
@@ -473,11 +557,17 @@ def phase_slice(torch, device, n_filters: int) -> Dict:
     dispatches = svc.dispatches - d0
     # ---------------------------------------------------------------------
     _check(bad == 0, f"{bad} served answers differ from the trie oracle")
+    _check(svc.table_kind == ("python" if table == "python" else "native"),
+           f"table {table!r} built a {svc.table_kind} table")
+    _check(svc.encoder.native_batches - encoded0 == dispatches
+           and svc.encoder.python_batches == 0,
+           "the native encoder did not encode every dispatch")
     if device.type == "cuda":
         _check(launches == dispatches > 0,
                f"kernel launches {launches} != walk dispatches {dispatches}")
         _check(join_launches == 0, "the join kernel ran on the hash path")
-    info = {"phase": "slice", "ok": bad == 0, "served_topics": svc.topics,
+    info = {"phase": name, "ok": bad == 0, "table_kind": svc.table_kind,
+            "served_topics": svc.topics,
             "batches": SERVE_BATCHES + AFTER_BATCHES,
             "mismatches": bad, "walk_dispatches": dispatches,
             "kernel_launches": launches,
@@ -486,7 +576,9 @@ def phase_slice(torch, device, n_filters: int) -> Dict:
             "churn_added": len(fresh), "churn_sync_s": sync_s,
             "churn_grew_table": grew, "uploads": svc.dev.uploads,
             "delta_applies": svc.dev.delta_applies,
-            "host_reruns": svc.fallback_host}
+            "host_reruns": svc.fallback_host,
+            "native_encodes": svc.encoder.native_batches - encoded0,
+            "wall_s": time.perf_counter() - t_start}
     emit(info)
     return {"svc": svc, "topics": topics, "launches": launches,
             "spill_share": svc.fallback_host / svc.topics}
@@ -498,10 +590,12 @@ def phase_slice_join(torch, device, n_filters: int) -> Dict:
     from emqx_tpu_torch.ops import walk_kernel
 
     n_small = 2
+    t_start = time.perf_counter()
     svc, trie, filters, topics = _build_service(
         torch, device, n_filters, SERVE_BATCHES + n_small + AFTER_BATCHES,
-        "join")
+        "join", "native", "slice_join_build")
     dev = svc.dev
+    encoded0 = svc.encoder.native_batches
 
     # -- the main path: counts zeroed just before, read just after -------
     walk_kernel.launches = 0
@@ -513,7 +607,7 @@ def phase_slice_join(torch, device, n_filters: int) -> Dict:
     n_rm, n_add = SMALL_CHURN
     gone_small = [filters[i] for i in order[:n_rm]]
     gone_big = [filters[i] for i in order[n_rm:n_rm + CHURN]]
-    fresh = _fresh_filters(filters, n_add + CHURN, 5)
+    fresh = _fresh_filters(set(filters), n_add + CHURN, 5)
     # 1. new edges that fit the overlay: written in place
     rebuilds0, uploads0 = dev.join_rebuilds, dev.uploads
     small_s = _churn(torch, device, svc, trie, gone_small, fresh[:n_add])
@@ -542,12 +636,17 @@ def phase_slice_join(torch, device, n_filters: int) -> Dict:
     # ---------------------------------------------------------------------
     _check(bad == 0, f"{bad} served answers differ from the trie oracle")
     _check(join_dispatches == dispatches, "a dispatch left the join backend")
+    _check(svc.table_kind == "native", "the join slice is not native")
+    _check(svc.encoder.native_batches - encoded0 == dispatches
+           and svc.encoder.python_batches == 0,
+           "the native encoder did not encode every dispatch")
     if device.type == "cuda":
         _check(launches == join_dispatches > 0,
                f"join kernel launches {launches} != join dispatches "
                f"{join_dispatches}")
         _check(hash_launches == 0, "the hash kernel ran on the join path")
-    emit({"phase": "slice_join", "ok": True, "served_topics": svc.topics,
+    emit({"phase": "slice_join", "ok": True, "table_kind": svc.table_kind,
+          "served_topics": svc.topics,
           "batches": SERVE_BATCHES + n_small + AFTER_BATCHES,
           "mismatches": bad, "join_dispatches": join_dispatches,
           "join_kernel_launches": launches,
@@ -559,8 +658,155 @@ def phase_slice_join(torch, device, n_filters: int) -> Dict:
                         "relation": rel_big},
           "join_rebuilds": dev.join_rebuilds, "uploads": dev.uploads,
           "delta_applies": dev.delta_applies,
-          "host_reruns": svc.fallback_host})
+          "host_reruns": svc.fallback_host,
+          "native_encodes": svc.encoder.native_batches - encoded0,
+          "wall_s": time.perf_counter() - t_start})
     return {"svc": svc, "topics": topics, "launches": launches,
+            "spill_share": svc.fallback_host / svc.topics}
+
+
+def phase_slice_python(torch, device, n_filters: int) -> Dict:
+    """The hash serve path on the Python ``IncrementalNfa`` table (the
+    reference's debug twin) at a smaller size: phase 4's checks, then
+    the serve stages of its batches."""
+    t_start = time.perf_counter()
+    s = phase_slice(torch, device, n_filters, table="python",
+                    name="slice_python")
+    stages = _stage_breakdown(torch, device, s["svc"], s["topics"])
+    emit({"phase": "slice_python_stages", "ok": True,
+          "table_kind": s["svc"].table_kind, "serve_stage_ms": stages,
+          "wall_s": time.perf_counter() - t_start})
+    s["stages"] = stages
+    return s
+
+
+def phase_10m_build(torch, device, n_filters: int) -> Dict:
+    """BASELINE config 3's table: ``n_filters`` workload filters (seed 0,
+    depth-8 Zipfian) started with ``load`` on the native table, the join
+    mirror enabled on the same ``DeviceNfa``, and the filter-set oracle
+    built after the table."""
+    from emqx_tpu_torch.broker.match_service import MatchService
+    from emqx_tpu_torch.broker.trie import FilterSet
+    from emqx_tpu_torch.workload import build_workload
+
+    t0 = time.perf_counter()
+    filters, topics = build_workload(np.random.default_rng(0), n_filters,
+                                     BATCHES_10M * BATCH)
+    t1 = time.perf_counter()
+    svc = MatchService(device=device, table="auto")
+    _check(svc.table_kind == "native", "table 'auto' is not native")
+    _check(svc.load(filters) == len(filters), "load() lost filters")
+    t2 = time.perf_counter()
+    upload_s = _sync(torch, device, svc)
+    t3 = time.perf_counter()
+    svc.dev.enable_join()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    oracle = FilterSet(filters)
+    t5 = time.perf_counter()
+    emit({"phase": "slice_10m_build", "ok": True, "filters": len(filters),
+          **_table_info(svc), "workload_s": t1 - t0,
+          "host_build_s": t2 - t1, "load_seconds": svc.load_seconds,
+          "upload_s": upload_s, "join_mirror_s": t4 - t3,
+          "oracle_build_s": t5 - t4, "wall_s": t5 - t0})
+    return {"svc": svc, "oracle": oracle, "filters": filters,
+            "topics": topics}
+
+
+def phase_10m(torch, device, b: Dict) -> Dict:
+    """The 10M table served on ``hash`` and on ``join`` (one table, one
+    device twin): every served topic against the filter-set oracle,
+    before and after 1,000 removes and 1,000 adds.  The removes are
+    synced before the adds, so that the adds reuse freed accept ids."""
+    from emqx_tpu_torch.ops import walk_kernel
+
+    t_start = time.perf_counter()
+    svc, oracle, filters, topics = (b["svc"], b["oracle"], b["filters"],
+                                    b["topics"])
+    before = BATCHES_10M - AFTER_BATCHES_10M
+    rng = np.random.default_rng(6)
+    gone = [filters[i] for i in rng.choice(len(filters), CHURN,
+                                           replace=False)]
+    fresh = _fresh_filters(oracle, CHURN, 7)
+
+    def serve_both(first: int, count: int) -> int:
+        bad = 0
+        for i in range(first, first + count):
+            batch = topics[i * BATCH:(i + 1) * BATCH]
+            want = [set(oracle.match(t)) for t in batch]
+            for be in ("hash", "join"):
+                svc.backend = be     # one table, both walks
+                got = svc.serve(batch)
+                _check(len(got) == len(batch), "serve() lost rows")
+                bad += sum(set(r) != w for r, w in zip(got, want))
+        return bad
+
+    # -- the main path: counts zeroed just before, read just after -------
+    walk_kernel.launches = 0
+    walk_kernel.join_launches = 0
+    d0, j0 = svc.dispatches, svc.join_dispatches
+    enc0 = (svc.encoder.native_batches, svc.encoder.python_batches)
+    reuses0, uploads0, key0 = (svc.inc.aid_reuses, svc.dev.uploads,
+                               svc.inc.shape_key())
+    rebuilds0 = svc.dev.join_rebuilds
+    bad = serve_both(0, before)
+    for f in gone:
+        _check(svc.remove(f), f"remove {f!r}")
+        oracle.delete(f)
+    remove_s = _sync(torch, device, svc)
+    rel_removed = _relation_state(svc.dev)
+    for f in fresh:
+        _check(svc.add(f), f"add {f!r}")
+        oracle.insert(f)
+    add_s = _sync(torch, device, svc)
+    rel_added = _relation_state(svc.dev)
+    reuses = svc.inc.aid_reuses - reuses0
+    bad += serve_both(before, AFTER_BATCHES_10M)
+    launches = walk_kernel.launches
+    join_launches = walk_kernel.join_launches
+    join_dispatches = svc.join_dispatches - j0
+    hash_dispatches = svc.dispatches - d0 - join_dispatches
+    native_encodes = svc.encoder.native_batches - enc0[0]
+    python_encodes = svc.encoder.python_batches - enc0[1]
+    # ---------------------------------------------------------------------
+    svc.backend = "hash"
+    grew = svc.inc.shape_key() != key0
+    _check(bad == 0, f"{bad} served answers differ from the filter-set "
+           "oracle")
+    _check(reuses > 0, "no add reused a freed accept id")
+    _check(grew or svc.dev.uploads == uploads0,
+           "the churn re-uploaded the tables without growth")
+    _check(native_encodes == hash_dispatches + join_dispatches
+           and python_encodes == 0,
+           "the native encoder did not encode every 10M batch")
+    if device.type == "cuda":
+        _check(launches == hash_dispatches > 0,
+               f"hash launches {launches} != dispatches {hash_dispatches}")
+        _check(join_launches == join_dispatches > 0,
+               f"join launches {join_launches} != dispatches "
+               f"{join_dispatches}")
+    emit({"phase": "slice_10m", "ok": True, "table_kind": svc.table_kind,
+          "served_topics_per_backend": BATCHES_10M * BATCH,
+          "mismatches": bad, "hash_dispatches": hash_dispatches,
+          "join_dispatches": join_dispatches,
+          "hash_kernel_launches": launches,
+          "join_kernel_launches": join_launches,
+          "native_encodes": native_encodes,
+          "python_encodes": python_encodes,
+          "churn": {"removed": len(gone), "added": len(fresh),
+                    "remove_sync_ms": remove_s * 1e3,
+                    "add_sync_ms": add_s * 1e3, "aid_reuses": reuses,
+                    "grew_table": grew,
+                    "relation_after_removes": rel_removed,
+                    "relation_after_adds": rel_added,
+                    "join_rebuilds": svc.dev.join_rebuilds - rebuilds0},
+          "uploads": svc.dev.uploads, "delta_applies": svc.dev.delta_applies,
+          "host_reruns": svc.fallback_host,
+          "wall_s": time.perf_counter() - t_start})
+    # the timing phases' distinct batches: every served topic
+    return {"svc": svc, "topics": topics, "launches": launches,
+            "join_launches": join_launches,
             "spill_share": svc.fallback_host / svc.topics}
 
 
@@ -597,12 +843,17 @@ def _join_bytes(traffic: Dict[str, int], depth: int, A: int) -> int:
             + OVERLAY_CAP * 12 + _io_bytes(depth, A))
 
 
-def phase_times(torch, device, s: Dict, card: str,
-                backend: str = "hash") -> List[Dict]:
+def phase_times(torch, device, s: Dict, card: str, backend: str = "hash",
+                name: str = "", timed: int = TIMED_BATCHES) -> List[Dict]:
+    """Kernel and serve readings of the service ``s["svc"]`` on
+    ``backend``; emits line ``name`` (``times`` / ``times_join`` by
+    default)."""
     from emqx_tpu_torch.ops.walk_kernel import (
         join_walk, join_walk_plain, nfa_walk, nfa_walk_plain)
 
+    t_start = time.perf_counter()
     svc, topics = s["svc"], s["topics"]
+    _check(svc.backend == backend, f"the service serves {svc.backend}")
     time_ms = timer(torch, device)
     node, edge, seeds = svc.dev.arrays()
     if backend == "hash":
@@ -625,8 +876,8 @@ def phase_times(torch, device, s: Dict, card: str,
         _check(n_dist >= 2, f"fewer than 2 distinct batches at D={depth}")
         batches, nbytes, traffics = [], [], []
         for i in range(n_dist):
-            w, ln, sy = _operands(torch, svc.inc, pool[i * BATCH:],
-                                  depth, BATCH, device)[:3]
+            w, ln, sy = _encoded(torch, svc.inc, pool[i * BATCH:], depth,
+                                 BATCH, device)
             args = (w, ln, sy, *tables)
             traffic: Dict[str, int] = {}
             acc_p, aover_p = plain(*args, active_slots=A, traffic=traffic)
@@ -636,7 +887,7 @@ def phase_times(torch, device, s: Dict, card: str,
                       int((aover.long() - aover_p.long()).abs().max()))
             _check(err == 0,
                    f"{walk.__name__} != plain on the served table at "
-                   f"D={depth}")
+                   f"D={depth}, batch {i}")
             batches.append(args)
             traffics.append(traffic)
             nbytes.append(nbytes_of(traffic, depth, A))
@@ -681,34 +932,43 @@ def phase_times(torch, device, s: Dict, card: str,
     flush = None
     stages = _stage_breakdown(torch, device, svc, topics)
     n_batches = len(topics) // BATCH
-    lat = []
-    for i in range(TIMED_BATCHES):
-        lo = (i % n_batches) * BATCH
-        t0 = time.perf_counter()
-        svc.serve(topics[lo:lo + BATCH])
-        lat.append(time.perf_counter() - t0)
+    lat, gc_ms = [], []
+    with GcPauses() as pauses:
+        for i in range(timed):
+            lo = (i % n_batches) * BATCH
+            g0 = pauses.ms
+            t0 = time.perf_counter()
+            svc.serve(topics[lo:lo + BATCH])
+            lat.append(time.perf_counter() - t0)
+            gc_ms.append(pauses.ms - g0)
     busy = {"busy_share": "not measured", "idle_share": "not measured"}
     if device.type == "cuda":
         busy = device_busy(torch, lambda: [
             svc.serve(topics[i * BATCH:(i + 1) * BATCH])
             for i in range(n_batches)])
-    emit({"phase": "times" if backend == "hash" else "times_join",
+    emit({"phase": name or ("times" if backend == "hash" else "times_join"),
           "ok": True, "card": card, "backend": backend, "walk": shapes,
           "serve_topics_per_s": len(lat) * BATCH / sum(lat),
           "serve_p50_ms": _pct(lat, 50) * 1e3,
           "serve_p99_ms": _pct(lat, 99) * 1e3, "serve_samples": len(lat),
+          "serve_gc": {**pauses.summary(),
+                       "p99_ms_less_gc": _pct(
+                           [t * 1e3 - g for t, g in zip(lat, gc_ms)], 99)},
           "serve_stage_ms": stages, "serve_device": busy,
           "table_bytes": svc.dev.table_bytes,
-          "spill_share": s["spill_share"]})
-    return shapes
+          "spill_share": s["spill_share"],
+          "wall_s": time.perf_counter() - t_start})
+    return shapes, stages
 
 
 def _stage_breakdown(torch, device, svc, topics) -> Dict[str, float]:
     """Mean ms per 2048-topic batch of each serve stage, over every batch
     of ``topics`` run stage by stage with a device sync after the
-    dispatch."""
+    dispatch; with the accept ids the split stage turned into filters
+    (``split_ids``, all batches) and its µs per id."""
     acc = {"depth_groups": 0.0, "encode_dispatch": 0.0, "device_wait": 0.0,
            "readback": 0.0, "collect": 0.0, "split": 0.0}
+    ids = 0
     n = len(topics) // BATCH
     for i in range(n):
         batch = topics[i * BATCH:(i + 1) * BATCH]
@@ -727,10 +987,13 @@ def _stage_breakdown(torch, device, svc, topics) -> Dict[str, float]:
         t5 = time.perf_counter()
         [svc._split_row(r) for r in rows]
         t6 = time.perf_counter()
+        ids += sum(map(len, rows))
         for k, a, b in (("depth_groups", t0, t1), ("encode_dispatch", t1, t2),
                         ("device_wait", t2, t3), ("readback", t3, t4),
                         ("collect", t4, t5), ("split", t5, t6)):
             acc[k] += (b - a) * 1e3 / n
+    acc["split_ids"] = ids
+    acc["split_us_per_id"] = acc["split"] * n * 1e3 / max(1, ids)
     return acc
 
 
@@ -743,36 +1006,63 @@ def _registers(name: str):
     return int(found.group(1)) if found else None
 
 
-def _kernel_entry(backend: str, launches: int, max_err: int,
-                  shapes: List[Dict]) -> Dict:
-    """One kernel's entry of the kernels line: the main path's launches,
-    the serve shape's (B=2048, D=16) times and bound, its launch shape
-    and registers, every shape."""
+def _kernel_entry(backend: str, launches: Dict[str, int], max_err: int,
+                  shapes: List[Dict], shapes_10m: List[Dict]) -> Dict:
+    """One kernel's entry of the kernels line: the 1M main path's
+    launches (and every path's), the serve shape's (B=2048, D=16) times
+    and bound at 1M and at 10M filters, its launch shape and registers,
+    every shape."""
     from emqx_tpu_torch.ops.walk_kernel import launch_shape
 
     name, source, replaces = KERNELS[backend]
     main_shape = shapes[0]
     threads, lanes = launch_shape(main_shape["A"])
+    big = shapes_10m[0]
     return {
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": launches,
+        "replaces": replaces, "launches": launches["1m"],
+        "launches_by_path": launches,
         "threads_per_block": threads, "lanes_per_row": lanes,
         "registers": _registers(name),
-        "max_abs_err": max(max_err, *(x["max_abs_err"] for x in shapes)),
+        "max_abs_err": max(max_err, *(x["max_abs_err"]
+                                      for x in shapes + shapes_10m)),
         "ms": main_shape["ms"], "ms_cold": main_shape["ms_cold"],
         "ms_warm": main_shape["ms_warm"],
         "plain_ms": main_shape["plain_ms"],
         "plain_covered": main_shape["plain_covered"],
         "plain_timing": main_shape["plain_timing"],
         "bound_ms": main_shape["bound_ms"], "bound_by": "bytes",
-        "library_ms": None, "shapes": shapes}
+        "library_ms": None,
+        "at_10m": {k: big[k] for k in ("D", "ms", "ms_cold", "ms_warm",
+                                       "plain_ms", "bound_ms")},
+        "shapes": shapes, "shapes_10m": shapes_10m}
+
+
+def _native_build() -> Dict[str, float]:
+    """``g++`` of the native table and encoder (seconds each; 0.0 when
+    already built)."""
+    from emqx_tpu_torch.native import build
+
+    took = {}
+    for name in ("nfa", "encoder"):
+        t0 = time.perf_counter()
+        fresh = not build._lib_path(name).exists()
+        build.load_library(name)
+        took[name] = time.perf_counter() - t0 if fresh else 0.0
+    return took
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--filters", type=int, default=1_000_000)
+    ap.add_argument("--python-filters", type=int, default=PYTHON_FILTERS)
+    ap.add_argument("--large-filters", type=int, default=LARGE_FILTERS)
+    ap.add_argument("--timed-batches", type=int, default=TIMED_BATCHES,
+                    help="serve() calls timed at 1M filters (a fifth of "
+                    "them at 10M)")
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="dry run of phases 4-7 on the CPU; prints no result")
+                    help="dry run of the serve phases on the CPU; prints "
+                    "no result")
     args = ap.parse_args(argv)
 
     import torch
@@ -784,6 +1074,8 @@ def main(argv=None) -> int:
         return 2
     else:
         device = torch.device("cuda", 0)
+    from concurrent.futures import ThreadPoolExecutor
+
     from emqx_tpu_torch.ops import cuda_build
 
     phase = "device"
@@ -799,30 +1091,71 @@ def main(argv=None) -> int:
                   "torch": torch.__version__, "cuda": torch.version.cuda})
             phase = "build"
             t0 = time.perf_counter()
-            took = cuda_build.build()
+            with ThreadPoolExecutor(1) as pool:   # g++ beside the nvcc's
+                native = pool.submit(_native_build)
+                took = cuda_build.build()
+                native_took = native.result()
             emit({"phase": "build", "ok": True,
                   "seconds": time.perf_counter() - t0, "per_source_s": took,
-                  "built": sorted(took),
+                  "native_s": native_took,
+                  "built": sorted(took) + sorted(native_took),
                   "ptxas": {name: [
                       ln.strip()
                       for ln in cuda_build.ptxas_log(name).splitlines()
                       if "registers" in ln or "spill" in ln]
                       for name in took}})
             phase = "kernel"
+            t0 = time.perf_counter()
             max_err = phase_kernel(torch, device)
+            emit({"phase": "kernel_wall", "ok": True,
+                  "wall_s": time.perf_counter() - t0})
+        launches = {"hash": {}, "join": {}}
         phase = "slice"
         s = phase_slice(torch, device, args.filters)
         phase = "times"
-        shapes = phase_times(torch, device, s, card)
-        hash_launches = s["launches"]
-        # one 1M-filter table in host memory at a time
+        shapes, native_stages = phase_times(torch, device, s, card,
+                                            timed=args.timed_batches)
+        launches["hash"]["1m"] = s["launches"]
+        # one table in host memory at a time
         s = None
         gc.collect()
         phase = "slice_join"
         s = phase_slice_join(torch, device, args.filters)
         phase = "times_join"
-        join_shapes = phase_times(torch, device, s, card, backend="join")
-        join_launches = s["launches"]
+        join_shapes, _ = phase_times(torch, device, s, card, backend="join",
+                                     timed=args.timed_batches)
+        launches["join"]["1m"] = s["launches"]
+        s = None
+        gc.collect()
+        phase = "slice_python"
+        s = phase_slice_python(torch, device, args.python_filters)
+        launches["hash"]["python"] = s["launches"]
+        py_us, nat_us = (s["stages"]["split_us_per_id"],
+                         native_stages["split_us_per_id"])
+        emit({"phase": "split_per_id", "ok": True,
+              "native_1m_us_per_id": nat_us,
+              "native_1m_ids": native_stages["split_ids"],
+              "python_us_per_id": py_us,
+              "python_ids": s["stages"]["split_ids"],
+              "native_over_python": nat_us / py_us})
+        s = None
+        gc.collect()
+        phase = "slice_10m_build"
+        big = phase_10m_build(torch, device, args.large_filters)
+        phase = "slice_10m"
+        s = phase_10m(torch, device, big)
+        big = None      # the filter list and the oracle go
+        launches["hash"]["10m"] = s["launches"]
+        launches["join"]["10m"] = s["join_launches"]
+        phase = "times_10m"
+        shapes_10m, _ = phase_times(torch, device, s, card, name="times_10m",
+                                    timed=args.timed_batches // 5)
+        s["svc"].backend = "join"   # the same table's join mirror
+        join_shapes_10m, _ = phase_times(
+            torch, device, s, card, backend="join", name="times_10m",
+            timed=args.timed_batches // 5)
+        s = None
+        gc.collect()
     except Exception as e:  # any failed phase: report it and fail the run
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}"})
@@ -832,8 +1165,10 @@ def main(argv=None) -> int:
         return 3
     print(card, flush=True)
     emit({"kernels": [
-        _kernel_entry("hash", hash_launches, max_err["hash"], shapes),
-        _kernel_entry("join", join_launches, max_err["join"], join_shapes)]})
+        _kernel_entry("hash", launches["hash"], max_err["hash"], shapes,
+                      shapes_10m),
+        _kernel_entry("join", launches["join"], max_err["join"], join_shapes,
+                      join_shapes_10m)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -5,15 +5,19 @@ It answers "which filters match this concrete topic?" by a depth-first
 walk.  The serve core keeps the filters that are deeper than the device
 table here, and the tests and ``chip_smoke.py`` use it as the oracle.
 Refcounted: inserting a key twice needs two deletes before it goes.
+
+:class:`FilterSet` is the oracle for tables too large for a trie of
+Python objects (10M filters): a set of filter strings, matched by
+enumerating the filters that could match a topic.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 from .. import topic as T
 
-__all__ = ["FilterTrie"]
+__all__ = ["FilterSet", "FilterTrie"]
 
 
 class _Node:
@@ -104,4 +108,44 @@ class FilterTrie:
                 plus = node.children.get("+")
                 if plus is not None and not (i == 0 and sys_topic):
                     stack.append((plus, i + 1, acc + ("+",)))
+        return out
+
+
+class FilterSet:
+    """A set of wildcard filter strings, matched without an index: a
+    topic of n levels is matched only by filters made of its first k
+    levels (k = 0..n), each kept or made ``+``, followed by ``/#`` (or
+    ``#`` alone for k = 0), or with k = n ending there.  Each of those
+    about 3·2ⁿ candidates is one set lookup; root wildcards skip
+    ``$``-topics.  Memory is the set's, a fraction of a trie's."""
+
+    def __init__(self, filters: Iterable[str] = ()) -> None:
+        self._filters = set(filters)
+
+    def __len__(self) -> int:
+        return len(self._filters)
+
+    def __contains__(self, flt: str) -> bool:
+        return flt in self._filters
+
+    def insert(self, flt: str) -> None:
+        self._filters.add(flt)
+
+    def delete(self, flt: str) -> None:
+        self._filters.discard(flt)
+
+    def match(self, topic: str) -> List[str]:
+        """The filters of the set that match concrete topic ``topic``."""
+        have = self._filters
+        sys_ = topic.startswith("$")
+        out = [] if sys_ or "#" not in have else ["#"]
+        prefixes = [""]
+        for i, w in enumerate(T.words(topic)):
+            if i == 0:
+                prefixes = [w] if sys_ else [w, "+"]
+            else:
+                prefixes = [p + s for p in prefixes
+                            for s in ("/" + w, "/+")]
+            out.extend(f for f in (p + "/#" for p in prefixes) if f in have)
+        out.extend(p for p in prefixes if p in have)
         return out

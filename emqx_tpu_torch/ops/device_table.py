@@ -1,4 +1,4 @@
-"""Device twin of :class:`~emqx_tpu_torch.ops.incremental.IncrementalNfa`.
+"""Device twin of a host table (``IncrementalNfa`` or ``NativeNfa``).
 
 The port of ``emqx_tpu/ops/device_table.py``'s ``DeviceNfa``: the host
 table is the authority, and this class keeps the resident device copy
@@ -128,11 +128,13 @@ class DeviceNfa:
         delta = self.inc.flush()
         key = self.inc.shape_key()
         if full or delta.resized or self._shape_key != key:
-            return PendingSync(
-                delta=None,
-                full=(self.inc.node_tab.copy(), self.inc.edge_tab.copy(),
-                      self.inc.seeds.copy()),
-                shape_key=key, epoch=self.inc.epoch)
+            if hasattr(self.inc, "tables"):     # native table: one export
+                tabs = self.inc.tables()
+            else:
+                tabs = (self.inc.node_tab.copy(), self.inc.edge_tab.copy(),
+                        self.inc.seeds.copy())
+            return PendingSync(delta=None, full=tabs, shape_key=key,
+                               epoch=self.inc.epoch)
         return PendingSync(delta=delta, full=None, shape_key=key,
                            epoch=delta.epoch)
 
