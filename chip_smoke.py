@@ -68,22 +68,55 @@ phases, one JSON line each; any failure exits non-zero:
 11. times_10m — phase 5's readings at 10M, once for each kernel (a
    fifth of the timed ``serve()`` calls).
 
+Between phases 8 and 9 it drives the broker's own publish path:
+
+* slice_node_build — BASELINE config 2 through ``Broker.subscribe``:
+  the 1M filters (seed 0) shared out to 10,000 clients, a
+  ``MatchService`` with the node defaults (``table=auto``, ``hash``,
+  window 0.2 ms, batch 2048, ``bypass_rate`` 500, ``hint_cap`` 65536)
+  started on the broker, ``broker.device_match = ms.hint_routes`` and a
+  counting ``on_deliver``; the subscribe seconds, the router trie's
+  nodes, the seconds from ``start()`` to ready (bootstrap, upload and
+  the warm-up that builds the kernels) and the table sizes;
+* slice_node — 2048 publisher tasks take the workload's Zipfian topic
+  stream in turn, each ``await ms.prefetch(topic)`` then
+  ``broker.publish``: 10 × 2048 publishes of warm-up, then 100 × 2048
+  timed while a churn subscribes 1,000 fresh filters and unsubscribes
+  1,000 others through the broker, 100 of each a second whatever the
+  service's state (the relation rebuilds it causes are counted).  Every route list a hint gave equals
+  ``router.match_routes`` of that moment; no device batch failed (a
+  batch refused for an accept id reused in flight is counted apart), no
+  prefetch timed out, launches equal dispatches, hints served at least
+  half the timed publishes.  Publishes/s, p50/p99 (each less its route
+  check), the shares of the publishes, batch sizes and rate, the
+  collector's pauses, the card's busy share over 10 × 2048 more
+  publishes (``torch.profiler``), and the same timed publishes on the
+  host trie alone (``device_match = None``, no prefetch);
+* slice_node_auto — the service stopped and freed, a ``backend="auto"``
+  one started on the same broker, the same storm with another churn:
+  the tuner's picks per shape with each backend's measured µs (each
+  the device time of one flat match, under 1 ms), the join dispatches, and the same checks (launches equal the
+  dispatches plus the tuner's measurement walks).
+
 Each phase's line carries its wall seconds.
 The line before the last names every kernel with its numbers (and its
 launch shape, ``ptxas`` register count, launches on each path and its
 10M readings); the last line is ``{"ok": true, "device": {...}}``.
 With no CUDA device the script prints no result and exits 2.
-``--rehearse-cpu`` runs phases 4-11 on the CPU with the plain versions
-(give it small ``--filters``, ``--python-filters``, ``--large-filters``
-and ``--timed-batches``) and prints no result either (a dry run of the
+``--rehearse-cpu`` runs phases 4-11 and the slice_node phases on the
+CPU with the plain versions (give it small ``--filters``,
+``--python-filters``, ``--large-filters``, ``--timed-batches`` and
+``--storm-batches``) and prints no result either (a dry run of the
 control flow).
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import gc
 import json
+import logging
 import re
 import subprocess
 import sys
@@ -103,6 +136,14 @@ BATCHES_10M = 20            # 10M batches served on each backend ...
 AFTER_BATCHES_10M = 4       # ... the last of them after the churn
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 SMALL_CHURN = (100, 40)     # join path: removes, adds within the overlay
+SESSIONS = 10_000           # slice_node: clients, each with an equal share
+STORM_TASKS = 2048          # slice_node: concurrent publishers (one batch)
+WARM_STORM = 10             # slice_node: warm-up publishes, in batches ...
+STORM_BATCHES = 100         # ... and timed publishes, in batches of 2048
+BUSY_BATCHES = 10           # slice_node: publishes under torch.profiler
+NODE_CHURN = 1000           # slice_node: subscribes and unsubscribes ...
+NODE_CHURN_RATE = 100.0     # ... of each a second, on the wall clock
+NODE_LOGGER = "emqx_tpu_torch.broker.match_service"
 #: name, source and replaced TPU kernel of each walk kernel
 KERNELS = {
     "hash": ("nfa_walk", "emqx_tpu_torch/ops/csrc/nfa_walk.cu",
@@ -274,6 +315,12 @@ def device_busy(torch, fn) -> Dict[str, object]:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return _busy_share(torch, prof, wall_us)
+
+
+def _busy_share(torch, prof, wall_us: float) -> Dict[str, object]:
+    """The union of the device spans of profile ``prof`` over a window of
+    ``wall_us`` host µs."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -810,6 +857,507 @@ def phase_10m(torch, device, b: Dict) -> Dict:
             "spill_share": svc.fallback_host / svc.topics}
 
 
+def _routes_key(routes) -> str:
+    """A route list as one string (untracked by the collector)."""
+    return "\n".join(sorted(f"{f}\t{d}" for f, d in routes))
+
+
+class _RouteLog:
+    """``Broker.device_match`` for the storms: the service's
+    ``hint_routes``, logging each route list it returns with the router
+    epoch of that moment, for :func:`_verify_routes` after the storm (an
+    inline oracle walk would add its cost to every other publisher's
+    wait on the shared event loop).  The log is three lists of strings
+    and ints, so that it adds no objects for the collector to walk."""
+
+    def __init__(self, ms, router) -> None:
+        self.ms, self.router = ms, router
+        self.topics: List[str] = []
+        self.keys: List[str] = []
+        self.epochs: List[int] = []
+
+    def __call__(self, topic: str):
+        routes = self.ms.hint_routes(topic)
+        if routes is not None:
+            self.topics.append(topic)
+            self.keys.append(_routes_key(routes))
+            self.epochs.append(self.router.epoch)
+        return routes
+
+
+def _verify_routes(router, log: _RouteLog) -> int:
+    """Mismatches of the logged route lists against
+    ``router.match_routes(topic)`` as it stood at the logged epoch: the
+    routes of now, with every route mutation after that epoch on a
+    filter that matches the topic undone, newest first (the router's
+    delta log holds them all)."""
+    from emqx_tpu_torch import topic as T
+    from emqx_tpu_torch.broker.router import Route
+    from emqx_tpu_torch.broker.trie import FilterTrie
+
+    if not log.topics:
+        return 0
+    deltas = router.deltas_since(min(log.epochs))
+    _check(deltas is not None, "the router's delta log no longer reaches "
+           "the storm's first epoch")
+    by_filter: Dict[str, List] = {}
+    wild = FilterTrie()
+    for d in deltas:
+        if d.filter not in by_filter and T.wildcard(d.filter):
+            wild.insert(d.filter)
+        by_filter.setdefault(d.filter, []).append(d)
+    now: Dict[str, tuple] = {}
+    bad = 0
+    for topic, key, epoch in zip(log.topics, log.keys, log.epochs):
+        if topic not in now:
+            touched = [d for f in wild.match(topic) + [topic]
+                       for d in by_filter.get(f, ())]
+            now[topic] = (set(router.match_routes(topic)),
+                          sorted(touched, key=lambda d: -d.epoch))
+        want, touched = now[topic]
+        want = set(want)
+        for d in touched:
+            if d.epoch <= epoch:
+                break
+            (want.discard if d.op == "add" else want.add)(
+                Route(d.filter, d.dest))
+        bad += key != _routes_key(want)
+    return bad
+
+
+class _LogCount(logging.Handler):
+    """Counts the service's records of failed device batches and of
+    prefetches that timed out (both logged at debug).  A batch refused
+    because an accept id was reused while it was in flight (the service's
+    ``_StaleRace``, the designed answer to churn) is counted apart."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.DEBUG)
+        self.reset()
+
+    def reset(self) -> None:
+        self.failed = self.timeouts = self.stale_races = 0
+        self.first = None
+
+    def emit(self, record) -> None:
+        from emqx_tpu_torch.broker.match_service import _StaleRace
+
+        msg = record.getMessage()
+        if msg.startswith("device batch failed"):
+            if record.exc_info and isinstance(record.exc_info[1],
+                                              _StaleRace):
+                self.stale_races += 1
+                return
+            self.failed += 1
+        elif "timed out" in msg:
+            self.timeouts += 1
+        else:
+            return
+        if self.first is None:
+            self.first = msg + " " + repr(record.exc_info and
+                                          record.exc_info[1])
+
+
+async def _storm(ms, broker, topics, lo: int, hi: int,
+                 lat: List[float]) -> Dict[str, float]:
+    """``STORM_TASKS`` publisher tasks, each taking the next topic of
+    ``topics[lo:hi]``: ``await ms.prefetch(topic)`` (none when ``ms`` is
+    None, the host trie), then ``broker.publish``, then one yield to the
+    event loop, as a connection's read of its next packet yields.
+    Appends each publish's seconds (prefetch and publish) to ``lat``."""
+    from emqx_tpu_torch.broker.message import make_message
+
+    nxt = [lo]
+    delivered = [0]
+
+    async def publisher(k: int) -> None:
+        sender = f"pub{k}"
+        while nxt[0] < hi:
+            topic = topics[nxt[0]]
+            nxt[0] += 1
+            t0 = time.perf_counter()
+            if ms is not None:
+                await ms.prefetch(topic, qos=0)
+            # the result is not held across the yield, as a connection
+            # does not hold it: 2048 of them would outlive the young
+            # collections and load the full ones
+            matched = broker.publish(make_message(sender, topic, b"x")).matched
+            lat.append(time.perf_counter() - t0)
+            delivered[0] += matched
+            await asyncio.sleep(0)
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*[publisher(k) for k in range(STORM_TASKS)])
+    return {"wall_s": time.perf_counter() - t0, "delivered": delivered[0]}
+
+
+async def _broker_churn(ms, broker, add, remove,
+                        rate: float = NODE_CHURN_RATE) -> Dict:
+    """Subscribe ``add`` and unsubscribe ``remove`` ((client, filter)
+    pairs) through the broker, ``rate`` of each a second on the wall
+    clock (a late wake of the busy loop does at once what fell due
+    meanwhile), whatever the service's state; then wait until the
+    device table reflects the last of them.  ``max_lag`` is the most
+    router mutations the device table trailed by at a churn step, and
+    ``steps_past_stale_bound`` counts the steps at which it trailed by
+    more than the service serves with."""
+    n = max(len(add), len(remove))
+    done = max_lag = past = 0
+    t0 = time.perf_counter()
+    while done < n:
+        due = min(n, int((time.perf_counter() - t0) * rate) + 1)
+        for cid, flt in add[done:due]:
+            broker.subscribe(cid, flt)
+        for cid, flt in remove[done:due]:
+            _check(broker.unsubscribe(cid, flt), f"unsubscribe {flt!r}")
+        done = due
+        lag = broker.router.epoch - ms._synced_epoch
+        max_lag = max(max_lag, lag)
+        past += lag > ms.max_stale_deltas
+        await asyncio.sleep(max(0.0, t0 + done / rate - time.perf_counter()))
+    epoch = broker.router.epoch
+    t1 = time.perf_counter()
+    while ms._synced_epoch < epoch:
+        await asyncio.sleep(0.001)
+    return {"subscribed": len(add), "unsubscribed": len(remove),
+            "rate_per_s": rate, "churn_s": t1 - t0, "max_lag": max_lag,
+            "steps_past_stale_bound": past,
+            "last_subscribe_to_synced_ms": (time.perf_counter() - t1) * 1e3}
+
+
+def _node_churn(broker, filters, rng_seed: int, topics) -> tuple:
+    """``NODE_CHURN`` fresh workload filters for existing clients, and
+    ``NODE_CHURN`` subscribed (client, filter) pairs to drop; with the
+    number of ``topics`` a fresh filter matches."""
+    from emqx_tpu_torch.broker.trie import FilterTrie
+
+    rng = np.random.default_rng(rng_seed)
+    held = set(broker.router.wildcard_filters())
+    fresh = _fresh_filters(held, NODE_CHURN, rng_seed)
+    cids = sorted(broker.sessions)
+    add = [(cids[int(i)], f) for i, f in
+           zip(rng.integers(len(cids), size=len(fresh)), fresh)]
+    drop = []
+    for i in rng.choice(len(cids), NODE_CHURN, replace=False):
+        subs = sorted(broker.sessions[cids[int(i)]].subscriptions)
+        drop.append((cids[int(i)], subs[int(rng.integers(len(subs)))]))
+    trie = FilterTrie()
+    for f in fresh:
+        trie.insert(f)
+    hit = sum(1 for t in topics if trie.match(t))
+    return add, drop, hit
+
+
+def _storm_line(res: Dict, lat: List[float], n: int, gcp, ms, m0, m1,
+                card: str) -> Dict:
+    """The numbers of one storm: rates, latency, the publishes' shares,
+    the batches, the collector."""
+    served = m1["tpu.match.hint_served"] - m0["tpu.match.hint_served"]
+    rode = m1["tpu.match.topics"] - m0["tpu.match.topics"]
+    bypass = m1["tpu.match.bypass"] - m0["tpu.match.bypass"]
+    batch_ms = ms._batch_ms[ms._batch_ms_at:] or [0.0]
+    batches = len(ms._batch_ms) - ms._batch_ms_at
+    return {
+        "card": card, "publishes": n,
+        "publishes_per_s": n / res["wall_s"],
+        "p50_ms": _pct(lat, 50) * 1e3, "p99_ms": _pct(lat, 99) * 1e3,
+        "max_ms": max(lat) * 1e3,
+        "share": {"device_hint": served / n,
+                  "rode_a_batch": rode / n,
+                  "fresh_hint_at_prefetch": (served - rode) / n,
+                  "bypassed": bypass / n, "host_trie": 1 - served / n},
+        "hint_served": served, "hint_stale":
+            m1["tpu.match.hint_stale"] - m0["tpu.match.hint_stale"],
+        "hint_evicted":
+            m1["tpu.match.hint_evicted"] - m0["tpu.match.hint_evicted"],
+        "host_reruns": (m1["tpu.match.fallback_host"]
+                        - m0["tpu.match.fallback_host"]),
+        "device_batches": batches,
+        "mean_batch_topics": rode / max(1, batches),
+        "batch_ms": {"mean": float(np.mean(batch_ms)),
+                     "p99": _pct(batch_ms, 99), "max": max(batch_ms)},
+        "batches_per_s": batches / res["wall_s"],
+        "deliveries_per_publish": res["delivered"] / n,
+        "gc": {**gcp.summary(), "full_collections": gcp.count[2],
+               "full_ms": gcp.pause_ms[2]}}
+
+
+async def _busy_storm(torch, device, ms, broker, topics, lo, hi) -> Dict:
+    """Device busy share of the card over a storm of ``topics[lo:hi]``
+    (``torch.profiler``); not measured on the CPU."""
+    if device.type != "cuda":
+        return {"busy_share": "not measured", "idle_share": "not measured"}
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        await _storm(ms, broker, topics, lo, hi, [])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = _busy_share(torch, prof, wall_us)
+    out["publishes"] = hi - lo
+    return out
+
+
+def _count_batches(ms) -> None:
+    """Count and time the serve loop's batches (``ms._batch_ms``, one
+    entry a batch: dispatch to hints minted) by wrapping its batch
+    stage."""
+    inner = ms._serve_batch
+    ms._batch_ms = []
+    ms._batch_ms_at = 0
+
+    async def counted(pending):
+        t0 = time.perf_counter()
+        await inner(pending)
+        ms._batch_ms.append((time.perf_counter() - t0) * 1e3)
+    ms._serve_batch = counted
+
+
+async def _start_node_service(torch, device, broker, metrics, backend):
+    """A node-default ``MatchService`` on ``broker``, started; returns it
+    with the seconds from ``start()`` to ready and synced."""
+    from emqx_tpu_torch.broker.match_service import MatchService
+
+    # the plain walks on the CPU (rehearsal) take longer than the node's
+    # 0.5 s prefetch timeout allows a queue of batches
+    kw = {} if device.type == "cuda" else {"prefetch_timeout_s": 60.0}
+    ms = MatchService(broker, metrics, device=device, backend=backend, **kw)
+    t0 = time.perf_counter()
+    await ms.start()
+    while not (ms.ready and ms._synced_epoch == broker.router.epoch):
+        _check(time.perf_counter() - t0 < 600, "the service never got ready")
+        await asyncio.sleep(0.005)
+    ready_s = time.perf_counter() - t0
+    _check(ms.dev.epoch == ms.inc.epoch, "the device table lags the host")
+    _count_batches(ms)
+    return ms, ready_s
+
+
+async def _node_storms(torch, device, ms, broker, metrics, topics, card,
+                       churn, storm_batches: int, name: str):
+    """Warm-up and the timed storm (with ``churn`` running beside it)
+    through ``ms``.  Returns its line and the checks of ``slice_node``
+    that failed.  ``join_rebuilds`` counts the relation rebuilds the
+    churn caused (each sorted and uploaded on the sync thread while the
+    loop serves; ``batch_ms.max`` would show a stall)."""
+    from emqx_tpu_torch.ops import walk_kernel
+
+    check = _RouteLog(ms, broker.router)
+    broker.device_match = check
+    warm_hi = WARM_STORM * BATCH
+    hi = warm_hi + storm_batches * BATCH
+    await _storm(ms, broker, topics, 0, warm_hi, [])
+    # -- the main path: counts zeroed just before, read just after -------
+    walk_kernel.launches = 0
+    walk_kernel.join_launches = 0
+    d0, j0, a0 = ms.dispatches, ms.join_dispatches, ms.autotune_launches
+    r0 = ms.dev.join_rebuilds
+    m0 = metrics.all()
+    ms._batch_ms_at = len(ms._batch_ms)
+    lat: List[float] = []
+    gc.collect()
+    with GcPauses() as pauses:
+        storm = asyncio.ensure_future(
+            _storm(ms, broker, topics, warm_hi, hi, lat))
+        churned = await _broker_churn(ms, broker, *churn) if churn else None
+        res = await storm
+    m1 = metrics.all()
+    launches = walk_kernel.launches
+    join_launches = walk_kernel.join_launches
+    dispatches = ms.dispatches - d0
+    join_dispatches = ms.join_dispatches - j0
+    measure_launches = ms.autotune_launches - a0
+    rebuilds = ms.dev.join_rebuilds - r0
+    # ---------------------------------------------------------------------
+    n = hi - warm_hi
+    line = _storm_line(res, lat, n, pauses, ms, m0, m1, card)
+    t0 = time.perf_counter()
+    line.update({"phase": name, "ok": True, "backend": ms.backend,
+                 "mismatches": _verify_routes(broker.router, check),
+                 "checked": len(check.topics),
+                 "check_s": time.perf_counter() - t0,
+                 "walk_dispatches": dispatches,
+                 "join_dispatches": join_dispatches,
+                 "kernel_launches": launches,
+                 "join_kernel_launches": join_launches,
+                 "autotune_launches": measure_launches,
+                 "join_rebuilds": rebuilds, "churn": churned})
+    failed = [what for ok, what in (
+        (line["mismatches"] == 0,
+         f"{line['mismatches']} device routes differ from the router"),
+        (line["checked"] >= line["hint_served"],
+         "a device route list escaped the check"))
+        if not ok]
+    if device.type == "cuda":
+        # on the CPU (rehearsal) the plain walks are slow enough that a
+        # churn overlaps nearly every batch: no duty-cycle bound there
+        joins = (join_dispatches + measure_launches // 2
+                 if ms.backend == "auto" else 0)
+        failed += [what for ok, what in (
+            (line["hint_served"] >= n / 2,
+             f"hints served {line['hint_served']} of {n} publishes"),
+            (launches + join_launches == dispatches + measure_launches,
+             f"launches {launches}+{join_launches} != dispatches "
+             f"{dispatches} + measurement walks {measure_launches}"),
+            (join_launches == joins,
+             f"join launches {join_launches}, want {joins}"))
+            if not ok]
+    return line, failed
+
+
+def _emit_checked(line: Dict, failed: List[str]) -> None:
+    """Emit ``line``, then fail the phase on its first failed check (so
+    that the numbers behind a failure are printed)."""
+    line["ok"] = not failed
+    if failed:
+        line["failed_checks"] = failed
+    emit(line)
+    _check(not failed, "; ".join(failed))
+
+
+def phase_slice_node(torch, device, n_filters: int, card: str,
+                     storm_batches: int) -> Dict:
+    """The broker's own publish path at 1M subscriptions (BASELINE config
+    2) with the node defaults: ``Broker.subscribe`` of every filter by
+    ``SESSIONS`` clients, a ``MatchService`` started on the broker
+    (bootstrap, upload, warm-up), then storms of ``STORM_TASKS``
+    concurrent publishers (prefetch, then ``Broker.publish``) on the
+    hash backend with a churn beside it, on the host trie alone, and on
+    a fresh ``auto`` service with another churn."""
+    return asyncio.run(_slice_node(torch, device, n_filters, card,
+                                   storm_batches))
+
+
+def _log_checks(logs: "_LogCount") -> List[str]:
+    """The service's logged failures since ``logs.reset()``."""
+    out = []
+    if logs.failed:
+        out.append(f"{logs.failed} device batches failed: {logs.first}")
+    if logs.timeouts:
+        out.append(f"{logs.timeouts} prefetches timed out: {logs.first}")
+    return out
+
+
+async def _slice_node(torch, device, n_filters, card, storm_batches):
+    from emqx_tpu_torch.broker.broker import Broker
+    from emqx_tpu_torch.observe import Metrics
+    from emqx_tpu_torch.workload import build_workload
+
+    t_start = time.perf_counter()
+    n_topics = (WARM_STORM + storm_batches + BUSY_BATCHES) * BATCH
+    filters, topics = build_workload(np.random.default_rng(0), n_filters,
+                                     n_topics)
+    t1 = time.perf_counter()
+    order = np.random.default_rng(1).permutation(len(filters))
+    per = -(-len(filters) // SESSIONS)
+    metrics = Metrics()
+    broker = Broker()
+    broker.metrics = metrics
+    for k in range(SESSIONS):
+        cid = f"dev{k}"
+        broker.open_session(cid)
+        for i in order[k * per:(k + 1) * per].tolist():
+            broker.subscribe(cid, filters[i])
+    t2 = time.perf_counter()
+    nodes = broker.router._trie.node_count()
+    delivered = [0]
+
+    def on_deliver(_cid, pubs) -> None:
+        delivered[0] += len(pubs)
+    broker.on_deliver = on_deliver
+    logs = _LogCount()
+    svc_log = logging.getLogger(NODE_LOGGER)
+    svc_log.setLevel(logging.DEBUG)
+    svc_log.addHandler(logs)
+    try:
+        ms, ready_s = await _start_node_service(torch, device, broker,
+                                                metrics, "hash")
+        emit({"phase": "slice_node_build", "ok": True,
+              "filters": len(filters), "sessions": SESSIONS,
+              "routes": broker.router.route_count(),
+              "router_trie_nodes": nodes, "workload_s": t1 - t_start,
+              "subscribe_s": t2 - t1, "start_to_ready_s": ready_s,
+              "load_seconds": ms.load_seconds, **_table_info(ms),
+              "gc_frozen_objects": gc.get_freeze_count(),
+              "wall_s": time.perf_counter() - t_start})
+        timed = slice(WARM_STORM * BATCH,
+                      (WARM_STORM + storm_batches) * BATCH)
+        add, drop, hit = _node_churn(broker, filters, 11, topics[timed])
+        line, failed = await _node_storms(
+            torch, device, ms, broker, metrics, topics, card, (add, drop),
+            storm_batches, "slice_node")
+        line["churn"]["storm_topics_a_fresh_filter_matches"] = hit
+        line["stale_race_batches"] = logs.stale_races
+        failed += _log_checks(logs)
+        # the card's busy share over more publishes, under the profiler
+        hi = timed.stop
+        check = _RouteLog(ms, broker.router)
+        broker.device_match = check
+        line["device_busy"] = await _busy_storm(
+            torch, device, ms, broker, topics, hi, hi + BUSY_BATCHES * BATCH)
+        if _verify_routes(broker.router, check):
+            failed.append("device routes differ from the router in the "
+                          "profiled storm")
+        # the host trie alone: what tpu.enable = false serves
+        broker.device_match = None
+        lat: List[float] = []
+        m0 = metrics.all()
+        gc.collect()
+        with GcPauses() as pauses:
+            res = await _storm(None, broker, topics, timed.start, hi, lat)
+        host = _storm_line(res, lat, hi - timed.start, pauses, ms, m0,
+                           metrics.all(), card)
+        for k in ("share", "hint_served", "hint_stale", "hint_evicted",
+                  "host_reruns", "device_batches", "mean_batch_topics",
+                  "batch_ms", "batches_per_s"):
+            host.pop(k)
+        line.update(host_trie=host, service=ms.info(),
+                    deliveries_total=delivered[0],
+                    wall_s=time.perf_counter() - t_start)
+        _emit_checked(line, failed)
+        node_launches = (line["kernel_launches"],
+                         line["join_kernel_launches"])
+        # auto: the service stopped and freed, a fresh one on the broker
+        await ms.stop()
+        ms = line = check = None
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        logs.reset()
+        ms, ready_s = await _start_node_service(torch, device, broker,
+                                                metrics, "auto")
+        add, drop, _hit = _node_churn(broker, filters, 12, ())
+        auto, failed = await _node_storms(
+            torch, device, ms, broker, metrics, topics, card, (add, drop),
+            storm_batches, "slice_node_auto")
+        failed += _log_checks(logs)
+        if device.type == "cuda":
+            # device time of a flat match (the walk and its epilogue's
+            # launches, ~0.1-0.2 ms), not a wait on the host (a worker
+            # thread's clock read ~100 ms of GIL waits)
+            failed += [f"tuner time {us} us of {be} at {sig} is over 1 ms"
+                       for sig, took in ms.tuner.measured.items()
+                       for be, us in took.items() if us > 1000]
+        auto.update(start_to_ready_s=ready_s,
+                    stale_race_batches=logs.stale_races,
+                    tuner={"picks": dict(ms.tuner.picks),
+                           "measured_us": dict(ms.tuner.measured),
+                           "family_hits": ms.tuner.family_hits},
+                    wall_s=time.perf_counter() - t3)
+        await ms.stop()
+        broker.device_match = None
+        _emit_checked(auto, failed)
+        return {"launches": node_launches,
+                "auto_launches": (auto["kernel_launches"],
+                                  auto["join_kernel_launches"])}
+    finally:
+        svc_log.removeHandler(logs)
+        gc.unfreeze()       # the services froze the started heap
+
+
 def _pct(xs, q) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
@@ -1060,6 +1608,8 @@ def main(argv=None) -> int:
     ap.add_argument("--timed-batches", type=int, default=TIMED_BATCHES,
                     help="serve() calls timed at 1M filters (a fifth of "
                     "them at 10M)")
+    ap.add_argument("--storm-batches", type=int, default=STORM_BATCHES,
+                    help="slice_node: timed publishes, in batches of 2048")
     ap.add_argument("--rehearse-cpu", action="store_true",
                     help="dry run of the serve phases on the CPU; prints "
                     "no result")
@@ -1139,6 +1689,13 @@ def main(argv=None) -> int:
               "python_ids": s["stages"]["split_ids"],
               "native_over_python": nat_us / py_us})
         s = None
+        gc.collect()
+        phase = "slice_node"
+        node = phase_slice_node(torch, device, args.filters, card,
+                                args.storm_batches)
+        launches["hash"]["node"], launches["join"]["node"] = node["launches"]
+        (launches["hash"]["node_auto"],
+         launches["join"]["node_auto"]) = node["auto_launches"]
         gc.collect()
         phase = "slice_10m_build"
         big = phase_10m_build(torch, device, args.large_filters)

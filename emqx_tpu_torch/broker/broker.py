@@ -1,0 +1,354 @@
+"""The pubsub core: subscribe/unsubscribe/publish/dispatch.
+
+The port's own copy of the reference's ``emqx_tpu/broker/broker.py``,
+single-node: the subscriber table, the route table updates on the first
+and last subscriber of a filter, shared groups delegated to
+:class:`SharedSub`, and the publish pipeline (``'message.publish'`` hook
+fold → route match → per-subscriber QoS cap → session delivery →
+``message.delivered`` / ``message.dropped`` hooks, MQTT5 No-Local).
+
+Publish consumes the device match through ``device_match`` (the match
+service's ``hint_routes``): a fresh micro-batched device answer replaces
+the host trie walk, and an absent or stale one falls back to
+``router.match_routes``, so correctness never depends on the device.
+
+The reference's cluster forwarding seams (``on_forward``,
+``dispatch_remote``), the batched fanout and admission planes, enhanced
+auth and the latency histograms are not part of this copy.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import replace
+from typing import Dict, List, Optional, Tuple
+
+from .. import topic as T
+from .hooks import Hooks
+from .message import Message
+from .router import Router
+from .session import Publish, Session, SubOpts
+from .shared_sub import SharedSub
+
+log = logging.getLogger(__name__)
+
+__all__ = ["Broker", "DeliverResult"]
+
+
+class DeliverResult:
+    """Per-publish outcome: connection-layer sendouts + accounting."""
+
+    __slots__ = ("publishes", "dropped", "matched", "no_subscribers")
+
+    def __init__(self) -> None:
+        self.publishes: Dict[str, List[Publish]] = {}  # clientid -> sends
+        self.dropped: List[Tuple[str, Message]] = []   # (clientid, msg)
+        self.matched: int = 0
+        self.no_subscribers: bool = False
+
+
+class Broker:
+    def __init__(
+        self,
+        node: str = "local",
+        hooks: Optional[Hooks] = None,
+        shared_strategy: str = "random",
+        session_defaults: Optional[dict] = None,
+    ) -> None:
+        self.node = node
+        self.hooks = hooks if hooks is not None else Hooks()
+        self.router = Router()
+        self.shared = SharedSub(shared_strategy)
+        self.sessions: Dict[str, Session] = {}
+        # filter -> {clientid -> SubOpts}; non-shared local subscribers
+        self.subscribers: Dict[str, Dict[str, SubOpts]] = {}
+        self.session_defaults = session_defaults or {}
+        # the serving layer sets on_deliver to push straight to
+        # connections; otherwise deliveries accumulate in outbox
+        self.on_deliver = None  # Optional[Callable[[str, List[Publish]], None]]
+        self.outbox: Dict[str, List[Publish]] = {}
+        # device match seam: set to the match service's hint_routes —
+        # returns the routes of a topic when a provably fresh device
+        # answer exists, None otherwise (the host trie then serves)
+        self.device_match = None       # (topic) -> Optional[List[Route]]
+        # counter table; broker-internal drop accounting (outbox
+        # overflow) and delivery counts land here when present
+        self.metrics = None
+        self._outbox_warned: set = set()  # clients already logged for drops
+
+    # ------------------------------------------------------------------
+    # session lifecycle
+    # ------------------------------------------------------------------
+
+    def open_session(
+        self, clientid: str, clean_start: bool = True, **kw
+    ) -> Tuple[Session, bool]:
+        """Returns (session, session_present)."""
+        old = self.sessions.get(clientid)
+        if old is not None and not clean_start:
+            # a resuming client renegotiates flow-control/expiry knobs
+            if "max_inflight" in kw:
+                old.inflight.max_size = kw["max_inflight"]
+            if "expiry_interval" in kw:
+                old.expiry_interval = kw["expiry_interval"]
+            old.connected = True
+            self.hooks.run("session.resumed", (clientid,))
+            return old, True
+        if old is not None:
+            self._drop_session_state(old)
+            self.hooks.run("session.discarded", (clientid,))
+        opts = {**self.session_defaults, **kw}
+        sess = Session(clientid, clean_start=clean_start, **opts)
+        sess.metrics = self.metrics
+        self.sessions[clientid] = sess
+        self.hooks.run("session.created", (clientid,))
+        return sess, False
+
+    def close_session(self, clientid: str, discard: bool = False) -> None:
+        sess = self.sessions.get(clientid)
+        if sess is None:
+            return
+        if discard or sess.clean_start:
+            self._drop_session_state(sess)
+            del self.sessions[clientid]
+            self.outbox.pop(clientid, None)
+            self._outbox_warned.discard(clientid)
+            self.hooks.run("session.terminated", (clientid,))
+        else:
+            sess.connected = False  # deliveries queue until resume
+
+    def _drop_session_state(self, sess: Session) -> None:
+        for flt in list(sess.subscriptions):
+            self._do_unsubscribe(sess.clientid, flt, sess.subscriptions[flt])
+
+    # ------------------------------------------------------------------
+    # subscribe / unsubscribe
+    # ------------------------------------------------------------------
+
+    def subscribe(self, clientid: str, raw_filter: str,
+                  opts: SubOpts = SubOpts()) -> bool:
+        T.validate(raw_filter, "filter")
+        sess = self.sessions.get(clientid)
+        if sess is None:
+            raise KeyError(f"no session for {clientid!r}")
+        share = T.parse_share(raw_filter)
+        if share is not None:
+            group, flt = share
+            opts = replace(opts, share=group)
+        else:
+            group, flt = None, raw_filter
+        is_new = sess.subscribe(raw_filter, opts)
+        if group is not None:
+            self.shared.subscribe(group, flt, clientid, self.node)
+            self.router.add_route(flt, (group, self.node))
+        else:
+            subs = self.subscribers.setdefault(flt, {})
+            first = not subs
+            subs[clientid] = opts
+            if first:
+                self.router.add_route(flt, self.node)
+        self.hooks.run("session.subscribed",
+                       (clientid, raw_filter, opts, is_new))
+        return True
+
+    def unsubscribe(self, clientid: str, raw_filter: str) -> bool:
+        sess = self.sessions.get(clientid)
+        if sess is None:
+            return False
+        opts = sess.subscriptions.get(raw_filter)
+        if opts is None:
+            return False
+        sess.unsubscribe(raw_filter)
+        self._do_unsubscribe(clientid, raw_filter, opts)
+        self.hooks.run("session.unsubscribed", (clientid, raw_filter))
+        return True
+
+    def _do_unsubscribe(self, clientid: str, raw_filter: str,
+                        opts: SubOpts) -> None:
+        share = T.parse_share(raw_filter)
+        if share is not None:
+            group, flt = share
+            self.shared.unsubscribe(group, flt, clientid, self.node)
+            if not self.shared.members(group, flt):
+                self.router.delete_route(flt, (group, self.node))
+        else:
+            flt = raw_filter
+            subs = self.subscribers.get(flt)
+            if subs and clientid in subs:
+                del subs[clientid]
+                if not subs:
+                    del self.subscribers[flt]
+                    self.router.delete_route(flt, self.node)
+
+    # ------------------------------------------------------------------
+    # publish / dispatch (the hot path)
+    # ------------------------------------------------------------------
+
+    def publish(self, msg: Message) -> DeliverResult:
+        T.validate(msg.topic, "name")
+        res = DeliverResult()
+        msg = self.hooks.run_fold("message.publish", (), msg)
+        if msg is None or msg.headers.get("allow_publish") is False:
+            res.no_subscribers = True
+            return res
+        return self._publish_folded(msg, res)
+
+    def _publish_folded(self, msg: Message,
+                        res: DeliverResult) -> DeliverResult:
+        # a fresh micro-batched device answer replaces the per-publish
+        # host trie walk; stale or absent hints fall back
+        routes = None
+        if self.device_match is not None:
+            routes = self.device_match(msg.topic)
+        if routes is None:
+            routes = self.router.match_routes(msg.topic)
+        if not routes:
+            res.no_subscribers = True
+            self.hooks.run("message.dropped", (msg, "no_subscribers"))
+            return res
+        seen_shared: set = set()
+        for flt, dest in routes:
+            if isinstance(dest, tuple):  # (group, node) shared route
+                group, _node = dest
+                if (group, flt) in seen_shared:
+                    continue
+                seen_shared.add((group, flt))
+                self._dispatch_shared(group, flt, msg, res)
+            elif dest == self.node:
+                self._dispatch(flt, msg, res)
+        # the fan-out shared one QoS0 Publish, cached on the message
+        # (Session.deliver); dropped now, it leaves no Message <-> Publish
+        # cycle, so both die by refcount instead of by the collector
+        msg.__dict__.pop("_pub0", None)
+        # push the fan-out to the connection layer (or the outbox when no
+        # serving layer is attached — unit tests read res.publishes)
+        for clientid, pubs in res.publishes.items():
+            self.emit(clientid, pubs)
+        return res
+
+    def _dispatch(self, flt: str, msg: Message, res: DeliverResult) -> None:
+        subs = self.subscribers.get(flt)
+        if not subs:
+            return
+        for clientid, opts in subs.items():
+            if opts.nl and msg.sender == clientid:
+                continue  # MQTT5 No-Local
+            self._deliver_to(clientid, opts, msg, res)
+
+    def _dispatch_shared(
+        self, group: str, flt: str, msg: Message, res: DeliverResult
+    ) -> None:
+        def try_deliver(member: Tuple[str, str]) -> bool:
+            clientid, node = member
+            if node != self.node:
+                return False
+            sess = self.sessions.get(clientid)
+            if sess is None:
+                return False
+            # $queue/... sessions store the raw legacy key, not $share form
+            opts = sess.subscriptions.get(T.make_share(group, flt))
+            if opts is None and group == T.QUEUE_PREFIX:
+                opts = sess.subscriptions.get(f"{T.QUEUE_PREFIX}/{flt}")
+            if opts is None:
+                return False
+            return self._deliver_to(clientid, opts, msg, res)
+
+        member = self.shared.dispatch_with_ack(
+            group, flt, msg.topic, try_deliver, msg.sender, self.node)
+        if member is None:
+            self.hooks.run("message.dropped", (msg, "shared_no_available"))
+
+    @staticmethod
+    def _effective(msg: Message, opts: SubOpts) -> Message:
+        """The per-subscription view of a routed message: QoS capped at
+        the granted QoS, Retain-As-Published, Subscription-Identifier.
+        Returns ``msg`` itself when no transform applies, so a fan-out
+        shares one Message (and its payload) across subscribers."""
+        eff = msg.with_qos(min(msg.qos, opts.qos))
+        if not opts.rap:
+            # Retain-As-Published off → clear retain flag on forward
+            eff = eff.clone(retain=False) if eff.retain else eff
+        if opts.subid is not None:
+            # MQTT5 §3.3.4: echo the Subscription-Identifier with deliveries
+            eff = eff.clone(
+                properties={**eff.properties,
+                            "Subscription-Identifier": opts.subid})
+        return eff
+
+    def _deliver_to(
+        self, clientid: str, opts: SubOpts, msg: Message, res: DeliverResult
+    ) -> bool:
+        """Returns True iff *this* message was accepted (sent or queued) —
+        a queue eviction of an older message is not a nack."""
+        sess = self.sessions.get(clientid)
+        if sess is None:
+            return False
+        # the common case needs no per-subscription view (_effective
+        # would return msg itself): skip the call
+        if opts.qos >= msg.qos and (opts.rap or not msg.retain) \
+                and opts.subid is None:
+            eff = msg
+        else:
+            eff = self._effective(msg, opts)
+        sends, dropped = sess.deliver([eff])
+        if sends:
+            res.matched += 1
+            res.publishes.setdefault(clientid, []).extend(sends)
+            if self.metrics is not None:
+                self.metrics.inc("messages.delivered")
+            self.hooks.run("message.delivered", (clientid, eff))
+        if not dropped:
+            return True
+        for d in dropped:
+            res.dropped.append((clientid, d))
+            self.hooks.run("message.dropped", (d, "queue_full"))
+        return all(d.id != eff.id for d in dropped)
+
+    # ------------------------------------------------------------------
+    # delivery to the connection layer
+    # ------------------------------------------------------------------
+
+    OUTBOX_MAX = 1000  # per client; oldest dropped beyond this
+
+    def emit(self, clientid: str, pubs: List[Publish]) -> None:
+        if self.on_deliver is not None:
+            self.on_deliver(clientid, pubs)
+        else:
+            self.outbox_put(clientid, pubs)
+
+    def outbox_put(self, clientid: str, pubs: List[Publish]) -> None:
+        """Capped outbox append — the fallback path for deliveries with
+        no live connection.  Overflow evicts oldest-first, counted in
+        ``broker.outbox.dropped`` and logged once per client."""
+        box = self.outbox.setdefault(clientid, [])
+        box.extend(pubs)
+        over = len(box) - self.OUTBOX_MAX
+        if over > 0:
+            del box[:over]
+            if self.metrics is not None:
+                self.metrics.inc("broker.outbox.dropped", over)
+            if clientid not in self._outbox_warned:
+                self._outbox_warned.add(clientid)
+                log.warning(
+                    "outbox overflow for %r: dropped %d oldest "
+                    "(cap %d; further drops counted in "
+                    "broker.outbox.dropped, logged once per client)",
+                    clientid, over, self.OUTBOX_MAX,
+                )
+
+    def take_outbox(self, clientid: str) -> List[Publish]:
+        return self.outbox.pop(clientid, [])
+
+    # ------------------------------------------------------------------
+
+    def stats(self) -> Dict[str, int]:
+        return {
+            "sessions.count": len(self.sessions),
+            "subscriptions.count": sum(
+                len(s.subscriptions) for s in self.sessions.values()
+            ),
+            "subscribers.count": sum(len(v)
+                                     for v in self.subscribers.values()),
+            "routes.count": self.router.route_count(),
+            "shared_groups.count": len(self.shared.groups()),
+        }

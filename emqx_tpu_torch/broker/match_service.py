@@ -1,61 +1,141 @@
-"""The synchronous serve core of the match plane.
+"""The match plane of the broker's own publish path.
 
-The port of the serve stages of ``emqx_tpu/broker/match_service.py``
-``MatchService``: the boundary where the node hands publish topics to the
-device.  One :meth:`MatchService.serve` call chains the reference's
-stages, with their names:
+The port of ``emqx_tpu/broker/match_service.py`` ``MatchService``: the
+router's wildcard filters are mirrored into a host table and its
+resident device twin, concurrent publishes are micro-batched into walk
+dispatches, and the answers are parked in a hint cache that
+``Broker.publish`` consumes through ``Broker.device_match``.
 
-1. ``_depth_groups`` — split the batch by topic depth: topics with at
-   most ``short_depth`` levels ride a shallow walk of the same table when
-   both groups hold at least ``split_min`` topics;
-2. ``_encode_dispatch`` — encode each group (padded to a power-of-two
-   ``_bucket``) and dispatch the walk in flat mode with
-   ``flat_cap = SERVE_FLAT_MULT · B``, one walk launch per group;
-3. ``_readback_rows`` — copy each group's flat buffer and counters to
-   the host and split it per row;
-4. ``_collect_rows`` — stitch the groups back into batch order, re-run
-   spilled rows (active-set or match overflow) on the host table, and
-   merge the hits of filters too deep for the device table;
-5. ``_split_row`` — accept ids → routing filter strings, from a host
-   map kept beside the table (no call into the table per id).
+**The serve loop** (``MatchService(broker, ...)``; :meth:`start`):
 
-Filter upkeep goes through :meth:`add` / :meth:`remove` and
-:meth:`sync`, or :meth:`load` for a start from one bulk build;
-``serve`` answers against the table as of the last sync.  ``table``
-picks the host table, as the reference's ``tpu.table`` does: ``auto``
-(the node default) and ``native`` build the C++ ``NativeNfa``,
-``python`` the Python ``IncrementalNfa`` (the debug twin).  Where the
+* the mirror consumes the router's delta log (``deltas_since``): a
+  bootstrap from the live router at start, then ``_sync_loop`` drains
+  the log when ``Router.listeners`` wake it, keeps each filter
+  refcounted by its routes, writes the host table's deltas into the
+  device table (row writes on the event loop, a whole upload on a
+  worker thread) and, before ``ready``, runs
+  ``_warm``: the build and load of every CUDA kernel the backend can
+  pick and one walk per serve depth, so that no served batch waits on a
+  compiler;
+* the connection layer awaits :meth:`prefetch` per publish; the
+  fixed-window ``_batch_loop`` lets ``batch_window_s`` run out from the
+  oldest waiter's arrival, pops up to ``max_batch`` waiters and serves
+  them in one dispatch:
+  ``_encode_dispatch`` (encode, h2d, one walk per depth group),
+  ``_readback_groups`` (d2h, per-row ids), then ``_collect_rows``
+  re-runs spilled rows on the host table and refuses the batch
+  (``_StaleRace``) when a freed accept id was handed out again while it
+  was in flight.  Where the reference runs the first two on worker
+  threads, the port runs them on the event loop: on the card they take
+  a few ms a batch, while on a worker thread each of their many GIL
+  hand-offs waits out a busy loop's switch interval (1.5–3 s a batch
+  under a 2048-publisher storm at 1M filters on an H100 host);
+* ``_mint_hints`` parks each answer, stamped with the router epoch and
+  rule generation the device table reflected, in an LRU cache of
+  ``hint_cap`` topics; :meth:`hint_routes` proves a hint fresh against
+  the router's delta log before it returns its routes (only a wildcard
+  filter added since the stamp and matching the topic can make it
+  wrong), else publish walks the host trie; a hint proven fresh is
+  re-stamped, so that the next proof starts from there;
+* below ``bypass_rate`` publishes/s, prefetch skips the device (the
+  batching window would cost more than the host trie);
+* rules co-batch their FROM filters into the same table
+  (:meth:`register_rule`); :meth:`hint_rules` returns the matched rule
+  ids of a fresh hint;
+* ``backend="auto"`` serves each (batch, depth) shape on the hash or the
+  join walk as a :class:`~emqx_tpu_torch.ops.join_match.BackendAutotuner`
+  measured it: an unmeasured shape serves ``hash`` and queues one
+  measurement, which runs on the event loop once that batch's waiters
+  are resolved and times each backend's match with CUDA events (the
+  reference measures on a worker thread, where a busy loop's GIL waits
+  swamp a match of a tenth of a millisecond).  The port measures ``hash`` against ``join``
+  (its ``join-pallas`` is the same kernel);
+* at :meth:`start`, after the bootstrap, the started heap (the
+  broker's subscriptions, the router's trie, the mirror) goes to the
+  collector's permanent generation (``gc.freeze``): a
+  full collection over a 1M-subscription heap pauses the event loop
+  for seconds, past ``prefetch_timeout_s``.  The reference does not
+  freeze.
+
+**The synchronous core** (a service without a broker): :meth:`load`,
+:meth:`add`, :meth:`remove`, :meth:`sync` and :meth:`serve` chain the
+same stages in the caller's thread.  With a broker attached the router
+is the only source of filters, and those mutators raise.
+
+``table`` picks the host table as the reference's ``tpu.table`` does:
+``auto`` (the node default) and ``native`` build the C++ ``NativeNfa``,
+``python`` the ``IncrementalNfa`` (the debug twin); where the
 reference's ``auto`` falls back to Python when the native build fails,
-the port raises.
-``backend`` picks the walk, as the reference's ``match.backend`` does:
-``hash`` (the cuckoo-probe kernel) or ``join`` / ``join-pallas`` (the
-join kernel over the sorted edge relation, which the device table then
-mirrors).
-The reference's asyncio loops, deadline scheduler, pipeline, breaker,
-autotuner, segments and mesh are not part of this core.  Nothing here
-stands in for a failing kernel: a kernel error propagates to the caller.
+the port raises.  Nothing here stands in for a failing kernel: a failed
+batch resolves its waiters without a hint (publish walks the host trie
+and the failure is logged), a failed ``_warm`` keeps ``ready`` false.
+
+The reference's deadline loop, pipeline, two-phase readback, breaker,
+brownout, segments, multichip plane, histograms and flight recorder are
+not ported: their parameters raise NotImplementedError when set to
+anything but their defaults.
 """
 
 from __future__ import annotations
 
+import asyncio
+import gc
+import logging
 import time
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import faultinject as _fi
 from .. import topic as T
 from ..native.nfa import NativeNfa
-from ..ops.device_table import JOIN_BACKENDS, DeviceNfa, check_backend
+from ..ops import cuda_build
+from ..ops.device_table import BACKENDS, JOIN_BACKENDS, DeviceNfa, check_backend
 from ..ops.encode import TopicEncoder, encode_batch, table_encoder
 from ..ops.incremental import IncrementalNfa
+from ..ops.join_match import BackendAutotuner
 from ..ops.match_kernel import SERVE_FLAT_MULT, decode_flat
 from .trie import FilterTrie
 
-__all__ = ["TABLES", "MatchService"]
+log = logging.getLogger(__name__)
+
+__all__ = ["BACKEND_KERNELS", "SERVICE_BACKENDS", "TABLES", "MatchService"]
 
 #: the host tables ``MatchService(table=...)`` builds; ``auto`` is native
 TABLES = ("auto", "native", "python")
+#: the backends a service serves: the walks, and their measured pick
+SERVICE_BACKENDS = BACKENDS + ("auto",)
+#: the CUDA kernel (``ops/cuda_build.py`` name) each walk backend launches
+BACKEND_KERNELS = {"hash": "nfa_walk", "join": "nfa_join_walk",
+                   "join-pallas": "nfa_join_walk"}
+
+#: reference parameters of features this port does not serve, with the
+#: default each must keep
+_UNPORTED = {
+    "deadline": False, "deadline_s": 0.041, "pipeline": False,
+    "pipeline_depth": 2, "breaker_threshold": 5,
+    "breaker_probe_interval_s": 1.0, "dispatch_timeout_s": None,
+    "readback_mode": "chunked", "readback_auto_slack": 1.0,
+    "segments": False, "segments_dir": "", "compact_interval_s": 30.0,
+    "compact_min_mutations": 1024, "dirty_threshold": 0.5, "prewarm": True,
+    "multichip": False, "multichip_tp": 0, "multichip_native": True,
+    "multichip_ep": False, "multichip_ep_slack": 2.0,
+    "multichip_ep_micro": 8, "multichip_ep_compact": False,
+    "multichip_degraded": False, "multichip_degraded_threshold": 3,
+    "multichip_ep_overflow_warn": 0.5, "multichip_ep_autotune": False,
+    "multichip_ep_grow_threshold": 0.05,
+    "multichip_ep_shrink_threshold": 0.01, "multichip_ep_max_cap_class": 3,
+    "multichip_balance_budget": 64,
+    "hists": None, "flightrec": None, "alarms": None, "olp": None,
+}
+
+
+class _StaleRace(RuntimeError):
+    """A benign serving race (an accept id reused while the batch was in
+    flight): the batch answer cannot be trusted, the device is healthy;
+    the waiters get no hint and the host trie serves them."""
 
 
 def _validate_all(filters: Sequence[str]) -> None:
@@ -96,6 +176,11 @@ def _table_sizing(n: int) -> Tuple[int, int]:
             max(64, 1 << int(np.ceil(np.log2(n * 1.4)))))
 
 
+#: GPU cycles of the spin that covers the enqueue of a timed match
+#: (about 1 ms at an H100's boost clock)
+_SPIN_CYCLES = 2_000_000
+
+
 def _bucket(n: int, minimum: int = 64) -> int:
     """Padded batch size: the next power of two ≥ max(n, minimum)."""
     b = minimum
@@ -104,29 +189,117 @@ def _bucket(n: int, minimum: int = 64) -> int:
     return b
 
 
+class _RecentAdds:
+    """The wildcard filters the router added in its last ``window``
+    mutations, in a trie, each with the epoch of its latest add: the
+    index of the freshness proof.  A hint of epoch ``e`` (inside the
+    window) is stale for a topic exactly when a filter added after ``e``
+    matches it: one trie walk, where a scan of the delta log costs a
+    ``topic.match`` per logged add (hundreds per publish under a steady
+    churn, when each batch's hints lag the router by its sync)."""
+
+    def __init__(self, router: Any, window: int) -> None:
+        self.router = router
+        self.window = window
+        self.trie = FilterTrie()
+        self.last: Dict[str, int] = {}     # filter -> epoch of latest add
+        self.count: Dict[str, int] = {}    # filter -> its adds in the log
+        self.log: Deque[Tuple[int, str]] = deque()
+        self.epoch = router.epoch          # the router epoch caught up to
+        self.floor = 0                     # no proof for an older epoch
+
+    def _catch_up(self) -> None:
+        now = self.router.epoch
+        if now == self.epoch:
+            return
+        deltas = self.router.deltas_since(max(self.epoch, now - self.window))
+        if deltas is None:                 # the log no longer reaches
+            deltas = []
+            self.floor = now
+        for d in deltas:
+            if d.op == "add" and T.wildcard(d.filter):
+                f = d.filter
+                self.log.append((d.epoch, f))
+                self.last[f] = d.epoch
+                n = self.count.get(f, 0)
+                self.count[f] = n + 1
+                if n == 0:
+                    self.trie.insert(f)
+        log = self.log
+        while log and log[0][0] <= now - self.window:
+            f = log.popleft()[1]
+            n = self.count[f] - 1
+            if n:
+                self.count[f] = n
+            else:
+                del self.count[f], self.last[f]
+                self.trie.delete(f)
+        self.epoch = now
+
+    def stale(self, topic: str, epoch: int) -> bool:
+        """Whether a filter added after ``epoch`` (at most ``window``
+        mutations ago) matches ``topic``."""
+        self._catch_up()
+        if epoch < self.floor:
+            return True
+        last = self.last
+        return any(last[f] > epoch for f in self.trie.match(topic))
+
+
 class MatchService:
     """Wildcard filters mirrored into a resident device table; topic
     batches matched on the device with host fail-open for spilled rows.
-    Defaults are the node's (``tpu.max_levels`` 16, ``tpu.short_depth``
-    4, ``tpu.split_min`` 256, ``tpu.active_slots`` 16,
-    ``tpu.max_matches`` 128, ``tpu.batch_size`` 2048, ``match.backend``
-    hash, ``tpu.table`` auto)."""
+    Defaults are the node's (``tpu.max_levels`` 16, ``tpu.batch_deadline``
+    0.2 ms, ``tpu.batch_size`` 2048, ``tpu.mirror_refresh_interval``
+    50 ms, ``tpu.active_slots`` 16, ``tpu.max_matches`` 128,
+    ``tpu.max_stale_deltas`` 256, ``tpu.bypass_rate`` 500/s,
+    ``tpu.prefetch_timeout`` 0.5 s, ``tpu.table`` auto,
+    ``tpu.short_depth`` 4, ``tpu.split_min`` 256, ``match.backend``
+    hash, ``match.autotune`` on with 3 reps)."""
 
     FLAT_MULT = SERVE_FLAT_MULT
 
-    def __init__(self, depth: int = 16, active_slots: int = 16,
-                 max_matches: int = 128, short_depth: int = 4,
-                 split_min: int = 256, max_batch: int = 2048,
+    def __init__(self, broker: Any = None, metrics: Any = None, *,
+                 depth: int = 16, batch_window_s: float = 0.0002,
+                 max_batch: int = 2048, debounce_s: float = 0.05,
+                 active_slots: int = 16, max_matches: int = 128,
+                 hint_cap: int = 65536, max_stale_deltas: int = 256,
+                 bypass_rate: float = 500.0,
+                 prefetch_timeout_s: float = 0.5, table: str = "auto",
+                 short_depth: int = 4, split_min: int = 256,
+                 backend: str = "hash", autotune: bool = True,
+                 autotune_reps: int = 3,
                  device: Union[None, str, torch.device] = None,
-                 backend: str = "hash", table: str = "auto") -> None:
-        check_backend(backend)
+                 **unported: Any) -> None:
+        for name, value in unported.items():
+            if name not in _UNPORTED:
+                raise TypeError(f"unexpected keyword argument {name!r}")
+            if value != _UNPORTED[name]:
+                raise NotImplementedError(
+                    f"MatchService({name}={value!r}) is not ported; the "
+                    f"port serves the reference's default "
+                    f"{_UNPORTED[name]!r} only")
+        if backend not in SERVICE_BACKENDS:
+            check_backend(backend)      # raises ValueError
         if table not in TABLES:
             raise ValueError(f"unknown host table {table!r}")
+        self.broker = broker
+        self.router = broker.router if broker is not None else None
+        self.metrics = metrics
         self.backend = backend
         self.depth = depth
+        self.batch_window_s = batch_window_s
+        self.max_batch = max_batch
+        self.debounce_s = debounce_s
+        self.hint_cap = hint_cap
+        # serving tolerates up to this many un-synced router deltas; the
+        # per-topic freshness proof scans at most this many log entries
+        self.max_stale_deltas = max_stale_deltas
+        # publishes/s below which prefetch skips the device (0: never)
+        self.bypass_rate = bypass_rate
+        self.prefetch_timeout_s = prefetch_timeout_s
         self.short_depth = short_depth
         self.split_min = split_min
-        self.max_batch = max_batch
         self.table_kind = "python" if table == "python" else "native"
         self.inc = (IncrementalNfa(depth=depth) if self.table_kind == "python"
                     else NativeNfa(depth=depth))
@@ -134,28 +307,67 @@ class MatchService:
                                      device)
         self._deep: Dict[str, int] = {}    # too-deep filter -> alias aid
         self._deep_trie = FilterTrie()     # host match for too-deep filters
-        # accept id -> its routing filter (None: a free id): the split
-        # stage's map, kept here so that it asks the table nothing per id.
-        # A list, not a dict: an index costs fewer cache misses than a
-        # hash probe that also compares the stored int key (with 1M ids
-        # a dict took 1.1-1.6x the list's split time per id on an H100
-        # machine's host).  The price: the cyclic GC walks the list at
-        # every full collection (PERF.md).
+        # accept id -> its routing filter (None: a free id, or one that
+        # only rules hold): the split stage's map, kept here so that it
+        # asks the table nothing per id.  A list, not a dict: an index
+        # costs fewer cache misses than a hash probe that also compares
+        # the stored int key (with 1M ids a dict took 1.1-1.6x the
+        # list's split time per id on an H100 machine's host).  The
+        # price: the cyclic GC walks the list at every full collection.
         self._filter_of: List[Optional[str]] = []
+        self._ref: Dict[str, int] = {}    # routed wildcard filter -> routes
+        # rule filters are real table filters tagged by aid; a filter
+        # used by routing and by rules shares one aid
+        self._aid_rules: Dict[int, Set[str]] = {}         # aid -> rule ids
+        self._rule_refs: Dict[str, Dict[str, int]] = {}   # rule -> {flt: 1}
+        # rule mutation log: (gen, filters added); unregisters append an
+        # empty entry so that the generations stay contiguous
+        self._rule_gen = 0
+        self._rule_log: Deque[Tuple[int, Tuple[str, ...]]] = deque(
+            maxlen=512)
+        # backend="auto": the measured per-shape picks
+        self.tuner = (BackendAutotuner(reps=autotune_reps)
+                      if backend == "auto" and autotune else None)
+        self._tuning: Set[str] = set()     # queued or measured sigs
+        self._tune_queue: List[Tuple[str, int, int]] = []
+        # recently served topics: what the autotuner measures with
+        self._topic_sample: Deque[str] = deque(maxlen=256)
         # counters: walk dispatches (join_dispatches: those of a join
-        # backend), served batches/topics, host re-runs
+        # backend), served batches/topics, host re-runs, walks the
+        # autotuner launched
         self.dispatches = 0
         self.join_dispatches = 0
         self.batches = 0
         self.topics = 0
         self.fallback_host = 0
+        self.autotune_launches = 0
         self.load_seconds: Dict[str, float] = {}
+        # the serve loop's state
+        self.ready = False
+        self._seen_epoch = 0          # router delta-log position (drained)
+        self._synced_epoch = 0        # router epoch the DEVICE table reflects
+        self._synced_rule_gen = 0     # rule gen the device table reflects
+        self._dirty = asyncio.Event()
+        self._pending: List[Tuple[str, asyncio.Future]] = []
+        self._pending_since = 0.0     # arrival of the oldest waiter
+        self._batch_wake = asyncio.Event()
+        # topic -> (router epoch, rule gen, wild filters, rule ids)
+        self._hints: Dict[str, Tuple[int, int, Tuple[str, ...],
+                                     Tuple[str, ...]]] = {}
+        self._tasks: List[asyncio.Task] = []
+        # arrival-rate window of the adaptive bypass
+        self._win_start = time.monotonic()
+        self._win_count = 0
+        self._last_rate = 0.0
+        if broker is not None:
+            self._recent = _RecentAdds(self.router, max_stale_deltas)
+            self.router.listeners.append(self._on_router_mutation)
 
     def _bind_device(self, inc, active_slots: int, max_matches: int,
                      device) -> DeviceNfa:
         dev = DeviceNfa(inc, active_slots=active_slots,
                         max_matches=max_matches, device=device, lazy=True)
-        if self.backend in JOIN_BACKENDS:
+        if self.backend in JOIN_BACKENDS or self.backend == "auto":
             dev.enable_join()
         return dev
 
@@ -165,20 +377,101 @@ class MatchService:
         ``native_batches`` / ``python_batches`` count what it served)."""
         return table_encoder(self.inc)
 
-    # -- filter upkeep -----------------------------------------------------
+    def _inc(self, name: str, n: int = 1) -> None:
+        if self.metrics is not None:
+            self.metrics.inc(name, n)
+
+    # -- the host table and the id maps ------------------------------------
+
+    def _aid(self, flt: str) -> int:
+        """Accept id of ``flt`` (an alias for a too-deep one), -1 if
+        absent."""
+        aid = self._deep.get(flt)
+        return self.inc.aid_of(flt) if aid is None else aid
+
+    def _table_add(self, flt: str, routing: bool) -> int:
+        """Put ``flt`` in the table (or give a filter the table cannot
+        hold an alias id and the host trie); mark it routing.  Returns
+        its accept id."""
+        aid = self._deep.get(flt)
+        if aid is None:
+            try:
+                self.inc.add(flt)
+                aid = self.inc.aid_of(flt)
+            except ValueError:   # deeper than the table
+                aid = self.inc.alloc_alias(flt)
+                self._deep[flt] = aid
+                self._deep_trie.insert(flt)
+        fo = self._filter_of
+        if aid >= len(fo):
+            fo.extend([None] * (aid + 1 - len(fo)))
+        if routing:
+            fo[aid] = flt
+        return aid
+
+    def _table_del(self, flt: str, routing: bool) -> None:
+        """Unmark ``flt`` routing (with ``routing``); drop it from the
+        table once neither routing nor a rule holds it."""
+        aid = self._aid(flt)
+        if aid < 0:
+            return
+        if routing:
+            self._filter_of[aid] = None
+        if self._filter_of[aid] is not None or self._aid_rules.get(aid):
+            return
+        if flt in self._deep:
+            del self._deep[flt]
+            self._deep_trie.delete(flt)
+            self.inc.free_alias(aid)
+        else:
+            self.inc.remove(flt)
+
+    def _bulk_start(self, filters: List[str]) -> None:
+        """Fill an empty native table from ``filters`` in one build: one
+        ``bulk_add`` into a table sized as the reference bench's
+        ``build_table``, the routing ids from one bulk ``aid_of`` (as the
+        reference's reconcile does for a freshly bulk-loaded table), and
+        filters the table cannot hold through :meth:`_table_add`;
+        ``load_seconds`` keeps the two steps' seconds."""
+        t0 = time.perf_counter()
+        s, hb = _table_sizing(len(filters))
+        inc = NativeNfa(depth=self.depth, state_bucket=s, edge_bucket=hb)
+        inc.bulk_add(filters)
+        self.inc = inc
+        self.dev = self._bind_device(inc, self.dev.active_slots,
+                                     self.dev.max_matches, self.dev.device)
+        t1 = time.perf_counter()
+        aids = inc.bulk_aid_of(filters)
+        fo = self._filter_of = [None] * (int(aids.max(initial=-1)) + 1)
+        for aid, f in zip(aids.tolist(), filters):
+            if aid >= 0:
+                fo[aid] = f
+        for i in np.flatnonzero(aids < 0).tolist():
+            self._table_add(filters[i], routing=True)
+        self.load_seconds.update(bulk_add=t1 - t0,
+                                 routing=time.perf_counter() - t1)
+
+    def _fresh(self) -> bool:
+        return not (self.inc.n_filters or self._deep
+                    or self.dev.epoch != -1)
+
+    # -- the synchronous core: filter upkeep ---------------------------------
+
+    def _no_broker(self, what: str) -> None:
+        if self.broker is not None:
+            raise RuntimeError(
+                f"{what}(): with a broker attached the router is the only "
+                "source of filters")
 
     def load(self, filters: Sequence[str]) -> int:
         """Start an empty, never synced service from ``filters`` in one
         build; returns the number of distinct filters it holds.  On the
         native table this is the large-table path: every filter is
-        validated (``topic.validate``; raises TopicError), one
-        ``bulk_add`` fills a table sized as the reference bench's
-        ``build_table``, and the routing ids are derived with one bulk
-        ``aid_of`` over the list, as the reference's reconcile does for
-        a freshly bulk-loaded table; filters deeper than the table get
-        alias ids; ``load_seconds`` keeps the three steps' seconds.  On
-        the Python table it is :meth:`add` per filter."""
-        if self.inc.n_filters or self._deep or self.dev.epoch != -1:
+        validated (``topic.validate``; raises TopicError), then
+        :meth:`_bulk_start`; ``load_seconds`` keeps the steps' seconds.
+        On the Python table it is :meth:`add` per filter."""
+        self._no_broker("load")
+        if not self._fresh():
             raise RuntimeError("load() needs an empty, never synced service")
         if self.table_kind == "python":
             for f in filters:
@@ -187,24 +480,8 @@ class MatchService:
         t0 = time.perf_counter()
         filters = list(filters)
         _validate_all(filters)
-        t1 = time.perf_counter()
-        s, hb = _table_sizing(len(filters))
-        inc = NativeNfa(depth=self.depth, state_bucket=s, edge_bucket=hb)
-        inc.bulk_add(filters)
-        self.inc = inc
-        self.dev = self._bind_device(inc, self.dev.active_slots,
-                                     self.dev.max_matches, self.dev.device)
-        t2 = time.perf_counter()
-        aids = inc.bulk_aid_of(filters)
-        fo = self._filter_of = [None] * (int(aids.max(initial=-1)) + 1)
-        for aid, f in zip(aids.tolist(), filters):
-            if aid >= 0:
-                fo[aid] = f
-        for i in np.flatnonzero(aids < 0).tolist():
-            # not in the table: deeper than it (validated above)
-            self.add(filters[i])
-        self.load_seconds = {"validate": t1 - t0, "bulk_add": t2 - t1,
-                             "routing": time.perf_counter() - t2}
+        self.load_seconds = {"validate": time.perf_counter() - t0}
+        self._bulk_start(filters)
         return self.n_routing
 
     @property
@@ -216,44 +493,30 @@ class MatchService:
         """Mirror wildcard filter ``flt``; False if already present.
         Filters deeper than the table get an alias id and live in the
         host trie."""
+        self._no_broker("add")
         T.validate(flt, "filter")
-        if flt in self._deep or self.inc.aid_of(flt) >= 0:
+        aid = self._aid(flt)
+        if aid >= 0 and self._filter_of[aid] is not None:
             return False
-        if len(T.words(flt)) > self.depth:
-            aid = self.inc.alloc_alias(flt)
-            self._deep[flt] = aid
-            self._deep_trie.insert(flt)
-        else:
-            self.inc.add(flt)
-            aid = self.inc.aid_of(flt)
-        fo = self._filter_of
-        if aid >= len(fo):
-            fo.extend([None] * (aid + 1 - len(fo)))
-        fo[aid] = flt
+        self._table_add(flt, routing=True)
         return True
 
     def remove(self, flt: str) -> bool:
         """Drop filter ``flt``; False if absent."""
-        aid = self._deep.get(flt)
-        if aid is None:
-            aid = self.inc.aid_of(flt)
-        if aid < 0:
+        self._no_broker("remove")
+        aid = self._aid(flt)
+        if aid < 0 or self._filter_of[aid] is None:
             return False
-        self._filter_of[aid] = None
-        if flt in self._deep:
-            del self._deep[flt]
-            self._deep_trie.delete(flt)
-            self.inc.free_alias(aid)
-        else:
-            self.inc.remove(flt)
+        self._table_del(flt, routing=True)
         return True
 
     def sync(self) -> bool:
         """Apply the host mutations to the device table (rows written in
         place, or a whole upload after the table grew)."""
+        self._no_broker("sync")
         return self.dev.sync()
 
-    # -- serving -----------------------------------------------------------
+    # -- the synchronous core: serving ---------------------------------------
 
     def serve(self, topics: Sequence[str]) -> List[List[str]]:
         """Matching routing filters for each topic, in batches of at most
@@ -261,12 +524,13 @@ class MatchService:
         out: List[List[str]] = []
         for lo in range(0, len(topics), self.max_batch):
             batch = list(topics[lo:lo + self.max_batch])
+            self._topic_sample.extend(batch[:8])
             groups = self._depth_groups(batch)
-            handles = self._encode_dispatch(batch, groups)
-            results = [self._readback_rows(res, n, self.dev.max_matches)
-                       for res, n in handles]
+            results, _nbytes = self._readback_groups(
+                self._encode_dispatch(batch, groups))
             rows = self._collect_rows(batch, groups, results)
-            out.extend(self._split_row(row) for row in rows)
+            out.extend(self._split_row(row)[0] for row in rows)
+            self._autotune_queued()
         return out
 
     def _depth_groups(self, topics: List[str]) -> List[Tuple[List[int], int]]:
@@ -286,19 +550,23 @@ class MatchService:
         return [(short, sd), (long_, self.depth)]
 
     def _encode_dispatch(self, topics: List[str], groups):
-        """Encode every depth group and dispatch its walk.  Returns
-        ``[(MatchResult, rows in group)]``; the results are still being
-        computed on the device when this returns."""
+        """Encode every depth group and dispatch its walk on the backend
+        :meth:`_backend_for` picks.  Returns ``[(MatchResult, rows in
+        group)]``; the results are still being computed on the device
+        when this returns."""
         handles = []
+        dev = self.dev
         for idx, d in groups:
-            enc = encode_batch(self.inc, [topics[i] for i in idx],
-                               batch=_bucket(len(idx)), depth=d)
-            res = self.dev.match(*self.dev.put_batch(*enc),
-                                 flat_cap=self.FLAT_MULT * enc[0].shape[0],
-                                 backend=self.backend)
+            B = _bucket(len(idx))
+            be = self._backend_for(B, d)
+            enc = encode_batch(self.inc, [topics[i] for i in idx], batch=B,
+                               depth=d)
+            res = dev.match(*dev.put_batch(*enc),
+                            flat_cap=self.FLAT_MULT * B, backend=be)
             self.dispatches += 1
-            if self.backend in JOIN_BACKENDS:
+            if be in JOIN_BACKENDS:
                 self.join_dispatches += 1
+                self._inc("tpu.match.backend_join_dispatches")
             handles.append((res, len(idx)))
         return handles
 
@@ -314,6 +582,17 @@ class MatchService:
         rows = [seg.tolist() for seg in decode_flat(matches, counts, k)[:n]]
         return rows, np.flatnonzero(sp[:n]).tolist()
 
+    def _readback_groups(self, handles):
+        """Every group's d2h: ``([(rows, spilled)...], bytes copied)``
+        (the flat slab, the counts and both overflow vectors)."""
+        out = []
+        nbytes = 0
+        k = self.dev.max_matches
+        for res, n in handles:
+            out.append(self._readback_rows(res, n, k))
+            nbytes += 4 * (res.matches.numel() + 3 * res.n_matches.numel())
+        return out, nbytes
+
     def _deep_ids(self, topic: str) -> List[int]:
         if not self._deep:
             return []
@@ -322,30 +601,631 @@ class MatchService:
     def _host_ids(self, topic: str) -> List[int]:
         return self.inc.match_host(topic) + self._deep_ids(topic)
 
-    def _collect_rows(self, topics: List[str], groups, results):
+    def _collect_rows(self, topics: List[str], groups, results,
+                      inc=None, reuses0: Optional[int] = None):
         """Stitch group results back into batch order, re-run spilled
-        rows on the host tables and merge too-deep filter hits."""
+        rows on the host tables and merge too-deep filter hits.  With
+        ``reuses0`` (the table's ``aid_reuses`` when the batch was
+        dispatched against ``inc``), raise :class:`_StaleRace` when an id
+        was reused or the table replaced since."""
         rows: List[List[int]] = [[] for _ in topics]
         spilled: List[int] = []
         for (idx, _d), (grows, gspill) in zip(groups, results):
             for j, i in enumerate(idx):
                 rows[i] = grows[j]
             spilled.extend(idx[j] for j in gspill)
+        if reuses0 is not None and (inc is not self.inc
+                                    or self.inc.aid_reuses != reuses0):
+            raise _StaleRace("accept id reused or table replaced mid-flight")
+        self._inc("tpu.match.batches", len(groups))
         for r in spilled:
             rows[r] = self._host_ids(topics[r])
-        self.fallback_host += len(spilled)
+        self._inc("tpu.match.fallback_host", len(spilled))
         if self._deep:
             spset = set(spilled)
             for r, t in enumerate(topics):
                 if r not in spset:
                     rows[r].extend(self._deep_ids(t))
+        self._inc("tpu.match.topics", len(topics))
+        if spilled:
+            self._inc("tpu.match.active_overflow", len(spilled))
         self.batches += len(groups)
         self.topics += len(topics)
+        self.fallback_host += len(spilled)
         return rows
 
-    def _split_row(self, row: List[int]) -> List[str]:
-        """Accept-id row → routing wildcard filters, from the host map
-        (an id freed by a remove and reused by a later add maps to the
-        filter that holds it now, as the reference's accept table does)."""
-        return [f for f in map(self._filter_of.__getitem__, row)
-                if f is not None]
+    def _split_row(self, row: List[int]) -> Tuple[List[str], List[str]]:
+        """Accept-id row → (routing wildcard filters, rule ids), from the
+        host maps (an id freed by a remove and reused by a later add maps
+        to the filter that holds it now, as the reference's accept table
+        does)."""
+        filters = [f for f in map(self._filter_of.__getitem__, row)
+                   if f is not None]
+        if not self._aid_rules:
+            return filters, []
+        rules: Set[str] = set()
+        for aid in row:
+            r = self._aid_rules.get(aid)
+            if r:
+                rules.update(r)
+        return filters, sorted(rules)
+
+    # -- backend routing (backend="auto") ----------------------------------
+
+    def _backend_for(self, b: int, d: int) -> str:
+        """The walk that serves a (batch, depth) group: the pinned
+        backend, or under ``auto`` the autotuner's measured pick for the
+        current table shape (exact, else its pow2 family's consensus).
+        An unmeasured shape serves hash and queues one measurement
+        (:meth:`_autotune_queued`, after the batch)."""
+        if self.backend != "auto":
+            return self.backend
+        t = self.tuner
+        if t is None:
+            return "hash"
+        s, hb, _depth = self.inc.shape_key()
+        pick = t.pick_for(b, d, s, hb)
+        if pick is not None:
+            return pick
+        sig = t.sig(b, d, s, hb)
+        if sig not in self._tuning and self._topic_sample:
+            self._tuning.add(sig)
+            self._tune_queue.append((sig, b, d))
+        return "hash"
+
+    def _autotune_queued(self) -> None:
+        """Run the queued measurements (after a batch: its waiters are
+        already resolved)."""
+        while self._tune_queue:
+            self._autotune_measure(*self._tune_queue.pop(0))
+
+    def _autotune_measure(self, sig: str, b: int, d: int) -> None:
+        """Time hash against join on recently served topics at exactly
+        the dispatch shape, and record the pick.  Each time is the
+        device time of one flat match (:meth:`_timed_match`): the topics
+        are encoded and copied to the device once, before the clock.  A
+        failure leaves
+        the default routing; the shape is measured again at a later
+        dispatch."""
+        try:
+            topics = list(self._topic_sample)
+            names = (topics * (b // len(topics) + 1))[:b]
+            dev = self.dev
+            ops = dev.put_batch(*encode_batch(self.inc, names, batch=b,
+                                              depth=d))
+            self.tuner.measure(sig, {
+                be: (lambda be=be: self._timed_match(ops, b, be))
+                for be in ("hash", "join")})
+            self._inc("tpu.match.autotune_picks")
+        except Exception:
+            log.debug("autotune measurement for %s failed", sig,
+                      exc_info=True)
+            self._tuning.discard(sig)
+
+    def _timed_match(self, ops, b: int, backend: str) -> float:
+        """Seconds of one flat match of ``ops`` on ``backend`` (the walk
+        and its epilogue).  On the card: between two CUDA events,
+        enqueued behind a spin of about a millisecond
+        (``torch.cuda._sleep``) that keeps the card busy while the host
+        enqueues them, so the host's launch cost stays out; on the CPU
+        the host clock around the plain version."""
+        dev = self.dev
+        kw = dict(flat_cap=self.FLAT_MULT * b, backend=backend)
+        self.autotune_launches += 1
+        if dev.device.type != "cuda":
+            t0 = time.perf_counter()
+            dev.match(*ops, **kw).n_matches.numpy()
+            return time.perf_counter() - t0
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(_SPIN_CYCLES)
+        t0.record()
+        dev.match(*ops, **kw)
+        t1.record()
+        t1.synchronize()
+        return t0.elapsed_time(t1) / 1e3
+
+    # -- the serve loop: lifecycle -------------------------------------------
+
+    async def start(self) -> None:
+        """Bootstrap the mirror from the router, freeze the started heap
+        and start the sync and batch loops; ``ready`` turns true after
+        the first sync and ``_warm``."""
+        if self.broker is None:
+            raise RuntimeError("start() needs MatchService(broker, ...)")
+        self._bootstrap()
+        # what is live now stays live for the node's life: spare the
+        # full collections the walk over it (objects made later are
+        # collected as usual; stop() leaves the heap frozen)
+        gc.collect()
+        gc.freeze()
+        self._tasks = [asyncio.ensure_future(self._sync_loop()),
+                       asyncio.ensure_future(self._batch_loop())]
+        self._dirty.set()
+
+    async def stop(self) -> None:
+        """Stop both loops (waiters in flight fail over to the host trie
+        at once) and unhook from the router."""
+        self.ready = False
+        for t in self._tasks:
+            t.cancel()
+        await asyncio.gather(*self._tasks, return_exceptions=True)
+        self._tasks = []
+        try:
+            self.router.listeners.remove(self._on_router_mutation)
+        except ValueError:
+            pass  # already unhooked (double stop is legal)
+
+    # -- the serve loop: mirror maintenance (event loop) ---------------------
+
+    def _on_router_mutation(self, epoch: int) -> None:
+        # no hint invalidation here: freshness is proven per topic at
+        # consume time against the delta log (_hint_fresh)
+        self._dirty.set()
+
+    def _add(self, flt: str) -> None:
+        n = self._ref.get(flt, 0)
+        self._ref[flt] = n + 1
+        if n == 0:
+            self._table_add(flt, routing=True)
+
+    def _del(self, flt: str) -> None:
+        n = self._ref.get(flt, 0)
+        if n <= 1:
+            self._ref.pop(flt, None)
+            if n == 1:
+                self._table_del(flt, routing=True)
+        else:
+            self._ref[flt] = n - 1
+
+    def _bootstrap(self) -> None:
+        """Full resnapshot from the router (cold start, delta-log gap).
+        Refcounts seed from the router's live destination count, so a
+        filter restored with several routes survives the deletion of all
+        but one of them.  An empty, never synced native table takes the
+        router's filters in one bulk build."""
+        wild = self.router.wildcard_filters()
+        self._ref = {flt: max(1, len(self.router.routes_of(flt)))
+                     for flt in wild}
+        if self.table_kind == "native" and self._fresh() and wild:
+            self._bulk_start(wild)
+        else:
+            for flt in wild:
+                self._table_add(flt, routing=True)
+        self._seen_epoch = self.router.epoch
+
+    def _drain_router(self) -> None:
+        deltas = self.router.deltas_since(self._seen_epoch)
+        if deltas is None:
+            log.info("router delta log gap: full mirror resnapshot")
+            for flt in list(self._ref):
+                self._table_del(flt, routing=True)
+            self._bootstrap()
+            return
+        for d in deltas:
+            if not T.wildcard(d.filter):
+                continue  # exact filters stay in the router's hash map
+            if d.op == "add":
+                self._add(d.filter)
+            else:
+                self._del(d.filter)
+        self._seen_epoch = self.router.epoch
+
+    async def _sync_loop(self) -> None:
+        while True:
+            await self._dirty.wait()
+            if self.router.epoch - self._synced_epoch \
+                    < self.max_stale_deltas // 4:
+                # coalesce a burst; a mirror already this far behind
+                # syncs at once (on a busy loop the sleep costs a whole
+                # round of the loop, while the churn goes on)
+                await asyncio.sleep(self.debounce_s)
+            self._dirty.clear()
+            try:
+                first = not self.ready
+                self._drain_router()
+                # epochs the device table reflects once this sync lands
+                router_epoch = self._seen_epoch
+                rule_gen = self._rule_gen
+                pending = self.dev.drain(full=first)
+                if pending.full is not None:
+                    # a whole upload: publishes take the host path until
+                    # the new tables are resident and walked once
+                    self.ready = False
+                    await asyncio.to_thread(self.dev.apply_pending, pending)
+                    await asyncio.to_thread(self._warm)
+                else:
+                    # row writes, or a relation sorted anew on the
+                    # device: milliseconds, on the loop (on a worker
+                    # thread each GIL hand-off waits out a busy loop's
+                    # switch interval, and the mirror fell past
+                    # max_stale_deltas under a steady churn)
+                    self.dev.apply_pending(pending)
+                self.ready = True
+                self._synced_epoch = router_epoch
+                self._synced_rule_gen = rule_gen
+                self._inc("tpu.mirror.refresh")
+                if pending.full is not None:
+                    self._inc("tpu.mirror.recompile")
+                elif pending.delta is not None and not pending.delta.empty:
+                    self._inc("tpu.mirror.delta_applied")
+            except Exception:
+                log.exception("match-service sync failed; host path serves")
+                await asyncio.sleep(1.0)
+                self._dirty.set()
+
+    def _warm(self) -> None:
+        """Before ``ready``: build and load the CUDA kernel of every walk
+        the backend can pick (one ``nvcc`` each, started together), then
+        run one flat walk at batch 64 for each serve depth, so that no
+        served batch waits on a compiler or a first launch.  On the CPU
+        the plain walks run.  A failure keeps ``ready`` false."""
+        if _fi._injector is not None:
+            act = _fi._injector.act("match.compile")
+            if act == "raise":
+                raise _fi.InjectedFault("match.compile")
+            if act == "delay":
+                time.sleep(_fi._injector.last_delay)
+        backends = (("hash", "join") if self.backend == "auto"
+                    else (self.backend,))
+        dev = self.dev
+        if dev.device.type == "cuda":
+            cuda_build.build(sorted({BACKEND_KERNELS[be] for be in backends}))
+        depths = [self.depth]
+        if self.short_depth and self.short_depth < self.depth:
+            depths.append(self.short_depth)
+        for be in backends:
+            for d in depths:
+                # an empty batch of 64 rows, as encode_batch pads it
+                words = np.zeros((64, d), np.int32)
+                lens = np.full(64, d + 2, np.int32)
+                is_sys = np.ones(64, bool)
+                res = dev.match(*dev.put_batch(words, lens, is_sys),
+                                flat_cap=self.FLAT_MULT * 64, backend=be)
+                res.n_matches.cpu()
+
+    # -- rule co-batching ------------------------------------------------------
+
+    def register_rule(self, rule_id: str, from_filters: List[str]) -> None:
+        """Co-batch a rule's FROM filters into the device table."""
+        self.unregister_rule(rule_id)
+        refs: Dict[str, int] = {}
+        for flt in from_filters:
+            refs[flt] = 1
+            aid = self._table_add(flt, routing=False)
+            self._aid_rules.setdefault(aid, set()).add(rule_id)
+        self._rule_refs[rule_id] = refs
+        self._rule_gen += 1
+        self._rule_log.append((self._rule_gen, tuple(from_filters)))
+        self._dirty.set()
+
+    def unregister_rule(self, rule_id: str) -> None:
+        refs = self._rule_refs.pop(rule_id, None)
+        if not refs:
+            return
+        for flt in refs:
+            aid = self._aid(flt)
+            if aid < 0:
+                continue
+            rules = self._aid_rules.get(aid)
+            if rules is not None:
+                rules.discard(rule_id)
+                if not rules:
+                    del self._aid_rules[aid]
+            self._table_del(flt, routing=False)
+        # removal-only entry: stale hints that still name the rule are
+        # harmless (the engine skips ids not in its live rule map)
+        self._rule_gen += 1
+        self._rule_log.append((self._rule_gen, ()))
+        self._dirty.set()
+
+    # -- the serve loop: hints -------------------------------------------------
+
+    def _usable(self) -> bool:
+        return (self.ready and self.router.epoch - self._synced_epoch
+                <= self.max_stale_deltas)
+
+    def _hint_fresh(self, topic: str, hint_epoch: int) -> bool:
+        """Prove a hint still answers correctly for ``topic``: deletions
+        never need invalidation (destinations resolve live in
+        ``routes_with_wild``); only a wildcard filter ADDED after the
+        hint's table epoch can make the answer incomplete.  The port
+        asks a trie of the recent adds (:class:`_RecentAdds`) where the
+        reference scans the delta log."""
+        if hint_epoch == self.router.epoch:
+            return True
+        if self.router.epoch - hint_epoch > self.max_stale_deltas:
+            return False  # the proof reaches this many mutations back
+        return not self._recent.stale(topic, hint_epoch)
+
+    def _proven(self, topic: str, hint) -> bool:
+        """:meth:`_hint_fresh` of a cached hint.  A hint proven fresh
+        through the delta log is re-stamped with the router's epoch: the
+        proof holds up to now, so the next proof starts from here (the
+        reference re-proves from the mint epoch on every use, up to
+        ``max_stale_deltas`` matches per call, which under a steady
+        churn cost more than the publish itself)."""
+        epoch = self.router.epoch
+        if hint[0] == epoch:
+            return True
+        if not self._hint_fresh(topic, hint[0]):
+            return False
+        self._hints[topic] = (epoch,) + hint[1:]
+        return True
+
+    def _rules_fresh(self, topic: str, hint_gen: int) -> bool:
+        """Rule-side freshness: a rule registered after the hint whose
+        FROM filter matches the topic invalidates it (rule changes do not
+        bump the router epoch)."""
+        if hint_gen == self._rule_gen:
+            return True
+        if self._rule_log and self._rule_log[0][0] > hint_gen + 1:
+            return False  # log trimmed past the hint's gen
+        for gen, filters in self._rule_log:
+            if gen > hint_gen and any(T.match(topic, f) for f in filters):
+                return False
+        return True
+
+    def _note_arrival(self) -> None:
+        now = time.monotonic()
+        dt = now - self._win_start
+        if dt >= 0.05:
+            self._last_rate = self._win_count / dt
+            self._win_start = now
+            self._win_count = 0
+        self._win_count += 1
+
+    def _should_bypass(self) -> bool:
+        if self.bypass_rate <= 0:
+            return False
+        return not self._pending and self._last_rate < self.bypass_rate
+
+    async def prefetch(self, topic: str, qos: int = 0) -> None:
+        """Async stage (connection intercept): micro-batch this topic
+        through the walk and park the answer in the hint cache.  Bounded
+        by ``prefetch_timeout_s``: a stalled device degrades to the host
+        path, never blocks publishes indefinitely."""
+        self._note_arrival()
+        if not self._usable():
+            return
+        hint = self._hints.get(topic)
+        if hint is not None and self._proven(topic, hint) \
+                and self._rules_fresh(topic, hint[1]):
+            return
+        if self._should_bypass():
+            self._inc("tpu.match.bypass")
+            return
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._enqueue(topic, fut)
+        self._batch_wake.set()
+        try:
+            await asyncio.wait_for(fut, self.prefetch_timeout_s)
+        except Exception:
+            # timeout/cancel: publish falls back to the host path
+            log.debug("prefetch for %r timed out", topic, exc_info=True)
+
+    async def prefetch_many(self, topics) -> None:
+        """Batched prefetch: every topic missing a fresh hint is enqueued
+        in the same event-loop tick, so the whole set rides one batching
+        window.  Bounded by ``prefetch_timeout_s`` like :meth:`prefetch`."""
+        if not self._usable():
+            return
+        waits: List[asyncio.Future] = []
+        loop = asyncio.get_running_loop()
+        for topic in topics:
+            self._note_arrival()
+            hint = self._hints.get(topic)
+            if hint is not None and self._proven(topic, hint) \
+                    and self._rules_fresh(topic, hint[1]):
+                continue
+            fut = loop.create_future()
+            self._enqueue(topic, fut)
+            waits.append(fut)
+        if not waits:
+            return
+        self._batch_wake.set()
+        try:
+            await asyncio.wait_for(asyncio.gather(*waits),
+                                   self.prefetch_timeout_s)
+        except Exception:
+            # timeout/cancel: those topics fall back to the host trie
+            log.debug("prefetch_many (%d topics) timed out", len(waits),
+                      exc_info=True)
+
+    def hint_available(self, topic: str) -> bool:
+        """Non-consuming freshness peek: True iff a device hint would
+        serve this topic right now.  No metrics, no cache mutation."""
+        hint = self._hints.get(topic)
+        return hint is not None and self._hint_fresh(topic, hint[0])
+
+    def hint_routes(self, topic: str):
+        """Sync stage (``Broker.device_match``): a provably fresh hint →
+        its routes, else None (the host trie serves)."""
+        hint = self._hints.get(topic)
+        if hint is None:
+            return None
+        if not self._proven(topic, hint):
+            self._hints.pop(topic, None)
+            self._inc("tpu.match.hint_stale")
+            return None
+        self._inc("tpu.match.hint_served")
+        # move to the end: dict order is the LRU order
+        self._hints[topic] = self._hints.pop(topic)
+        return self.router.routes_with_wild(topic, hint[2])
+
+    def hint_rules(self, topic: str) -> Optional[List[str]]:
+        """Matched rule ids of a fresh hint, else None (the rule engine
+        then matches its rules on the host)."""
+        hint = self._hints.get(topic)
+        if hint is None:
+            return None
+        if not self._rules_fresh(topic, hint[1]):
+            self._hints.pop(topic, None)
+            self._inc("tpu.match.hint_stale")
+            return None
+        # a rules-only working set is as hot as a routing one
+        self._hints[topic] = self._hints.pop(topic)
+        return list(hint[3])
+
+    # -- the serve loop: batches -----------------------------------------------
+
+    def _enqueue(self, topic: str, fut: asyncio.Future) -> None:
+        if not self._pending:
+            self._pending_since = time.monotonic()
+        self._pending.append((topic, fut))
+
+    async def _batch_loop(self) -> None:
+        """The fixed-window serve loop: wake, let the batching window run
+        out, pop up to ``max_batch`` waiters, one dispatch.  The window
+        runs from the oldest waiter's arrival, where the reference sleeps
+        it after the wake: on a busy loop the wake itself comes a whole
+        round of ready tasks late, and a sleep after it costs another.
+        However the loop ends, the waiters in flight fail over to the
+        host path at once."""
+        try:
+            if self._pending:
+                self._batch_wake.set()
+            while True:
+                await self._batch_wake.wait()
+                self._batch_wake.clear()
+                if not self._pending:
+                    continue
+                wait = self.batch_window_s - (time.monotonic()
+                                              - self._pending_since)
+                if wait > 0:
+                    await asyncio.sleep(wait)
+                pending, self._pending = self._pending[: self.max_batch], \
+                    self._pending[self.max_batch:]
+                if self._pending:
+                    self._pending_since = time.monotonic()
+                    self._batch_wake.set()
+                await self._serve_batch(pending)
+                self._autotune_queued()
+        finally:
+            self._fail_over_waiters()
+
+    async def _serve_batch(self, pending: List[Any]) -> None:
+        """Device rows → hints; any failure, or the loop's cancellation,
+        resolves the waiters without a hint (the host trie serves them);
+        a failure is logged here."""
+        topics = [p[0] for p in pending]
+        # the hint's provenance is the epoch the DEVICE table reflects;
+        # freshness is proven forward from here at consume time
+        epoch = self._synced_epoch
+        rule_gen = self._synced_rule_gen
+        try:
+            if not self._usable():
+                raise RuntimeError("mirror stale")
+            rows = await self._dispatch_guarded(topics)
+            self._mint_hints(pending, rows, epoch, rule_gen)
+        except Exception:
+            log.debug("device batch failed; publishes fall back",
+                      exc_info=True)
+        finally:
+            for _topic, fut in pending:
+                if not fut.done():
+                    fut.set_result(None)
+
+    async def _fault_gate(self) -> None:
+        """The ``match.dispatch`` chaos seam."""
+        if _fi._injector is not None:
+            act = _fi._injector.act("match.dispatch")
+            if act == "raise":
+                raise _fi.InjectedFault("match.dispatch")
+            if act == "delay":
+                await _fi._injector.pause()
+            elif act == "hang":
+                await _fi._injector.hang()
+
+    async def _readback_gate(self) -> None:
+        """The ``match.readback`` chaos seam at the d2h boundary."""
+        if _fi._injector is not None:
+            act = _fi._injector.act("match.readback")
+            if act == "raise":
+                raise _fi.InjectedFault("match.readback")
+            if act == "delay":
+                await _fi._injector.pause()
+            elif act == "hang":
+                await _fi._injector.hang()
+
+    async def _dispatch_guarded(self, topics: List[str]) -> List[Any]:
+        await self._fault_gate()
+        return await self._device_serve(topics)
+
+    async def _device_serve(self, topics: List[str]) -> List[Any]:
+        """One batch: encode + dispatch, the readback, the spill re-run
+        and deep merge; one id row per topic.  Only the chaos seam
+        between dispatch and readback can let the table change while the
+        batch is in flight; the reuse guard covers it."""
+        inc = self.inc
+        reuses0 = inc.aid_reuses
+        groups = self._depth_groups(topics)
+        self._topic_sample.extend(topics[:8])
+        handles = self._encode_dispatch(topics, groups)
+        await self._readback_gate()
+        results, nbytes = self._readback_groups(handles)
+        self._inc("tpu.match.readback_bytes", nbytes)
+        self._inc("tpu.match.readback_roundtrips", len(handles))
+        return self._collect_rows(topics, groups, results, inc, reuses0)
+
+    def _mint_hints(self, pending: List[Any], rows: List[Any],
+                    epoch: int, rule_gen: int) -> None:
+        for (topic, fut), row in zip(pending, rows):
+            # pop-then-insert: a refreshed hint is the most recent.  The
+            # filters and rule ids are kept as tuples of strings, which
+            # the cyclic GC stops tracking: the cache then adds nothing
+            # to its full collections
+            filters, rules = self._split_row(row)
+            self._hints.pop(topic, None)
+            self._hints[topic] = (epoch, rule_gen, tuple(filters),
+                                  tuple(rules))
+            if not fut.done():
+                fut.set_result(None)
+        self._evict()
+
+    def _evict(self) -> None:
+        """Evict after insert, least recently served first (dict order
+        is recency: a served hint is re-appended), so the cap holds even
+        when one batch exceeds it."""
+        excess = len(self._hints) - self.hint_cap
+        if excess > 0:
+            it = iter(self._hints)
+            for k in [next(it) for _ in range(excess)]:
+                del self._hints[k]
+            self._inc("tpu.match.hint_evicted", excess)
+
+    def _fail_over_waiters(self) -> None:
+        """Serve-loop exit (stop, crash): resolve every waiter in flight
+        now, so each blocked prefetch falls to the host path at once
+        instead of waiting out ``prefetch_timeout_s``."""
+        pending, self._pending = self._pending, []
+        if not pending:
+            return
+        for _topic, fut in pending:
+            if not fut.done():
+                fut.set_result(None)
+        self._inc("broker.match.cpu_fallback", len(pending))
+        log.warning("match serve loop exited with %d waiter(s) in "
+                    "flight; failed over to the host path", len(pending))
+
+    def info(self) -> dict:
+        return {
+            "ready": self.ready,
+            "table_kind": self.table_kind,
+            "filters": self.inc.n_filters,
+            "states": self.inc.n_states,
+            "rules": len(self._rule_refs),
+            "device_epoch": self.dev.epoch,
+            "router_epoch": (self.router.epoch if self.router is not None
+                             else None),
+            "synced_epoch": self._synced_epoch,
+            "uploads": self.dev.uploads,
+            "delta_applies": self.dev.delta_applies,
+            "pending": len(self._pending),
+            "hints": len(self._hints),
+            "backend": self.backend,
+            "dispatches": self.dispatches,
+            "join_dispatches": self.join_dispatches,
+            "join_rebuilds": self.dev.join_rebuilds,
+            "autotune": (self.tuner.info()
+                         if self.tuner is not None else None),
+        }

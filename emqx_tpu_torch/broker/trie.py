@@ -2,8 +2,10 @@
 ``FilterTrie`` (``emqx_tpu/broker/trie.py``).
 
 It answers "which filters match this concrete topic?" by a depth-first
-walk.  The serve core keeps the filters that are deeper than the device
-table here, and the tests and ``chip_smoke.py`` use it as the oracle.
+walk.  The router indexes its wildcard filters in one (the host trie
+that publish walks when no device hint serves), the match service keeps
+the filters that are deeper than the device table in another, and the
+tests and ``chip_smoke.py`` use it as the oracle.
 Refcounted: inserting a key twice needs two deletes before it goes.
 
 :class:`FilterSet` is the oracle for tables too large for a trie of
@@ -77,6 +79,16 @@ class FilterTrie:
 
     def __len__(self) -> int:
         return len(self._keys)
+
+    def node_count(self) -> int:
+        """Number of trie nodes (excluding the root)."""
+        n = 0
+        stack = [self._root]
+        while stack:
+            node = stack.pop()
+            n += len(node.children)
+            stack.extend(node.children.values())
+        return n
 
     def match(self, name) -> List[str]:
         """All inserted filters matching concrete topic ``name``, with the

@@ -1,0 +1,146 @@
+"""Fixed counter set — the ``emqx_metrics`` analog.
+
+The port's own copy of the reference's ``emqx_tpu/observe/metrics.py``:
+the reference's fixed counter names, its ``tpu.*`` group for the device
+match path, and the broker and serve-loop counters that the port's
+modules increment.  Unknown names raise, so a typo at a call site fails
+at once.  Python ints under a single writer (the asyncio event loop, or
+the one in-flight serve worker) play the role of atomics.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Optional
+
+__all__ = ["Metrics", "METRIC_NAMES", "TPU_METRIC_NAMES",
+           "BROKER_METRIC_NAMES", "MATCH_SERVE_METRIC_NAMES"]
+
+# -- the reference's fixed counter names, grouped as in emqx_metrics.erl [U]
+METRIC_NAMES: List[str] = [
+    # bytes
+    "bytes.received", "bytes.sent",
+    # packets
+    "packets.received", "packets.sent",
+    "packets.connect.received", "packets.connack.sent",
+    "packets.publish.received", "packets.publish.sent",
+    "packets.publish.error", "packets.publish.auth_error",
+    "packets.publish.dropped",
+    "packets.puback.received", "packets.puback.sent",
+    "packets.puback.inuse", "packets.puback.missed",
+    "packets.pubrec.received", "packets.pubrec.sent",
+    "packets.pubrec.inuse", "packets.pubrec.missed",
+    "packets.pubrel.received", "packets.pubrel.sent",
+    "packets.pubrel.missed",
+    "packets.pubcomp.received", "packets.pubcomp.sent",
+    "packets.pubcomp.inuse", "packets.pubcomp.missed",
+    "packets.subscribe.received", "packets.suback.sent",
+    "packets.subscribe.error", "packets.subscribe.auth_error",
+    "packets.unsubscribe.received", "packets.unsuback.sent",
+    "packets.unsubscribe.error",
+    "packets.pingreq.received", "packets.pingresp.sent",
+    "packets.disconnect.received", "packets.disconnect.sent",
+    "packets.auth.received", "packets.auth.sent",
+    "packets.connack.error", "packets.connack.auth_error",
+    # messages
+    "messages.received", "messages.sent",
+    "messages.qos0.received", "messages.qos0.sent",
+    "messages.qos1.received", "messages.qos1.sent",
+    "messages.qos2.received", "messages.qos2.sent",
+    "messages.publish", "messages.dropped",
+    "messages.dropped.no_subscribers", "messages.dropped.await_pubrel_timeout",
+    "messages.dropped.receive_maximum", "messages.dropped.expired",
+    "messages.dropped.queue_full", "messages.dropped.too_large",
+    # detail counters for drop reasons our delivery stack emits beyond
+    # the reference set (registry-drift: inc_msg_dropped silently skips
+    # unregistered detail keys — these two under-counted before PR 4)
+    "messages.dropped.olp_shed", "messages.dropped.forward_no_peer",
+    "messages.forward", "messages.delayed", "messages.delivered",
+    "messages.acked", "messages.retained",
+    # delivery
+    "delivery.dropped", "delivery.dropped.no_local",
+    "delivery.dropped.too_large", "delivery.dropped.qos0_msg",
+    "delivery.dropped.queue_full", "delivery.dropped.expired",
+    # client lifecycle
+    "client.connect", "client.connack", "client.connected",
+    "client.authenticate", "client.auth.anonymous", "client.authorize",
+    "client.subscribe", "client.unsubscribe", "client.disconnected",
+    # session lifecycle
+    "session.created", "session.resumed", "session.takenover",
+    "session.discarded", "session.terminated",
+    # authorization
+    "authorization.allow", "authorization.deny",
+    "authorization.cache_hit", "authorization.cache_miss",
+    "authorization.superuser", "authorization.nomatch",
+    # overload protection
+    "olp.delay.ok", "olp.delay.timeout", "olp.hbn", "olp.gc",
+    "olp.new_conn",
+]
+
+# -- the device match path: served batches and topics, spills re-run on
+# the host, mirror syncs, hint cache outcomes, bypasses
+TPU_METRIC_NAMES: List[str] = [
+    "tpu.match.batches", "tpu.match.topics",
+    "tpu.match.active_overflow", "tpu.match.match_overflow",
+    "tpu.match.fallback_host", "tpu.mirror.refresh",
+    "tpu.mirror.delta_applied", "tpu.mirror.recompile",
+    "tpu.match.hint_served", "tpu.match.hint_stale", "tpu.match.bypass",
+    "tpu.match.hint_evicted",
+]
+
+# -- broker drop accounting (outbox overflow) and the session's batched
+# QoS1/2 window admissions and QoS2 state transitions
+BROKER_METRIC_NAMES: List[str] = [
+    "broker.outbox.dropped", "broker.inflight.batch_admitted",
+    "broker.qos2.batch",
+]
+
+# -- the serve loop: cpu_fallback counts waiters a dying serve loop
+# failed over to the host trie; readback_bytes / readback_roundtrips
+# accumulate the d2h bytes and copies of the readback stage;
+# backend_join_dispatches counts walk dispatches served by the join
+# backend (one per depth group) and autotune_picks the shapes the
+# autotuner measured
+MATCH_SERVE_METRIC_NAMES: List[str] = [
+    "broker.match.cpu_fallback",
+    "tpu.match.readback_bytes", "tpu.match.readback_roundtrips",
+    "tpu.match.backend_join_dispatches", "tpu.match.autotune_picks",
+]
+
+
+class Metrics:
+    """A counter table with the fixed name set.
+
+    ``inc``/``get``/``all``; unknown names raise (mirroring the
+    reference's fixed-at-boot table, which catches typos at call sites).
+    """
+
+    __slots__ = ("_c",)
+
+    def __init__(self, extra: Optional[Iterable[str]] = None) -> None:
+        self._c: Dict[str, int] = {}
+        for names in (METRIC_NAMES, TPU_METRIC_NAMES, BROKER_METRIC_NAMES,
+                      MATCH_SERVE_METRIC_NAMES, extra or ()):
+            self._c.update({n: 0 for n in names})
+
+    def inc(self, name: str, n: int = 1) -> None:
+        self._c[name] += n
+
+    def dec(self, name: str, n: int = 1) -> None:
+        self._c[name] -= n
+
+    def set(self, name: str, v: int) -> None:
+        """Last-observed-value metrics share the fixed table; unknown
+        names still raise like inc."""
+        if name not in self._c:
+            raise KeyError(name)
+        self._c[name] = v
+
+    def get(self, name: str) -> int:
+        return self._c[name]
+
+    def all(self) -> Dict[str, int]:
+        return dict(self._c)
+
+    def reset(self) -> None:
+        for k in self._c:
+            self._c[k] = 0

@@ -10,11 +10,14 @@ grew, uploads the tables whole.  ``match()`` runs the walk of the
 :meth:`DeviceNfa.enable_join` mirrors the sorted edge relation
 (``join_match.JoinRelation``) beside the tables: its upkeep rides the
 same drain/apply cycle (tombstones, revivals and overlay rows written in
-place per delta; the relation rebuilt and uploaded whole on a table
-upload or when the overlay fills).
+place per delta; the relation sorted anew on the device, from the
+uploaded or updated edge table, on a table upload or when the overlay
+fills).
 
-A lock serialises applies and dispatches, so a reader never sees a
-half-applied (node, edge) pair; :meth:`arrays` returns one consistent
+A lock serialises the swap and the in-place writes of an apply with
+dispatches, so a reader never sees a half-applied (node, edge) pair;
+the sorts and whole uploads run before it, outside the lock, so they
+never stall a dispatch.  :meth:`arrays` returns one consistent
 tuple.
 """
 
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from .incremental import NfaDelta
-from .join_match import JoinRelation, OverlayFull, join_match
+from .join_match import JoinRelation, OverlayFull, join_match, relation_arrays
 from .match_kernel import MatchResult, nfa_match
 
 __all__ = ["BACKENDS", "JOIN_BACKENDS", "DeviceNfa", "PendingSync",
@@ -41,11 +44,13 @@ BACKENDS = ("hash",) + JOIN_BACKENDS
 
 def check_backend(backend: str) -> None:
     """Raise unless ``backend`` is one that ``DeviceNfa.match`` serves:
-    NotImplementedError for ``auto`` (the reference's measured hash/join
-    pick, not ported yet), ValueError for a name it does not know."""
+    NotImplementedError for ``auto`` (the measured per-shape pick, which
+    ``MatchService`` resolves to a concrete backend before it calls
+    ``match``), ValueError for a name it does not know."""
     if backend == "auto":
         raise NotImplementedError(
-            "backend 'auto' (the measured hash/join pick) is not ported yet")
+            "DeviceNfa.match takes a concrete backend: 'auto' is resolved "
+            "per dispatch shape by MatchService")
     if backend not in BACKENDS:
         raise ValueError(f"unknown match backend {backend!r}")
 
@@ -94,7 +99,10 @@ class DeviceNfa:
         self._join: Optional[JoinRelation] = None    # host relation
         self._jarrs: Optional[Tuple[torch.Tensor, ...]] = None  # on device
         self.join_rebuilds = 0      # whole relation uploads
+        # _lock: a dispatch against the swap of an apply; _apply_lock:
+        # one apply at a time (its slow half runs outside _lock)
         self._lock = threading.Lock()
+        self._apply_lock = threading.Lock()
         # freed accept ids stay unused until the device acks their epoch
         inc.device_epoch = -1
         if not lazy:
@@ -139,43 +147,97 @@ class DeviceNfa:
                            epoch=delta.epoch)
 
     def apply_pending(self, p: PendingSync) -> bool:
-        """Ship a drained sync to the device.  On any failure the mirror
+        """Ship a drained sync to the device.  The slow half runs
+        outside the dispatch lock: whole tables and a rebuilt join
+        relation are sorted and uploaded into new tensors while
+        :meth:`match` goes on walking the old ones; under the lock the
+        new tensors are swapped in and the row deltas written in place,
+        so a walk sees one epoch or the next.  On any failure the mirror
         is dropped, so the next ``drain()`` uploads the tables whole and
         matches fail until then."""
-        with self._lock:
+        with self._apply_lock:
             try:
-                return self._apply_locked(p)
+                staged = self._stage(p)
+                with self._lock:
+                    return self._commit(p, staged)
             except Exception:
-                self._arrs = None
-                self._shape_key = None
-                self._join = None       # rebuilt with the next upload
-                self._jarrs = None
+                with self._lock:
+                    self._arrs = None
+                    self._shape_key = None
+                    self._join = None       # rebuilt with the next upload
+                    self._jarrs = None
                 raise
 
-    def _apply_locked(self, p: PendingSync) -> bool:
+    def _stage(self, p: PendingSync):
+        """The device tensors of ``p``, made without the dispatch lock:
+        ``(tables, relation, relation tensors)`` of a whole upload, or
+        ``(row writes, relation writes, rebuilt relation tensors)`` of a
+        delta.  Only the apply path touches the host relation."""
         if p.full is not None:
-            self._arrs = tuple(self._put(a) for a in p.full)
+            arrs = tuple(self._put(a) for a in p.full)
+            if not self.join_enabled:
+                return arrs, None, None
+            return (arrs,) + self._relation_of(int(p.full[0].shape[0]),
+                                               arrs[1], p.full[1])
+        d = p.delta
+        if d.empty:
+            return None
+        # (position in the tensor tuple, rows, values): node and edge
+        # table rows; edge_next entries and overlay rows of the relation
+        rows = [(k, self._put(idx).long(), self._put(val))
+                for k, idx, val in ((0, d.state_idx, d.state_rows),
+                                    (1, d.bucket_idx, d.bucket_rows))
+                if len(idx)]
+        if not (self.join_enabled and self._join is not None):
+            return rows, None, None
+        try:
+            mpos, mval, opos, orows = self._join.apply_bucket_delta(
+                d.bucket_idx, d.bucket_rows)
+        except OverlayFull:
+            # rebuilt whole: sorted on the device from a copy of the edge
+            # table with this delta's rows written in (the host shadow
+            # is already updated, and takes the sorted arrays)
+            edge = self._arrs[1].clone()
+            for k, idx, val in rows:
+                if k == 1:
+                    edge.index_copy_(0, idx, val)
+            start, word, nxt = relation_arrays(
+                len(self._join.state_start) - 1, edge)
+            self._join.adopt(*(a.to("cpu", copy=True).numpy()
+                               for a in (start, word, nxt)))
+            return rows, None, (start, word, nxt,
+                                self._put(self._join.overlay))
+        jrows = [(k, self._put(idx).long(), self._put(val))
+                 for k, idx, val in ((2, mpos, mval), (3, opos, orows))
+                 if len(idx)]
+        return rows, jrows, None
+
+    def _commit(self, p: PendingSync, staged) -> bool:
+        """Under the dispatch lock: swap in or write what :meth:`_stage`
+        made, and ack the epoch."""
+        if p.full is not None:
+            arrs, join, jarrs = staged
+            self._arrs = arrs
             self._shape_key = p.shape_key
             self.uploads += 1
-            if self.join_enabled:
-                self._join_full(p)
+            if join is not None:
+                self._join, self._jarrs = join, jarrs
+                self.join_rebuilds += 1
             self._ack(p.epoch)
             return True
-        if p.delta.empty:
+        if staged is None:
             self._ack(max(self.epoch, p.epoch))
             return False
-        node, edge, _seeds = self._arrs
-        d = p.delta
-        if len(d.state_idx):
-            node.index_copy_(0, self._put(d.state_idx).long(),
-                             self._put(d.state_rows))
-        if len(d.bucket_idx):
-            edge.index_copy_(0, self._put(d.bucket_idx).long(),
-                             self._put(d.bucket_rows))
-        if self.join_enabled and self._join is not None:
-            self._join_delta(d)
+        rows, jrows, jarrs = staged
+        for k, idx, val in rows:
+            self._arrs[k].index_copy_(0, idx, val)
+        if jarrs is not None:
+            self._jarrs = jarrs
+            self.join_rebuilds += 1
+        for k, idx, val in jrows or ():
+            self._jarrs[k].index_copy_(0, idx, val)
         self.delta_applies += 1
-        self._ack(d.epoch)
+        self._ack(p.delta.epoch)
         return True
 
     def _ack(self, epoch: int) -> None:
@@ -195,48 +257,32 @@ class DeviceNfa:
         mirrored as it is) or is built now from the device copy of the
         edge table; otherwise it is built at the first upload, and a
         ``seed`` is refused."""
-        with self._lock:
+        with self._apply_lock:
             self.join_enabled = True
             if self._arrs is None:
                 if seed is not None:
                     raise ValueError("a seed relation needs a synced twin")
                 return
-            if seed is None:
-                if self._jarrs is not None:
-                    return          # already mirrored
+            if seed is not None:
+                jarrs = tuple(self._put(a) for a in seed.arrays())
+            elif self._jarrs is not None:
+                return          # already mirrored
+            else:
                 node, edge, _seeds = self._arrs
-                seed = JoinRelation(int(node.shape[0]), edge.cpu().numpy())
-            self._join = seed
-            self._put_join()
+                seed, jarrs = self._relation_of(int(node.shape[0]), edge,
+                                                edge.cpu().numpy())
+            with self._lock:
+                self._join, self._jarrs = seed, jarrs
+                self.join_rebuilds += 1
 
-    def _join_full(self, p: PendingSync) -> None:
-        """Whole-upload half of the mirror: sort the relation from the
-        uploaded table."""
-        self._join = JoinRelation(int(p.full[0].shape[0]), p.full[1])
-        self._put_join()
-
-    def _put_join(self) -> None:
-        """Upload the whole relation."""
-        self._jarrs = tuple(self._put(a) for a in self._join.arrays())
-        self.join_rebuilds += 1
-
-    def _join_delta(self, delta: NfaDelta) -> None:
-        """Delta half: tombstones and revivals written into ``edge_next``
-        and the re-sorted overlay into ``overlay``, in place.  When the
-        overlay fills, the relation is rebuilt from the (already
-        updated) shadow and uploaded whole."""
-        try:
-            mpos, mval, opos, orows = self._join.apply_bucket_delta(
-                delta.bucket_idx, delta.bucket_rows)
-        except OverlayFull:
-            self._join.rebuild(len(self._join.state_start) - 1)
-            self._put_join()
-            return
-        _ss, _ew, en, ov = self._jarrs
-        if len(mpos):
-            en.index_copy_(0, self._put(mpos).long(), self._put(mval))
-        if len(opos):
-            ov.index_copy_(0, self._put(opos).long(), self._put(orows))
+    def _relation_of(self, s: int, edge: torch.Tensor, shadow: np.ndarray):
+        """``(host relation, its device tensors)`` of device edge table
+        ``edge`` over ``s`` states, sorted on the device; ``shadow`` is
+        the table's host copy."""
+        start, word, nxt = relation_arrays(s, edge)
+        join = JoinRelation(s, shadow, arrays=tuple(
+            a.cpu().numpy() for a in (start, word, nxt)))
+        return join, (start, word, nxt, self._put(join.overlay))
 
     # -- serving -----------------------------------------------------------
 
@@ -248,8 +294,8 @@ class DeviceNfa:
         ``join-pallas`` (both the join walk, at every batch shape and
         output mode).  A join backend without the relation mirror
         raises, where the reference quietly serves ``hash``; ``auto``
-        (the measured per-shape pick) is not ported and raises
-        NotImplementedError."""
+        (the measured per-shape pick, which ``MatchService`` resolves)
+        raises NotImplementedError."""
         be = backend or "hash"
         check_backend(be)
         with self._lock:

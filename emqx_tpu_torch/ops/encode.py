@@ -14,7 +14,9 @@ Padding rows past ``len(names)`` are inert: ``len = D+2``,
 ``is_sys = True`` and all-UNKNOWN words, so they match nothing.
 
 An encoder is cached on its table object (:func:`table_encoder`) and
-pushes the words the vocab gained since its last call.  The Python loop
+pushes the words the vocab gained since its last call.  One C++ object
+serves every thread that encodes against the table, and ctypes drops
+the GIL inside it, so a lock serialises its calls.  The Python loop
 is kept only for what the reference keeps it for: a batch in which a
 topic holds a NUL (MQTT forbids it; it would shift the native parse's
 rows), which is encoded whole in Python and counted in
@@ -25,6 +27,7 @@ Python when the library cannot be built, the port raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -72,6 +75,7 @@ class TopicEncoder:
         self._pushed = 0
         self._libref = _native()
         self._h = ctypes.c_void_p(self._libref.enc_new())
+        self._lock = threading.Lock()
         self.native_batches = 0
         self.python_batches = 0
 
@@ -85,16 +89,16 @@ class TopicEncoder:
     def _push_new_words(self) -> None:
         """Ship the vocab entries added since the last call (a dict keeps
         insertion order and interning only appends)."""
-        n = len(self.vocab)
-        if n == self._pushed:
+        if len(self.vocab) == self._pushed:
             return
+        # one atomic copy: the table's thread may append while we read
         items = list(self.vocab.items())[self._pushed:]
         buf = b"\x00".join(w.encode("utf-8") for w, _ in items)
         ids = np.fromiter((i for _, i in items), np.int32, len(items))
         self._libref.enc_add_words(self._h, buf, len(buf),
                                    ids.ctypes.data_as(ctypes.c_void_p),
                                    len(items))
-        self._pushed = n
+        self._pushed += len(items)
 
     def encode(
         self, names: Sequence[str], depth: int, batch: Optional[int] = None
@@ -109,21 +113,24 @@ class TopicEncoder:
         is_sys = np.ones(B, bool)
         if n == 0:
             return words, lens, is_sys
-        self._push_new_words()
         joined = "\x00".join(names).encode("utf-8")
         sys8 = np.zeros(n, np.uint8)
-        done = self._libref.enc_encode(
-            self._h, joined, len(joined), n, D,
-            words.ctypes.data_as(ctypes.c_void_p),
-            lens.ctypes.data_as(ctypes.c_void_p),
-            sys8.ctypes.data_as(ctypes.c_void_p))
+        with self._lock:
+            self._push_new_words()
+            done = self._libref.enc_encode(
+                self._h, joined, len(joined), n, D,
+                words.ctypes.data_as(ctypes.c_void_p),
+                lens.ctypes.data_as(ctypes.c_void_p),
+                sys8.ctypes.data_as(ctypes.c_void_p))
+            if done == n:
+                self.native_batches += 1
+            else:
+                self.python_batches += 1
         if done == n:
             is_sys[:n] = sys8.astype(bool)
-            self.native_batches += 1
             return words, lens, is_sys
         # a topic held a NUL: the segment count diverged, which would
         # row-shift other topics' answers — the whole batch in Python
-        self.python_batches += 1
         words[:n] = 0
         lens[:n] = D + 2
         vocab = self.vocab

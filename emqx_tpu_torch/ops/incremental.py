@@ -13,7 +13,7 @@ consumes the drained deltas.
   clear the slot; every touched bucket row is recorded as dirty;
 * accept-id free-list — ``accept_filters`` may hold ``None`` holes, and a
   freed id is reused only once the device has applied the epoch that
-  cleared it;
+  cleared it, and each reuse is counted in ``aid_reuses``;
 * ``flush()`` drains the dirty node rows and bucket rows.
 
 The reference's dirty-region growth mode, lazy trie hydration from
@@ -111,6 +111,11 @@ class IncrementalNfa:
         # id and be read through the new accept_filters entry
         self._free_aids: "deque[Tuple[int, int]]" = deque()  # (epoch, aid)
         self.device_epoch: Optional[int] = None  # None ⇒ no device consumer
+        # times a freed id was handed out again: a decoder that turns
+        # device rows into filters while a match is in flight checks
+        # that it did not move (the rows may name a reused id under its
+        # old filter)
+        self.aid_reuses = 0
         self._dirty_states = {0}
         self._dirty_buckets: set = set()
         self._resized = False
@@ -147,6 +152,7 @@ class IncrementalNfa:
             if self.device_epoch is None or freed_epoch <= self.device_epoch:
                 self._free_aids.popleft()
                 self.accept_filters[aid] = flt
+                self.aid_reuses += 1
                 return aid
         self.accept_filters.append(flt)
         return len(self.accept_filters) - 1

@@ -21,21 +21,36 @@ relation from the cuckoo table, and diffs each drained bucket delta
 against a shadow copy of that table into the few writes the device copy
 needs (tombstones and revivals on ``edge_next``, a re-sorted overlay),
 until the overlay fills and the relation is rebuilt.  The host side is
-numpy, the same as the reference's.
+numpy, the same as the reference's; :func:`relation_arrays` sorts the
+same arrays from a tensor of the table, on the card in milliseconds
+where the host sort of a 1M-filter table takes most of a second.
+:class:`BackendAutotuner` keeps the
+measured hash-or-join pick of each dispatch shape for the ``auto``
+backend.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import hashlib
+import json
+import logging
+import os
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .compiler import BUCKET_SLOTS
 from .match_kernel import MatchResult, epilogue
 from .walk_kernel import OVERLAY_CAP, join_walk
 
-__all__ = ["OVERLAY_CAP", "OVERLAY_EMPTY", "JoinRelation", "OverlayFull",
-           "join_match", "relation_capacity"]
+log = logging.getLogger(__name__)
+
+__all__ = ["OVERLAY_CAP", "OVERLAY_EMPTY", "BackendAutotuner",
+           "JoinRelation", "OverlayFull", "join_match", "relation_arrays",
+           "relation_capacity"]
 
 #: state and word of an unused overlay row: sorts after every live
 #: (state, word) pair, so the lower bound never lands on one
@@ -46,6 +61,31 @@ def relation_capacity(hb: int) -> int:
     """Relation rows for a cuckoo table of ``hb`` buckets: its slot
     count, so a rebuild always fits and the capacity doubles with Hb."""
     return hb * BUCKET_SLOTS
+
+
+def relation_arrays(s: int, edge_tab: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(state_start, edge_word, edge_next)`` of the cuckoo table
+    ``edge_tab`` over ``s`` states, sorted where the tensor lies: the
+    arrays :class:`JoinRelation` sorts on the host, bit for bit (the
+    (state, word) pairs of a table are distinct, so one order)."""
+    flat = edge_tab.reshape(-1, 4)
+    live = flat[flat[:, 0] >= 0]
+    # (state, word) as one int64 key; words shifted to sort signed
+    key = live[:, 0].long() * 2**32 + (live[:, 1].long() + 2**31)
+    sw = live[torch.sort(key, stable=True).indices]
+    n = int(sw.shape[0])
+    cap = relation_capacity(int(edge_tab.shape[0]))
+    if n > cap:  # cannot happen: cap is the slot count
+        raise ValueError(f"{n} edges > relation capacity {cap}")
+    dev = edge_tab.device
+    word = torch.zeros(cap, dtype=torch.int32, device=dev)
+    nxt = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+    word[:n] = sw[:, 1]
+    nxt[:n] = sw[:, 2]
+    start = torch.zeros(s + 1, dtype=torch.int32, device=dev)
+    start[1:] = torch.cumsum(torch.bincount(sw[:, 0], minlength=s)[:s], 0)
+    return start, word, nxt
 
 
 def join_match(words, lens, is_sys, node_tab, state_start, edge_word,
@@ -257,6 +297,15 @@ class JoinRelation:
             self.state_start,
             np.full(new_s - cur, self.state_start[-1], np.int32)])
 
+    def adopt(self, start: np.ndarray, word: np.ndarray,
+              nxt: np.ndarray) -> None:
+        """Take the sorted arrays of the current shadow made elsewhere
+        (:func:`relation_arrays`): :meth:`rebuild` without the host
+        sort.  The overlay empties."""
+        self.state_start, self.edge_word, self.edge_next = start, word, nxt
+        self._o_map = {}
+        self._materialize_overlay()
+
     def rebuild(self, s: int, edge_tab: Optional[np.ndarray] = None) -> None:
         """Re-sort from ``edge_tab`` (or the current shadow): the
         overlay-full and rehash path, O(E log E)."""
@@ -264,3 +313,151 @@ class JoinRelation:
             self.shadow = np.array(edge_tab, np.int32, copy=True)
             self.cap = relation_capacity(int(edge_tab.shape[0]))
         self._build(s)
+
+
+class BackendAutotuner:
+    """Measured hash-vs-join pick per kernel shape, persisted as
+    checksummed JSON: a corrupt or tampered pick table is rejected and
+    the default serves (a wrong pick is only slow, but a torn file must
+    never poison routing).  The port's copy of the reference's class;
+    the same file format, so either reads the other's table.
+
+    Thread model: ``pick()`` is a dict read (serve path, GIL-atomic);
+    ``record()``/``save()`` run under one lock, from whichever thread
+    measures."""
+
+    VERSION = 1
+
+    def __init__(self, path: Optional[str] = None, reps: int = 3) -> None:
+        self.path = path
+        self.reps = max(1, int(reps))
+        self.picks: Dict[str, str] = {}
+        self.measured: Dict[str, Dict[str, float]] = {}
+        self.rejected = False
+        self.family_hits = 0
+        self._lock = threading.Lock()
+        if path:
+            self._load()
+
+    @staticmethod
+    def sig(b: int, d: int, s: int, hb: int) -> str:
+        return f"b{b}:d{d}:s{s}:h{hb}"
+
+    @staticmethod
+    def family(sig: str) -> str:
+        """The pow2 (S, Hb) family a sig belongs to: the (batch,
+        depth) prefix — table shapes are padded pow2s, so every
+        growth step lands in the same family."""
+        return sig.split(":s", 1)[0]
+
+    def pick(self, sig: str) -> Optional[str]:
+        return self.picks.get(sig)
+
+    def pick_for(self, b: int, d: int, s: int, hb: int) -> Optional[str]:
+        """The serving pick for a shape: the exact measured sig, else
+        the (B, D)-family consensus across pow2 (S, Hb) shapes — the
+        pick rarely flips within a family, so a growth step inherits
+        the family's answer instead of re-measuring cold.  A split family (measured shapes disagree)
+        returns None and the exact shape measures as before."""
+        sig = self.sig(b, d, s, hb)
+        p = self.picks.get(sig)
+        if p is not None:
+            return p
+        fam = self.family(sig)
+        seen = {v for k, v in self.picks.items()
+                if self.family(k) == fam}
+        if len(seen) == 1:
+            self.family_hits += 1
+            return next(iter(seen))
+        return None
+
+    # -- measurement -------------------------------------------------------
+
+    def measure(self, sig: str,
+                runners: Dict[str, Callable[[], Optional[float]]]) -> str:
+        """Time each runner (one warmup call outside the clock — the
+        first call may build a kernel), record the per-rep minimum,
+        pick the fastest, persist.  Returns the winning backend name.
+        Each runner must wait for its own device work to finish; one
+        that returns a number has timed itself (seconds, e.g. between
+        two CUDA events), and that number replaces the host clock's."""
+        times: Dict[str, float] = {}
+        for name, run in runners.items():
+            run()                       # warmup / compile, untimed
+            best = float("inf")
+            for _ in range(self.reps):
+                t0 = time.perf_counter()
+                took = run()
+                if took is None:
+                    took = time.perf_counter() - t0
+                best = min(best, took)
+            times[name] = best
+        winner = min(times, key=lambda n: times[n])
+        self.record(sig, winner, times)
+        return winner
+
+    def record(self, sig: str, backend: str,
+               times: Optional[Dict[str, float]] = None) -> None:
+        with self._lock:
+            self.picks[sig] = backend
+            if times:
+                self.measured[sig] = {
+                    k: round(v * 1e6, 2) for k, v in times.items()}
+            self._save_locked()
+
+    # -- persistence -------------------------------------------------------
+
+    @staticmethod
+    def _checksum(picks: Dict[str, str]) -> str:
+        return hashlib.sha1(
+            json.dumps(picks, sort_keys=True).encode()).hexdigest()
+
+    def _load(self) -> None:
+        try:
+            with open(self.path) as f:
+                doc = json.load(f)
+            if doc.get("version") != self.VERSION:
+                raise ValueError(f"version {doc.get('version')!r}")
+            picks = doc.get("picks")
+            if not isinstance(picks, dict) or any(
+                    v not in ("hash", "join", "join-pallas")
+                    for v in picks.values()):
+                raise ValueError("malformed picks")
+            if doc.get("checksum") != self._checksum(picks):
+                raise ValueError("checksum mismatch")
+            self.picks = dict(picks)
+            self.measured = dict(doc.get("measured") or {})
+        except FileNotFoundError:
+            pass
+        except Exception as e:  # corrupt table: defaults serve
+            self.rejected = True
+            log.warning("autotune pick table %s rejected (%s); "
+                        "measuring fresh", self.path, e)
+
+    def _save_locked(self) -> None:
+        if not self.path:
+            return
+        doc = {
+            "version": self.VERSION,
+            "checksum": self._checksum(self.picks),
+            "picks": self.picks,
+            "measured": self.measured,
+        }
+        try:
+            os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+            tmp = self.path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(doc, f, indent=1, sort_keys=True)
+            os.replace(tmp, self.path)
+        except OSError:
+            log.warning("autotune pick table %s not persisted",
+                        self.path, exc_info=True)
+
+    def info(self) -> dict:
+        return {
+            "picks": dict(self.picks),
+            "measured_shapes": len(self.measured),
+            "family_hits": self.family_hits,
+            "rejected_file": self.rejected,
+            "path": self.path,
+        }

@@ -20,8 +20,9 @@ MAX_TOPIC_LEN = 65535  # bytes, per the MQTT spec
 SHARE_PREFIX = "$share"
 QUEUE_PREFIX = "$queue"
 
-__all__ = ["TopicError", "words", "join", "is_sys", "validate", "match",
-           "parse_share"]
+__all__ = ["TopicError", "words", "join", "levels", "wildcard", "is_sys",
+           "validate", "match", "parse_share", "is_shared", "strip_share",
+           "make_share"]
 
 
 class TopicError(ValueError):
@@ -38,6 +39,17 @@ def join(ws: Sequence[str]) -> str:
     return "/".join(ws)
 
 
+def levels(topic: str) -> int:
+    return len(words(topic))
+
+
+def wildcard(topic_or_words) -> bool:
+    """True if the filter contains ``+`` or ``#`` at any level."""
+    ws = (words(topic_or_words) if isinstance(topic_or_words, str)
+          else topic_or_words)
+    return any(w in ("+", "#") for w in ws)
+
+
 def is_sys(topic: str) -> bool:
     """True for ``$``-prefixed topics (``$SYS/...``)."""
     return topic.startswith("$")
@@ -52,6 +64,20 @@ def parse_share(flt: str) -> Optional[Tuple[str, str]]:
     if flt.startswith(QUEUE_PREFIX + "/"):
         return (QUEUE_PREFIX, flt[len(QUEUE_PREFIX) + 1:])
     return None
+
+
+def is_shared(flt: str) -> bool:
+    return parse_share(flt) is not None
+
+
+def strip_share(flt: str) -> str:
+    """The real filter, share prefix removed (identity otherwise)."""
+    share = parse_share(flt)
+    return share[1] if share is not None else flt
+
+
+def make_share(group: str, real: str) -> str:
+    return f"{SHARE_PREFIX}/{group}/{real}"
 
 
 def validate(topic: str, kind: str = "filter") -> None:

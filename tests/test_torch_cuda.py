@@ -1,15 +1,21 @@
 """The port's CUDA walk kernels (hash and join) against their plain
-PyTorch versions, on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
+PyTorch versions, and the asyncio serve loop on them, on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
 module imports neither JAX nor the reference package, so it also runs
 where only the port is installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import asyncio
+import gc
+
 import numpy as np
 import pytest
 import torch
 
+from emqx_tpu_torch.broker.broker import Broker
+from emqx_tpu_torch.broker.match_service import MatchService
+from emqx_tpu_torch.observe import Metrics
 from emqx_tpu_torch.ops import (DeviceNfa, IncrementalNfa, encode_batch,
                                 join_match, nfa_match)
 from emqx_tpu_torch.ops import walk_kernel
@@ -167,3 +173,59 @@ def test_join_kernel_rejects_cpu_cuda_mix(join_table, i, name):
     args[i] = args[i].cpu()
     with pytest.raises(ValueError, match=name):
         join_walk(*args, active_slots=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["hash", "auto"])
+def test_serve_loop_on_card_hints_equal_router(backend):
+    """The broker's publish path on the card at a small size: filters
+    subscribed through the broker, the service started on CUDA (its
+    warm-up builds the kernels), 2,048 topics prefetched in batches of
+    256; every hint equals ``router.match_routes``, and the walks
+    launched are the dispatches plus the autotuner's measurements, whose
+    recorded times are the walks' (under a millisecond)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    filters, topics = build_workload(np.random.default_rng(5), 5000, 2048)
+
+    async def main():
+        b = Broker()
+        for i, f in enumerate(filters + EDGE_FILTERS):
+            cid = f"c{i % 64}"
+            if cid not in b.sessions:
+                b.open_session(cid)
+            b.subscribe(cid, f)
+        # no waiter may fall back to the host on a slow first batch: the
+        # test holds the answers, not the latency
+        ms = MatchService(b, Metrics(), backend=backend, bypass_rate=0,
+                          debounce_s=0.01, prefetch_timeout_s=30)
+        assert ms.dev.device.type == "cuda"
+        await ms.start()
+        try:
+            for _ in range(2000):
+                if ms.ready:
+                    break
+                await asyncio.sleep(0.01)
+            assert ms.ready
+            b.device_match = ms.hint_routes
+            launches0 = walk_kernel.launches + walk_kernel.join_launches
+            for lo in range(0, len(topics), 256):
+                batch = topics[lo:lo + 256] + EDGE_TOPICS
+                await asyncio.gather(*[ms.prefetch(t) for t in batch])
+                for t in batch:
+                    hint = ms.hint_routes(t)
+                    assert hint is not None, t
+                    assert sorted(hint) == sorted(b.router.match_routes(t))
+            launched = (walk_kernel.launches + walk_kernel.join_launches
+                        - launches0)
+            assert ms.dispatches >= 8
+            assert launched == ms.dispatches + ms.autotune_launches
+            if backend == "auto":
+                # the walks' own times (microseconds), not host waits
+                assert ms.tuner.measured
+                assert all(0 < us < 1000 for t in ms.tuner.measured.values()
+                           for us in t.values()), ms.tuner.measured
+        finally:
+            await ms.stop()
+            gc.unfreeze()       # the service froze the started heap
+    asyncio.run(main())

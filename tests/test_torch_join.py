@@ -309,8 +309,7 @@ def test_device_join_mirror_equals_reference_through_churn():
     _assert_mirror_equal(port, ref, topics, "growth")
 
 
-@pytest.mark.parametrize("backend,raises", [
-    ("dense", ValueError), ("auto", NotImplementedError)])
+@pytest.mark.parametrize("backend,raises", [("dense", ValueError)])
 def test_service_rejects_backends_it_cannot_serve(backend, raises):
     with pytest.raises(raises):
         MatchService(device="cpu", backend=backend)

@@ -283,7 +283,7 @@ def test_split_lookup_follows_reused_ids_as_the_reference():
     assert svc.inc.aid_reuses == ref.aid_reuses == len(fresh)
     n = len(ref.accept_filters)
     want = [ref.accept_get(a) for a in range(n)]
-    got = [(svc._split_row([a]) or [None])[0] for a in range(n)]
+    got = [(svc._split_row([a])[0] or [None])[0] for a in range(n)]
     assert got == want
     assert {want[a] for a in reused} == set(fresh)
 
@@ -331,8 +331,9 @@ def test_split_map_counts_and_frees(table):
     svc.remove(filters[0])
     svc.add("fresh/+/x")
     assert svc.n_routing == len(filters) + 2
-    assert svc._split_row([gone]) == []
-    assert svc._split_row([svc.inc.aid_of("fresh/+/x")]) == ["fresh/+/x"]
+    assert svc._split_row([gone]) == ([], [])
+    assert svc._split_row([svc.inc.aid_of("fresh/+/x")]) == (["fresh/+/x"],
+                                                             [])
 
 
 def test_load_needs_an_empty_service():
