@@ -96,7 +96,30 @@ Between phases 8 and 9 it drives the broker's own publish path:
   one started on the same broker, the same storm with another churn:
   the tuner's picks per shape with each backend's measured µs (each
   the device time of one flat match, under 1 ms), the join dispatches, and the same checks (launches equal the
-  dispatches plus the tuner's measurement walks).
+  dispatches plus the tuner's measurement walks);
+* slice_node_fanout, slice_node_pipeline, slice_node_fanout_host — the
+  batched fanout (``FanoutPipeline`` at the reference node's
+  ``broker.fanout.*`` defaults) on the same broker, each with its own
+  churn of 100 subscribes and 100 unsubscribes a second: fed by a fresh
+  node-default hash ``MatchService`` (``chunked``, pipeline off); by one
+  with ``pipeline=True``, depth 2 and ``readback_mode="auto"``; and by
+  none (the host trie alone).  2048 publisher tasks each offer one
+  message and await its delivery (the chunk that emitted its last leg,
+  or dropped it, has run), or publish it through ``Broker.publish``
+  when the pipeline refuses; the same warm-up and timed counts as
+  slice_node.  Publishes/s, deliveries/s, p50/p99 offer to delivered,
+  fanout batches, ``prefetch_many`` calls, device batches, the hint
+  share of the route lookups (all hints, and those the card answered),
+  readback bytes a batch beside 4·(B + Σcounts), the round trips, the
+  most pipelined slots in flight, the accept ids reused and grown, the
+  card's busy share (profiled storm) and the collector.  Each fails
+  on a route that differs from the router's, a failed batch or timed
+  out prefetch, a batch refused as stale or any waiter answered by the
+  host tables, a message neither delivered nor dropped, launches other
+  than the dispatches, fewer than half the route lookups answered by
+  the card's hints, or a readback other than its byte contract (the
+  slab on the fixed-window ``chunked`` path, else 4·(B + the ids the
+  reference's rule copies), each copy's size checked too).
 
 Each phase's line carries its wall seconds.
 The line before the last names every kernel with its numbers (and its
@@ -144,6 +167,19 @@ BUSY_BATCHES = 10           # slice_node: publishes under torch.profiler
 NODE_CHURN = 1000           # slice_node: subscribes and unsubscribes ...
 NODE_CHURN_RATE = 100.0     # ... of each a second, on the wall clock
 NODE_LOGGER = "emqx_tpu_torch.broker.match_service"
+FANOUT_LOGGER = "emqx_tpu_torch.broker.fanout"
+#: the reference node's broker.fanout.* defaults (emqx_tpu/config.py:141-157)
+FANOUT_KW = dict(max_batch=2048, min_batch=8, window_s=0.0005,
+                 adapt_window_s=0.05, bypass_rate=0.0, queue_cap=65536,
+                 shape_routes=1.25, shape_probe_s=0.25)
+#: the fanout phases: name, the match service's arguments (None: no
+#: service, the host trie alone) and the seed of the churn beside them
+FANOUT_PHASES = (
+    ("slice_node_fanout", {}, 13),
+    ("slice_node_pipeline", {"pipeline": True, "pipeline_depth": 2,
+                             "readback_mode": "auto"}, 14),
+    ("slice_node_fanout_host", None, 15),
+)
 #: name, source and replaced TPU kernel of each walk kernel
 KERNELS = {
     "hash": ("nfa_walk", "emqx_tpu_torch/ops/csrc/nfa_walk.cu",
@@ -875,8 +911,10 @@ class _RouteLog:
         self.topics: List[str] = []
         self.keys: List[str] = []
         self.epochs: List[int] = []
+        self.calls = 0
 
     def __call__(self, topic: str):
+        self.calls += 1
         routes = self.ms.hint_routes(topic)
         if routes is not None:
             self.topics.append(topic)
@@ -929,21 +967,24 @@ class _LogCount(logging.Handler):
     """Counts the service's records of failed device batches and of
     prefetches that timed out (both logged at debug).  A batch refused
     because an accept id was reused while it was in flight (the service's
-    ``_StaleRace``, the designed answer to churn) is counted apart."""
+    ``_StaleRace``) is counted apart: the fixed-window phases report it,
+    the fanout phases fail on it."""
 
     def __init__(self) -> None:
         super().__init__(logging.DEBUG)
         self.reset()
 
     def reset(self) -> None:
-        self.failed = self.timeouts = self.stale_races = 0
+        self.failed = self.timeouts = self.stale_races = self.errors = 0
         self.first = None
 
     def emit(self, record) -> None:
         from emqx_tpu_torch.broker.match_service import _StaleRace
 
         msg = record.getMessage()
-        if msg.startswith("device batch failed"):
+        if record.levelno >= logging.ERROR:     # the fanout's failures
+            self.errors += 1
+        elif msg.startswith("device batch failed"):
             if record.exc_info and isinstance(record.exc_info[1],
                                               _StaleRace):
                 self.stale_races += 1
@@ -1000,7 +1041,8 @@ async def _broker_churn(ms, broker, add, remove,
     device table reflects the last of them.  ``max_lag`` is the most
     router mutations the device table trailed by at a churn step, and
     ``steps_past_stale_bound`` counts the steps at which it trailed by
-    more than the service serves with."""
+    more than the service serves with.  With ``ms`` None (the host trie
+    alone) there is no device table to trail."""
     n = max(len(add), len(remove))
     done = max_lag = past = 0
     t0 = time.perf_counter()
@@ -1011,13 +1053,14 @@ async def _broker_churn(ms, broker, add, remove,
         for cid, flt in remove[done:due]:
             _check(broker.unsubscribe(cid, flt), f"unsubscribe {flt!r}")
         done = due
-        lag = broker.router.epoch - ms._synced_epoch
-        max_lag = max(max_lag, lag)
-        past += lag > ms.max_stale_deltas
+        if ms is not None:
+            lag = broker.router.epoch - ms._synced_epoch
+            max_lag = max(max_lag, lag)
+            past += lag > ms.max_stale_deltas
         await asyncio.sleep(max(0.0, t0 + done / rate - time.perf_counter()))
     epoch = broker.router.epoch
     t1 = time.perf_counter()
-    while ms._synced_epoch < epoch:
+    while ms is not None and ms._synced_epoch < epoch:
         await asyncio.sleep(0.001)
     return {"subscribed": len(add), "unsubscribed": len(remove),
             "rate_per_s": rate, "churn_s": t1 - t0, "max_lag": max_lag,
@@ -1037,10 +1080,13 @@ def _node_churn(broker, filters, rng_seed: int, topics) -> tuple:
     cids = sorted(broker.sessions)
     add = [(cids[int(i)], f) for i, f in
            zip(rng.integers(len(cids), size=len(fresh)), fresh)]
+    # clients that still hold a subscription (all of them at 1M; a
+    # rehearsal's few per client run out after the earlier churns)
+    holders = [c for c in cids if broker.sessions[c].subscriptions]
     drop = []
-    for i in rng.choice(len(cids), NODE_CHURN, replace=False):
-        subs = sorted(broker.sessions[cids[int(i)]].subscriptions)
-        drop.append((cids[int(i)], subs[int(rng.integers(len(subs)))]))
+    for i in rng.choice(len(holders), NODE_CHURN, replace=False):
+        subs = sorted(broker.sessions[holders[int(i)]].subscriptions)
+        drop.append((holders[int(i)], subs[int(rng.integers(len(subs)))]))
     trie = FilterTrie()
     for f in fresh:
         trie.insert(f)
@@ -1085,17 +1131,8 @@ def _storm_line(res: Dict, lat: List[float], n: int, gcp, ms, m0, m1,
 async def _busy_storm(torch, device, ms, broker, topics, lo, hi) -> Dict:
     """Device busy share of the card over a storm of ``topics[lo:hi]``
     (``torch.profiler``); not measured on the CPU."""
-    if device.type != "cuda":
-        return {"busy_share": "not measured", "idle_share": "not measured"}
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        await _storm(ms, broker, topics, lo, hi, [])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    out = _busy_share(torch, prof, wall_us)
+    out = await _busy(torch, device,
+                      lambda: _storm(ms, broker, topics, lo, hi, []))
     out["publishes"] = hi - lo
     return out
 
@@ -1115,14 +1152,17 @@ def _count_batches(ms) -> None:
     ms._serve_batch = counted
 
 
-async def _start_node_service(torch, device, broker, metrics, backend):
-    """A node-default ``MatchService`` on ``broker``, started; returns it
-    with the seconds from ``start()`` to ready and synced."""
+async def _start_node_service(torch, device, broker, metrics, backend,
+                              **kw):
+    """A node-default ``MatchService`` on ``broker`` (with ``kw``),
+    started; returns it with the seconds from ``start()`` to ready and
+    synced."""
     from emqx_tpu_torch.broker.match_service import MatchService
 
     # the plain walks on the CPU (rehearsal) take longer than the node's
     # 0.5 s prefetch timeout allows a queue of batches
-    kw = {} if device.type == "cuda" else {"prefetch_timeout_s": 60.0}
+    if device.type != "cuda":
+        kw["prefetch_timeout_s"] = 60.0
     ms = MatchService(broker, metrics, device=device, backend=backend, **kw)
     t0 = time.perf_counter()
     await ms.start()
@@ -1217,6 +1257,360 @@ def _emit_checked(line: Dict, failed: List[str]) -> None:
     _check(not failed, "; ".join(failed))
 
 
+class _Deliveries:
+    """What the fanout storms deliver: ``on_deliver`` and the
+    ``message.dropped`` tap of the broker (the ids of the messages with a
+    leg emitted, or dropped, and the legs), and the completion of each
+    offered message: a publisher parks its future on the message, and it
+    is resolved once the fanout chunk that holds the message has run, so
+    after the emit of its last leg or its drop (the chunk's stages are
+    synchronous)."""
+
+    def __init__(self, broker, fan) -> None:
+        self.legs = 0
+        self.seen = set()
+        broker.on_deliver = self.on_deliver
+        broker.hooks.add("message.dropped", self.on_dropped,
+                         name="chip_smoke.fanout")
+        self.broker = broker
+        inner = fan._process_chunk
+
+        def chunk(batch) -> None:
+            try:
+                inner(batch)
+            finally:
+                for m in batch:
+                    fut = m.__dict__.pop("_done", None)
+                    if fut is not None and not fut.done():
+                        fut.set_result(None)
+        fan._process_chunk = chunk
+
+    def on_deliver(self, _cid, pubs) -> None:
+        self.legs += len(pubs)
+        seen = self.seen
+        for p in pubs:
+            seen.add(p.msg.id)
+
+    def on_dropped(self, msg, _reason) -> None:
+        self.seen.add(msg.id)
+
+    def close(self) -> None:
+        self.broker.hooks.delete("message.dropped", "chip_smoke.fanout")
+
+
+async def _fanout_storm(fan, broker, topics, lo: int, hi: int,
+                        lat: List[float], ids: List[int]) -> Dict:
+    """``STORM_TASKS`` publisher tasks, each taking the next topic of
+    ``topics[lo:hi]``: offer one message to the fanout and await its
+    delivery (or, refused, ``broker.publish`` it as a channel would),
+    then one yield, as a connection's read of its next packet yields.
+    Appends each message's seconds from offer to delivered to ``lat`` and
+    its id to ``ids``."""
+    from emqx_tpu_torch.broker.message import make_message
+
+    loop = asyncio.get_running_loop()
+    nxt = [lo]
+    refused = [0]
+
+    async def publisher(k: int) -> None:
+        sender = f"pub{k}"
+        while nxt[0] < hi:
+            topic = topics[nxt[0]]
+            nxt[0] += 1
+            msg = make_message(sender, topic, b"x")
+            ids.append(msg.id)
+            t0 = time.perf_counter()
+            fut = msg._done = loop.create_future()
+            if fan.offer(msg):
+                await fut
+            else:
+                del msg._done
+                refused[0] += 1
+                broker.publish(msg)
+            lat.append(time.perf_counter() - t0)
+            msg = fut = None
+            await asyncio.sleep(0)
+
+    t0 = time.perf_counter()
+    await asyncio.wait_for(
+        asyncio.gather(*[publisher(k) for k in range(STORM_TASKS)]), 600)
+    return {"wall_s": time.perf_counter() - t0, "refused": refused[0]}
+
+
+def _readback_contract(total: int, flat_cap: int, mode: str) -> int:
+    """The ids phase 2 of the two-phase readback must copy (the
+    reference's ``_readback_rows_twophase`` rule, auto slack 1.0): the
+    total, or for ``ragged`` (and ``auto`` off the powers of two) its
+    power-of-two capacity class, clipped to the flat buffer."""
+    cap = 0 if total <= 0 else min(1 << (total - 1).bit_length(), flat_cap)
+    if mode == "ragged" or (mode == "auto" and total & (total - 1)):
+        return cap
+    return min(total, flat_cap)
+
+
+class _ReadbackCheck:
+    """Each readback of a service against its byte contract: the slab
+    (4·(FLAT_MULT·B + 3·B) a group) on the fixed-window ``chunked`` path,
+    else 4·(B + the ids of :func:`_readback_contract`), the ids the
+    two-phase path really copied held to that count.  Sums the bytes
+    due, the padded rows B and the matched ids Σcounts."""
+
+    def __init__(self, ms) -> None:
+        self.due = self.rows = self.counts = self.reads = self.bad = 0
+        mult, mode = ms.FLAT_MULT, ms.readback_mode
+        slab, twophase = ms._readback_rows, ms._rows_from_twophase
+
+        def slab_read(res, n, k):
+            out = slab(res, n, k)
+            B = int(res.n_matches.numel())
+            self.bad += int(res.matches.numel()) != mult * B
+            self.note(B, sum(len(r) for r in out[0]), 4 * (mult + 3) * B)
+            return out
+
+        def twophase_read(meta, ids, n, k):
+            total = int(np.minimum(meta & 0xFFFF, k)[:n].sum())
+            B = int(meta.size)
+            want = _readback_contract(total, mult * B, mode)
+            self.bad += int(ids.size) != want
+            self.note(B, total, 4 * (B + want))
+            return twophase(meta, ids, n, k)
+
+        ms._readback_rows = slab_read
+        ms._rows_from_twophase = twophase_read
+
+    def note(self, rows: int, counts: int, due: int) -> None:
+        self.rows += rows
+        self.counts += counts
+        self.due += due
+        self.reads += 1
+
+
+def _watch_inflight(ms) -> Dict[str, int]:
+    """The most pipelined slots past dispatch at once."""
+    seen = {"max": 0}
+    inner = ms._set_inflight_metric
+
+    def note() -> None:
+        seen["max"] = max(seen["max"], ms._inflight_n)
+        inner()
+    ms._set_inflight_metric = note
+    return seen
+
+
+async def _fanout_phase(torch, device, broker, metrics, filters, topics,
+                        card, storm_batches: int, logs, name: str,
+                        service_kw, churn_seed: int) -> Dict:
+    """One fanout storm on the 1M broker: a ``FanoutPipeline`` at the
+    reference node's defaults, fed by a fresh node-default hash
+    ``MatchService`` with ``service_kw`` (or, with None, by no service:
+    the host trie alone); the warm-up, then the timed storm with a
+    churn beside it, then (with a service) a profiled one.  Emits the
+    line and fails the phase on a failed check."""
+    from emqx_tpu_torch.broker.fanout import FanoutPipeline
+    from emqx_tpu_torch.ops import walk_kernel
+
+    t_start = time.perf_counter()
+    logs.reset()
+    ms = ready_s = check = None
+    if service_kw is not None:
+        ms, ready_s = await _start_node_service(torch, device, broker,
+                                                metrics, "hash", **service_kw)
+        check = _RouteLog(ms, broker.router)
+        readback = _ReadbackCheck(ms)
+        inflight = _watch_inflight(ms)
+        inner = ms.prefetch_many
+        prefetches = [0]
+
+        async def prefetch_many(topic_qos, qos_of=None):
+            prefetches[0] += 1
+            await inner(topic_qos, qos_of)
+        ms.prefetch_many = prefetch_many
+    broker.device_match = check
+    fan = FanoutPipeline(broker, metrics, ms, **FANOUT_KW)
+    await fan.start()
+    broker.fanout = fan
+    track = _Deliveries(broker, fan)
+    warm_hi = WARM_STORM * BATCH
+    hi = warm_hi + storm_batches * BATCH
+    add, drop, _hit = _node_churn(broker, filters, churn_seed, ())
+    try:
+        await _fanout_storm(fan, broker, topics, 0, warm_hi, [], [])
+        # -- the main path: counts zeroed just before, read just after ---
+        walk_kernel.launches = 0
+        walk_kernel.join_launches = 0
+        m0 = metrics.all()
+        f0 = (fan.batches, fan.msgs)
+        if ms is not None:
+            d0 = ms.dispatches
+            b0 = len(ms._batch_ms)
+            ids0 = (ms.inc.aid_reuses, len(ms._filter_of))
+            calls0, served0 = check.calls, len(check.topics)
+            r0 = (readback.due, readback.rows, readback.counts,
+                  readback.reads, readback.bad)
+            prefetches[0] = 0
+            inflight["max"] = 0
+        legs0 = track.legs
+        lat: List[float] = []
+        ids: List[int] = []
+        gc.collect()
+        with GcPauses() as pauses:
+            storm = asyncio.ensure_future(
+                _fanout_storm(fan, broker, topics, warm_hi, hi, lat, ids))
+            churned = await _broker_churn(ms, broker, add, drop)
+            res = await storm
+        m1 = metrics.all()
+        launches = walk_kernel.launches
+        join_launches = walk_kernel.join_launches
+        # -----------------------------------------------------------------
+        n = hi - warm_hi
+        delta = {k: m1[k] - m0[k] for k in m1}
+        batches = fan.batches - f0[0]
+        line = {
+            "phase": name, "ok": True, "card": card, "publishes": n,
+            "publishes_per_s": n / res["wall_s"],
+            "deliveries_per_s": (track.legs - legs0) / res["wall_s"],
+            "deliveries_per_publish": (track.legs - legs0) / n,
+            "p50_ms": _pct(lat, 50) * 1e3, "p99_ms": _pct(lat, 99) * 1e3,
+            "max_ms": max(lat) * 1e3,
+            "latency": "offer to delivered (the emit of the last leg, or "
+                       "the drop)",
+            "refused_to_per_message_path": res["refused"],
+            "undelivered": sum(1 for i in ids if i not in track.seen),
+            "fanout_batches": batches,
+            "mean_fanout_batch": (fan.msgs - f0[1]) / max(1, batches),
+            "fanout_fallback": delta["broker.fanout.fallback"],
+            "fanout_errors": delta["broker.fanout.errors"],
+            "gc": {**pauses.summary(), "full_collections": pauses.count[2],
+                   "full_ms": pauses.pause_ms[2]},
+            "churn": churned, "fanout": fan.info(),
+            "wall_s": res["wall_s"]}
+        failed = []
+        if ms is not None:
+            device_batches = len(ms._batch_ms) - b0
+            dispatches = ms.dispatches - d0
+            calls = check.calls - calls0
+            due, rows, counts, reads, bad = (
+                a - b for a, b in zip((readback.due, readback.rows,
+                                       readback.counts, readback.reads,
+                                       readback.bad), r0))
+            nbytes = delta["tpu.match.readback_bytes"]
+            line.update({
+                "start_to_ready_s": ready_s, "backend": ms.backend,
+                "pipeline": ms.pipeline, "readback_mode": ms.readback_mode,
+                "prefetch_many_calls": prefetches[0],
+                "device_batches": device_batches,
+                "topics_per_device_batch":
+                    delta["tpu.match.topics"] / max(1, device_batches),
+                "route_lookups": calls,
+                "hint_share": delta["tpu.match.hint_served"] / max(1, calls),
+                "hint_share_device": (delta["tpu.match.hint_served"]
+                                      - delta["tpu.match.hint_served_host"])
+                / max(1, calls),
+                "hint_served": delta["tpu.match.hint_served"],
+                "hint_served_host": delta["tpu.match.hint_served_host"],
+                "hint_stale": delta["tpu.match.hint_stale"],
+                "host_reruns": delta["tpu.match.fallback_host"],
+                "cpu_fallback": delta["broker.match.cpu_fallback"],
+                "readback_bytes_per_batch": nbytes / max(1, device_batches),
+                "proportional_bytes_per_batch":
+                    4 * (rows + counts) / max(1, device_batches),
+                "readback_contract_bytes": due, "readback_bytes": nbytes,
+                "readback_reads": reads,
+                "readback_roundtrips_per_batch":
+                    delta["tpu.match.readback_roundtrips"]
+                    / max(1, device_batches),
+                "pipeline_inflight_max": inflight["max"],
+                "walk_dispatches": dispatches, "kernel_launches": launches,
+                "join_kernel_launches": join_launches,
+                "stale_race_batches": logs.stale_races,
+                "aid_reuses": ms.inc.aid_reuses - ids0[0],
+                "accept_ids_grown": len(ms._filter_of) - ids0[1]})
+            t0 = time.perf_counter()
+            line["mismatches"] = _verify_routes(broker.router, check)
+            line["checked"] = len(check.topics) - served0
+            line["check_s"] = time.perf_counter() - t0
+            failed += [what for ok, what in (
+                (line["mismatches"] == 0,
+                 f"{line['mismatches']} device routes differ from the "
+                 "router"),
+                (line["checked"] >= line["hint_served"],
+                 "a device route list escaped the check"),
+                (bad == 0, f"{bad} readbacks copied other than the "
+                 "contract's ids"),
+                (nbytes == due, f"readback bytes {nbytes} != the "
+                 f"contract's {due}"),
+                # the host tables answer a slot only when it failed or
+                # its table changed under it: neither may happen here
+                (line["cpu_fallback"] == 0 and logs.stale_races == 0,
+                 f"{line['cpu_fallback']} waiters answered by the host "
+                 f"tables, {logs.stale_races} batches refused as stale"))
+                if not ok]
+            if device.type == "cuda":
+                # on the CPU (rehearsal) the plain walks launch nothing
+                failed += [what for ok, what in (
+                    (launches == dispatches and join_launches == 0,
+                     f"launches {launches}+{join_launches} != dispatches "
+                     f"{dispatches}"),
+                    (prefetches[0] > 0 and device_batches > 0,
+                     "the storm never reached the device"),
+                    (line["hint_served"] - line["hint_served_host"]
+                     >= calls / 2,
+                     f"device hints served {line['hint_served']} - "
+                     f"{line['hint_served_host']} of {calls} route "
+                     "lookups"))
+                    if not ok]
+        failed += [what for ok, what in (
+            (line["undelivered"] == 0,
+             f"{line['undelivered']} messages neither delivered nor "
+             "dropped"),
+            (line["fanout_fallback"] == 0 and line["fanout_errors"] == 0,
+             f"the fanout fell back {line['fanout_fallback']} messages, "
+             f"{line['fanout_errors']} batch errors"))
+            if not ok]
+        failed += _log_checks(logs)
+        if ms is not None:
+            # the card's busy share over more publishes, under the profiler
+            busy = slice(hi, hi + BUSY_BATCHES * BATCH)
+            check = _RouteLog(ms, broker.router)
+            broker.device_match = check
+            line["device_busy"] = await _busy(
+                torch, device, lambda: _fanout_storm(
+                    fan, broker, topics, busy.start, busy.stop, [], []))
+            line["device_busy"]["publishes"] = busy.stop - busy.start
+            if _verify_routes(broker.router, check):
+                failed.append("device routes differ from the router in the "
+                              "profiled storm")
+            line["service"] = ms.info()
+        else:
+            line["device_busy"] = {"busy_share": "not measured",
+                                   "why": "no device path"}
+        line["phase_wall_s"] = time.perf_counter() - t_start
+        _emit_checked(line, failed)
+        return {"launches": (launches, join_launches), "line": line}
+    finally:
+        track.close()
+        await fan.stop()
+        broker.fanout = broker.device_match = None
+        if ms is not None:
+            await ms.stop()
+
+
+async def _busy(torch, device, storm) -> Dict:
+    """Device busy share of the card over ``await storm()``
+    (``torch.profiler``); not measured on the CPU."""
+    if device.type != "cuda":
+        return {"busy_share": "not measured", "idle_share": "not measured"}
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        await storm()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return _busy_share(torch, prof, wall_us)
+
+
 def phase_slice_node(torch, device, n_filters: int, card: str,
                      storm_batches: int) -> Dict:
     """The broker's own publish path at 1M subscriptions (BASELINE config
@@ -1237,6 +1631,8 @@ def _log_checks(logs: "_LogCount") -> List[str]:
         out.append(f"{logs.failed} device batches failed: {logs.first}")
     if logs.timeouts:
         out.append(f"{logs.timeouts} prefetches timed out: {logs.first}")
+    if logs.errors:
+        out.append(f"{logs.errors} errors logged: {logs.first}")
     return out
 
 
@@ -1350,9 +1746,26 @@ async def _slice_node(torch, device, n_filters, card, storm_batches):
         await ms.stop()
         broker.device_match = None
         _emit_checked(auto, failed)
-        return {"launches": node_launches,
-                "auto_launches": (auto["kernel_launches"],
-                                  auto["join_kernel_launches"])}
+        out = {"launches": node_launches,
+               "auto_launches": (auto["kernel_launches"],
+                                 auto["join_kernel_launches"])}
+        # the batched fanout, on the card and on the host trie alone
+        ms = auto = None
+        fan_log = logging.getLogger(FANOUT_LOGGER)
+        fan_log.addHandler(logs)
+        try:
+            for name, kw, seed in FANOUT_PHASES:
+                gc.collect()
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+                got = await _fanout_phase(
+                    torch, device, broker, metrics, filters, topics, card,
+                    storm_batches, logs, name,
+                    None if kw is None else dict(kw), seed)
+                out[name] = got["launches"]
+        finally:
+            fan_log.removeHandler(logs)
+        return out
     finally:
         svc_log.removeHandler(logs)
         gc.unfreeze()       # the services froze the started heap
@@ -1696,6 +2109,9 @@ def main(argv=None) -> int:
         launches["hash"]["node"], launches["join"]["node"] = node["launches"]
         (launches["hash"]["node_auto"],
          launches["join"]["node_auto"]) = node["auto_launches"]
+        for name in ("slice_node_fanout", "slice_node_pipeline"):
+            path = name[len("slice_"):]
+            launches["hash"][path], launches["join"][path] = node[name]
         gc.collect()
         phase = "slice_10m_build"
         big = phase_10m_build(torch, device, args.large_filters)

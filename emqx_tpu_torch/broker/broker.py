@@ -12,9 +12,14 @@ service's ``hint_routes``): a fresh micro-batched device answer replaces
 the host trie walk, and an absent or stale one falls back to
 ``router.match_routes``, so correctness never depends on the device.
 
-The reference's cluster forwarding seams (``on_forward``,
-``dispatch_remote``), the batched fanout and admission planes, enhanced
-auth and the latency histograms are not part of this copy.
+The batched fanout (``broker/fanout.py``) publishes through the seams
+the reference gives it: :meth:`Broker.publish_folded` and the batched
+shared dispatch :meth:`Broker._dispatch_shared_batch`.  The reference's
+cluster forwarding seams (``on_forward``, ``on_forward_shared``,
+``dispatch_remote``), the admission plane, enhanced auth and the latency
+histograms are not part of this copy; sessions are not shard-owned, so
+there is no ``Session.mutex`` and delivery calls ``Session.deliver``
+directly.
 """
 
 from __future__ import annotations
@@ -71,6 +76,10 @@ class Broker:
         # returns the routes of a topic when a provably fresh device
         # answer exists, None otherwise (the host trie then serves)
         self.device_match = None       # (topic) -> Optional[List[Route]]
+        # the batched publish->deliver pipeline (broker/fanout.py), set by
+        # whoever runs one; a channel offers publishes there and falls
+        # back to publish() when it refuses
+        self.fanout = None             # Optional[FanoutPipeline]
         # counter table; broker-internal drop accounting (outbox
         # overflow) and delivery counts land here when present
         self.metrics = None
@@ -193,6 +202,12 @@ class Broker:
             return res
         return self._publish_folded(msg, res)
 
+    def publish_folded(self, msg: Message) -> DeliverResult:
+        """Dispatch a message whose ``'message.publish'`` fold already ran
+        (the fanout pipeline's fallback after its stage 1): running the
+        fold again would fire its side effects twice."""
+        return self._publish_folded(msg, DeliverResult())
+
     def _publish_folded(self, msg: Message,
                         res: DeliverResult) -> DeliverResult:
         # a fresh micro-batched device answer replaces the per-publish
@@ -235,9 +250,12 @@ class Broker:
                 continue  # MQTT5 No-Local
             self._deliver_to(clientid, opts, msg, res)
 
-    def _dispatch_shared(
+    def _shared_try_deliver(
         self, group: str, flt: str, msg: Message, res: DeliverResult
-    ) -> None:
+    ):
+        """The per-member acceptance probe of single-message and batched
+        $share dispatch (the ack-aware redispatch calls it until a member
+        accepts)."""
         def try_deliver(member: Tuple[str, str]) -> bool:
             clientid, node = member
             if node != self.node:
@@ -245,16 +263,106 @@ class Broker:
             sess = self.sessions.get(clientid)
             if sess is None:
                 return False
-            # $queue/... sessions store the raw legacy key, not $share form
-            opts = sess.subscriptions.get(T.make_share(group, flt))
-            if opts is None and group == T.QUEUE_PREFIX:
-                opts = sess.subscriptions.get(f"{T.QUEUE_PREFIX}/{flt}")
+            opts = self._shared_opts(sess, group, flt)
             if opts is None:
                 return False
             return self._deliver_to(clientid, opts, msg, res)
 
+        return try_deliver
+
+    @staticmethod
+    def _shared_opts(sess: Session, group: str,
+                     flt: str) -> Optional[SubOpts]:
+        # $queue/... sessions store the raw legacy key, not $share form
+        opts = sess.subscriptions.get(T.make_share(group, flt))
+        if opts is None and group == T.QUEUE_PREFIX:
+            opts = sess.subscriptions.get(f"{T.QUEUE_PREFIX}/{flt}")
+        return opts
+
+    def _dispatch_shared(
+        self, group: str, flt: str, msg: Message, res: DeliverResult
+    ) -> None:
         member = self.shared.dispatch_with_ack(
-            group, flt, msg.topic, try_deliver, msg.sender, self.node)
+            group, flt, msg.topic,
+            self._shared_try_deliver(group, flt, msg, res),
+            msg.sender, self.node)
+        if member is None:
+            self.hooks.run("message.dropped", (msg, "shared_no_available"))
+
+    def _dispatch_shared_batch(
+        self, group: str, flt: str, msgs: List[Message], res: DeliverResult
+    ) -> None:
+        """Batched $share dispatch (the fanout pipeline): one
+        ``pick_batch`` assigns a member to each message, advancing the
+        round-robin, sticky and hash state exactly as per-message picks
+        would; then the messages picked onto one member are delivered
+        through one ``Session.deliver``.  A member that cannot take its
+        messages (gone, unsubscribed, or its queue refused them) sends
+        those messages, and only those, through the per-message ack-aware
+        redispatch.  The reference's branch for remote members of the
+        group (``on_forward_shared``) waits for the cluster layer."""
+        picks = self.shared.pick_batch(
+            group, flt, [(m.topic, m.sender) for m in msgs], self.node)
+        by_member: Dict[Tuple[str, str], List[Message]] = {}
+        hooks = self.hooks
+        for m, member in zip(msgs, picks):
+            if member is None:
+                hooks.run("message.dropped", (m, "shared_no_available"))
+                continue
+            bucket = by_member.get(member)
+            if bucket is None:
+                bucket = by_member[member] = []
+            bucket.append(m)
+        for member, mlist in by_member.items():
+            clientid, node = member
+            sess = self.sessions.get(clientid) if node == self.node else None
+            opts = (self._shared_opts(sess, group, flt)
+                    if sess is not None else None)
+            if opts is None:
+                # the picked member cannot take them: redispatch each
+                # message without it
+                for m in mlist:
+                    self._redispatch_shared(group, flt, m, res, member)
+                continue
+            effs = [self._effective(m, opts) for m in mlist]
+            sends, dropped = sess.deliver(effs)
+            if sends:
+                res.matched += len(sends)
+                if self.metrics is not None:
+                    self.metrics.inc("messages.delivered", len(sends))
+                res.publishes.setdefault(clientid, []).extend(sends)
+                if hooks.has("message.delivered"):
+                    for p in sends:
+                        hooks.run("message.delivered", (clientid, p.msg))
+            if not dropped:
+                continue
+            dropped_ids = set()
+            for d in dropped:
+                dropped_ids.add(d.id)
+                res.dropped.append((clientid, d))
+                hooks.run("message.dropped", (d, "queue_full"))
+            # a message of this batch that was dropped (refused by the
+            # queue, or evicted by a later one of the same batch) was
+            # never sent: it goes to another member; victims of earlier
+            # batches count as drops, as on the per-message path
+            for m, eff in zip(mlist, effs):
+                if eff.id in dropped_ids:
+                    self._redispatch_shared(group, flt, m, res, member)
+
+    def _redispatch_shared(
+        self,
+        group: str,
+        flt: str,
+        msg: Message,
+        res: DeliverResult,
+        nacked: Tuple[str, str],
+    ) -> None:
+        """Ack-aware redispatch of one message after ``nacked`` refused
+        it (the batched path's twin of ``dispatch_with_ack``'s retry)."""
+        member = self.shared.dispatch_with_ack(
+            group, flt, msg.topic,
+            self._shared_try_deliver(group, flt, msg, res),
+            msg.sender, self.node, exclude=(nacked,))
         if member is None:
             self.hooks.run("message.dropped", (msg, "shared_no_available"))
 

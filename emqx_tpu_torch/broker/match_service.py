@@ -42,6 +42,40 @@ dispatches, and the answers are parked in a hint cache that
 * rules co-batch their FROM filters into the same table
   (:meth:`register_rule`); :meth:`hint_rules` returns the matched rule
   ids of a fresh hint;
+* with ``pipeline=True`` (the reference's ``match.pipeline.enable``) the
+  batch loop only encodes and dispatches (``_pipeline_dispatch``): each
+  batch past dispatch is an in-flight slot, whose ``row_meta`` copy to
+  pinned host memory is enqueued behind its walk with a CUDA event; at
+  most ``pipeline_depth`` slots wait, and the ``_readback_loop`` task
+  finishes them in order (``_finish_slot``): it waits on each slot's
+  event by polling it between rounds of the loop, copies exactly the
+  matched ids (phase 2 of the two-phase readback), decodes and mints.
+  Everything runs on one CUDA stream, the stream that the row deltas
+  are written on: a walk sees exactly the deltas written before it was
+  enqueued, and the overlap is the host encoding batch N+1 while the
+  card walks batch N.  No copy of the pipeline waits on the card on the
+  loop.  While a slot is in flight the table reuses no freed accept id
+  (``DeviceNfa.hold_ids``: new filters take fresh ids), so that churn
+  cannot rename an id its rows hold.  A slot whose table changed under
+  it anyway (an accept id reused, the table replaced) or whose readback
+  failed is answered from the host tables at the mirror's epoch
+  (``_cpu_serve``), as is a batch whose dispatch failed; its hints are
+  marked as the host's, and :meth:`hint_routes` counts them apart
+  (``tpu.match.hint_served_host``);
+* ``readback_mode`` picks the readback's shape (the reference's
+  ``match.readback.mode``): ``chunked`` (the default) reads the whole
+  flat slab on the fixed-window path, as the reference does; the
+  pipeline, and ``ragged`` or ``auto`` on either path, read in two
+  phases through a slot (``_readback_slot``; the fixed-window path
+  awaits it in place): the packed ``row_meta`` (4·B bytes), then exactly the
+  Σcounts matched ids (``chunked``), or the reference's power-of-two
+  capacity class of them (``ragged``; ``auto`` takes it when the total
+  is not a power of two and the padding stays within
+  ``readback_auto_slack`` times the total).  ``tpu.match.readback_bytes``
+  counts what the reference's counts; each phase is one copy, so
+  ``tpu.match.readback_roundtrips`` counts two waits for a batch with
+  matches where the reference's ``chunked`` counts one per power-of-two
+  chunk;
 * ``backend="auto"`` serves each (batch, depth) shape on the hash or the
   join walk as a :class:`~emqx_tpu_torch.ops.join_match.BackendAutotuner`
   measured it: an unmeasured shape serves ``hash`` and queues one
@@ -70,10 +104,11 @@ the port raises.  Nothing here stands in for a failing kernel: a failed
 batch resolves its waiters without a hint (publish walks the host trie
 and the failure is logged), a failed ``_warm`` keeps ``ready`` false.
 
-The reference's deadline loop, pipeline, two-phase readback, breaker,
-brownout, segments, multichip plane, histograms and flight recorder are
-not ported: their parameters raise NotImplementedError when set to
-anything but their defaults.
+The reference's deadline loop (with its per-dispatch timeout, which also
+bounds a pipelined readback there), breaker, brownout, segments,
+multichip plane, histograms and flight recorder are not ported: their
+parameters raise NotImplementedError when set to anything but their
+defaults.
 """
 
 from __future__ import annotations
@@ -96,7 +131,9 @@ from ..ops.device_table import BACKENDS, JOIN_BACKENDS, DeviceNfa, check_backend
 from ..ops.encode import TopicEncoder, encode_batch, table_encoder
 from ..ops.incremental import IncrementalNfa
 from ..ops.join_match import BackendAutotuner
-from ..ops.match_kernel import SERVE_FLAT_MULT, decode_flat
+from ..ops.match_kernel import (SERVE_FLAT_MULT, decode_flat,
+                                decode_row_meta, fetch_flat_prefix,
+                                fetch_flat_ragged, ragged_capacity)
 from .trie import FilterTrie
 
 log = logging.getLogger(__name__)
@@ -114,10 +151,8 @@ BACKEND_KERNELS = {"hash": "nfa_walk", "join": "nfa_join_walk",
 #: reference parameters of features this port does not serve, with the
 #: default each must keep
 _UNPORTED = {
-    "deadline": False, "deadline_s": 0.041, "pipeline": False,
-    "pipeline_depth": 2, "breaker_threshold": 5,
+    "deadline": False, "deadline_s": 0.041, "breaker_threshold": 5,
     "breaker_probe_interval_s": 1.0, "dispatch_timeout_s": None,
-    "readback_mode": "chunked", "readback_auto_slack": 1.0,
     "segments": False, "segments_dir": "", "compact_interval_s": 30.0,
     "compact_min_mutations": 1024, "dirty_threshold": 0.5, "prewarm": True,
     "multichip": False, "multichip_tp": 0, "multichip_native": True,
@@ -175,6 +210,9 @@ def _table_sizing(n: int) -> Tuple[int, int]:
     return (max(1024, 1 << int(np.ceil(np.log2(n * 2.2)))),
             max(64, 1 << int(np.ceil(np.log2(n * 1.4)))))
 
+
+#: the phase-2 shapes of the two-phase readback
+READBACK_MODES = ("chunked", "ragged", "auto")
 
 #: GPU cycles of the spin that covers the enqueue of a timed match
 #: (about 1 ms at an H100's boost clock)
@@ -246,6 +284,54 @@ class _RecentAdds:
         return any(last[f] > epoch for f in self.trie.match(topic))
 
 
+class _Slot:
+    """A pipelined batch past dispatch: its waiters and groups, the walk
+    results, the guards it was dispatched against (the table's
+    ``aid_reuses`` and the service's table generation), the epochs its
+    hints will carry, and its readback state: one pinned host buffer for
+    the groups' ``row_meta`` and one for their ids (both the service's,
+    lent until the rows are decoded), the event after the last copy
+    enqueued (None on the CPU, where copies are done on return), and the
+    device table whose freed accept ids it holds."""
+
+    __slots__ = ("pending", "topics", "groups", "handles", "reuses0",
+                 "gen0", "epoch", "rule_gen", "dispatch_s", "bufs",
+                 "metas", "event", "held")
+
+    def __init__(self, pending, topics, groups, handles, reuses0, gen0,
+                 epoch, rule_gen, dispatch_s=0.0, bufs=None, metas=(),
+                 event=None, held=None) -> None:
+        self.pending, self.topics, self.groups = pending, topics, groups
+        self.handles, self.reuses0, self.gen0 = handles, reuses0, gen0
+        self.epoch, self.rule_gen = epoch, rule_gen
+        self.dispatch_s = dispatch_s
+        self.bufs, self.metas, self.event = bufs, metas, event
+        # the DeviceNfa whose freed ids the slot holds until released
+        self.held = held
+
+
+def _record_event(device: torch.device):
+    """A CUDA event recorded now on the current stream of ``device``
+    (None on the CPU)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+async def _event_done(ev) -> None:
+    """Wait for ``ev`` without blocking the event loop: poll it between
+    rounds of the loop (a busy loop polls once a round; an idle one
+    sleeps 0.2 ms between polls after the first 64)."""
+    if ev is None:
+        return
+    polls = 0
+    while not ev.query():
+        polls += 1
+        await asyncio.sleep(0 if polls < 64 else 0.0002)
+
+
 class MatchService:
     """Wildcard filters mirrored into a resident device table; topic
     batches matched on the device with host fail-open for spilled rows.
@@ -268,7 +354,9 @@ class MatchService:
                  prefetch_timeout_s: float = 0.5, table: str = "auto",
                  short_depth: int = 4, split_min: int = 256,
                  backend: str = "hash", autotune: bool = True,
-                 autotune_reps: int = 3,
+                 autotune_reps: int = 3, pipeline: bool = False,
+                 pipeline_depth: int = 2, readback_mode: str = "chunked",
+                 readback_auto_slack: float = 1.0,
                  device: Union[None, str, torch.device] = None,
                  **unported: Any) -> None:
         for name, value in unported.items():
@@ -283,6 +371,8 @@ class MatchService:
             check_backend(backend)      # raises ValueError
         if table not in TABLES:
             raise ValueError(f"unknown host table {table!r}")
+        if readback_mode not in READBACK_MODES:
+            raise ValueError(f"unknown readback mode {readback_mode!r}")
         self.broker = broker
         self.router = broker.router if broker is not None else None
         self.metrics = metrics
@@ -300,6 +390,23 @@ class MatchService:
         self.prefetch_timeout_s = prefetch_timeout_s
         self.short_depth = short_depth
         self.split_min = split_min
+        # the overlapped pipeline (module docstring); off, the batch loop
+        # dispatches and reads back each batch before the next
+        self.pipeline = bool(pipeline)
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self._inflight_q: Optional[asyncio.Queue] = None
+        self._inflight_n = 0
+        # pinned (meta, ids) host buffer pairs free for a slot to borrow
+        self._rb_free: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.readback_mode = readback_mode
+        self.readback_auto_slack = float(readback_auto_slack)
+        # bumped when the host table is replaced: a batch in flight
+        # across the swap named its accept ids in the old table
+        self._table_gen = 0
+        # EWMAs of a batch's encode + dispatch and of its readback (the
+        # reference's split estimate; info() reports them)
+        self._est_disp_s = 0.004
+        self._est_rb_s = 0.001
         self.table_kind = "python" if table == "python" else "native"
         self.inc = (IncrementalNfa(depth=depth) if self.table_kind == "python"
                     else NativeNfa(depth=depth))
@@ -351,9 +458,10 @@ class MatchService:
         self._pending: List[Tuple[str, asyncio.Future]] = []
         self._pending_since = 0.0     # arrival of the oldest waiter
         self._batch_wake = asyncio.Event()
-        # topic -> (router epoch, rule gen, wild filters, rule ids)
+        # topic -> (router epoch, rule gen, wild filters, rule ids,
+        # answered by the host tables)
         self._hints: Dict[str, Tuple[int, int, Tuple[str, ...],
-                                     Tuple[str, ...]]] = {}
+                                     Tuple[str, ...], bool]] = {}
         self._tasks: List[asyncio.Task] = []
         # arrival-rate window of the adaptive bypass
         self._win_start = time.monotonic()
@@ -438,6 +546,7 @@ class MatchService:
         inc = NativeNfa(depth=self.depth, state_bucket=s, edge_bucket=hb)
         inc.bulk_add(filters)
         self.inc = inc
+        self._table_gen += 1
         self.dev = self._bind_device(inc, self.dev.active_slots,
                                      self.dev.max_matches, self.dev.device)
         t1 = time.perf_counter()
@@ -526,7 +635,7 @@ class MatchService:
             batch = list(topics[lo:lo + self.max_batch])
             self._topic_sample.extend(batch[:8])
             groups = self._depth_groups(batch)
-            results, _nbytes = self._readback_groups(
+            results, _nbytes, _trips = self._readback_groups(
                 self._encode_dispatch(batch, groups))
             rows = self._collect_rows(batch, groups, results)
             out.extend(self._split_row(row)[0] for row in rows)
@@ -582,16 +691,53 @@ class MatchService:
         rows = [seg.tolist() for seg in decode_flat(matches, counts, k)[:n]]
         return rows, np.flatnonzero(sp[:n]).tolist()
 
+    @staticmethod
+    def _phase2_count(total: int, flat_cap: int, mode: str,
+                      auto_slack: float) -> int:
+        """Ids that phase 2 of the two-phase readback copies for
+        ``total`` matched ids: ``total`` (``chunked``), or its
+        power-of-two capacity class (``ragged``, and ``auto`` when
+        ``total`` is not a power of two and the padding is at most
+        ``auto_slack``·total: the reference's rule).  At most
+        ``flat_cap``: rows past the flat buffer are spilled and re-run
+        on the host whatever the copy holds (the reference's chunked
+        copy re-reads clamped chunks there and counts ``total``)."""
+        cap = ragged_capacity(total, flat_cap)
+        if mode == "ragged" or (mode == "auto" and total & (total - 1)
+                                and cap - total <= auto_slack * total):
+            return cap
+        return min(total, flat_cap)
+
+    @staticmethod
+    def _rows_from_twophase(meta: np.ndarray, ids: np.ndarray, n: int,
+                            k: int):
+        """``(per-row id lists, spilled row indices)`` of the first
+        ``n`` rows from a ``row_meta`` vector and the head of the flat
+        buffer copied after it (at least the first Σcounts ids; the
+        real rows precede the padding rows by the cumsum-offset
+        construction)."""
+        nk, sp = decode_row_meta(meta)
+        nk = np.minimum(nk, k)[:n].tolist()
+        flat = ids[:sum(nk)].tolist()
+        rows = []
+        o = 0
+        for c in nk:
+            rows.append(flat[o:o + c])
+            o += c
+        return rows, np.flatnonzero(sp[:n]).tolist()
+
     def _readback_groups(self, handles):
-        """Every group's d2h: ``([(rows, spilled)...], bytes copied)``
-        (the flat slab, the counts and both overflow vectors)."""
+        """Every group's slab readback (the flat buffer, the counts and
+        both overflow vectors, as the reference reads them on its
+        fixed-window ``chunked`` path): ``([(rows, spilled)...], bytes
+        copied, copies waited on)``."""
         out = []
         nbytes = 0
         k = self.dev.max_matches
         for res, n in handles:
             out.append(self._readback_rows(res, n, k))
             nbytes += 4 * (res.matches.numel() + 3 * res.n_matches.numel())
-        return out, nbytes
+        return out, nbytes, len(handles)
 
     def _deep_ids(self, topic: str) -> List[int]:
         if not self._deep:
@@ -602,19 +748,20 @@ class MatchService:
         return self.inc.match_host(topic) + self._deep_ids(topic)
 
     def _collect_rows(self, topics: List[str], groups, results,
-                      inc=None, reuses0: Optional[int] = None):
+                      reuses0: Optional[int] = None, gen0: int = 0):
         """Stitch group results back into batch order, re-run spilled
         rows on the host tables and merge too-deep filter hits.  With
-        ``reuses0`` (the table's ``aid_reuses`` when the batch was
-        dispatched against ``inc``), raise :class:`_StaleRace` when an id
-        was reused or the table replaced since."""
+        ``reuses0`` and ``gen0`` (the table's ``aid_reuses`` and the
+        service's table generation when the batch was dispatched), raise
+        :class:`_StaleRace` when an id was reused or the table replaced
+        since."""
         rows: List[List[int]] = [[] for _ in topics]
         spilled: List[int] = []
         for (idx, _d), (grows, gspill) in zip(groups, results):
             for j, i in enumerate(idx):
                 rows[i] = grows[j]
             spilled.extend(idx[j] for j in gspill)
-        if reuses0 is not None and (inc is not self.inc
+        if reuses0 is not None and (self._table_gen != gen0
                                     or self.inc.aid_reuses != reuses0):
             raise _StaleRace("accept id reused or table replaced mid-flight")
         self._inc("tpu.match.batches", len(groups))
@@ -740,11 +887,19 @@ class MatchService:
         gc.freeze()
         self._tasks = [asyncio.ensure_future(self._sync_loop()),
                        asyncio.ensure_future(self._batch_loop())]
+        if self.pipeline:
+            # the queue bounds the slots waiting for the readback task;
+            # with the one it holds, at most pipeline_depth batches sit
+            # past dispatch (2: double buffering)
+            self._inflight_q = asyncio.Queue(
+                maxsize=max(1, self.pipeline_depth - 1))
+            self._tasks.append(asyncio.ensure_future(self._readback_loop()))
         self._dirty.set()
 
     async def stop(self) -> None:
-        """Stop both loops (waiters in flight fail over to the host trie
-        at once) and unhook from the router."""
+        """Stop the loops (waiters in flight, those of pipelined slots
+        too, fail over to the host trie at once) and unhook from the
+        router."""
         self.ready = False
         for t in self._tasks:
             t.cancel()
@@ -1003,10 +1158,15 @@ class MatchService:
             # timeout/cancel: publish falls back to the host path
             log.debug("prefetch for %r timed out", topic, exc_info=True)
 
-    async def prefetch_many(self, topics) -> None:
-        """Batched prefetch: every topic missing a fresh hint is enqueued
-        in the same event-loop tick, so the whole set rides one batching
-        window.  Bounded by ``prefetch_timeout_s`` like :meth:`prefetch`."""
+    async def prefetch_many(self, topics, qos_of=None) -> None:
+        """Batched prefetch (the fanout pipeline's): every topic missing
+        a fresh hint is enqueued in the same event-loop tick, so the
+        whole set rides one batching window.  Bounded by
+        ``prefetch_timeout_s`` like :meth:`prefetch`.  ``topics`` may be
+        a ``{topic: max qos}`` mapping, as the fanout passes it, which
+        is then also ``qos_of``: the reference's deadline brownout sheds
+        QoS0 topics by it, and that shed waits for the deadline loop's
+        port; here the mapping is read as the topic set."""
         if not self._usable():
             return
         waits: List[asyncio.Future] = []
@@ -1039,7 +1199,8 @@ class MatchService:
 
     def hint_routes(self, topic: str):
         """Sync stage (``Broker.device_match``): a provably fresh hint →
-        its routes, else None (the host trie serves)."""
+        its routes, else None (the host trie serves).  A hint that
+        ``_cpu_serve`` minted also counts in ``hint_served_host``."""
         hint = self._hints.get(topic)
         if hint is None:
             return None
@@ -1048,6 +1209,8 @@ class MatchService:
             self._inc("tpu.match.hint_stale")
             return None
         self._inc("tpu.match.hint_served")
+        if hint[4]:
+            self._inc("tpu.match.hint_served_host")
         # move to the end: dict order is the LRU order
         self._hints[topic] = self._hints.pop(topic)
         return self.router.routes_with_wild(topic, hint[2])
@@ -1107,6 +1270,9 @@ class MatchService:
         """Device rows → hints; any failure, or the loop's cancellation,
         resolves the waiters without a hint (the host trie serves them);
         a failure is logged here."""
+        if self.pipeline:
+            await self._pipeline_dispatch(pending)
+            return
         topics = [p[0] for p in pending]
         # the hint's provenance is the epoch the DEVICE table reflects;
         # freshness is proven forward from here at consume time
@@ -1152,20 +1318,35 @@ class MatchService:
         return await self._device_serve(topics)
 
     async def _device_serve(self, topics: List[str]) -> List[Any]:
-        """One batch: encode + dispatch, the readback, the spill re-run
-        and deep merge; one id row per topic.  Only the chaos seam
-        between dispatch and readback can let the table change while the
-        batch is in flight; the reuse guard covers it."""
-        inc = self.inc
-        reuses0 = inc.aid_reuses
+        """One batch: encode + dispatch, the readback (the slab in
+        ``chunked`` mode, else the two phases of :meth:`_readback_slot`),
+        the spill re-run and deep merge; one id row per topic.  Only the
+        chaos seam between dispatch and readback can let the table
+        change while a slab batch is in flight; the reuse guard covers
+        it."""
+        reuses0, gen0 = self.inc.aid_reuses, self._table_gen
         groups = self._depth_groups(topics)
         self._topic_sample.extend(topics[:8])
+        t0 = time.perf_counter()
         handles = self._encode_dispatch(topics, groups)
+        t1 = time.perf_counter()
         await self._readback_gate()
-        results, nbytes = self._readback_groups(handles)
+        if self.readback_mode == "chunked":
+            t2 = time.perf_counter()
+            results, nbytes, trips = self._readback_groups(handles)
+            rb_s = time.perf_counter() - t2
+        else:
+            slot = self._make_slot([], topics, groups, handles, reuses0,
+                                   gen0, 0, 0)
+            try:
+                results, nbytes, rb_s, trips = await self._readback_slot(
+                    slot)
+            finally:
+                self._release_slot(slot)
+        self._note_split(t1 - t0, rb_s)
         self._inc("tpu.match.readback_bytes", nbytes)
-        self._inc("tpu.match.readback_roundtrips", len(handles))
-        return self._collect_rows(topics, groups, results, inc, reuses0)
+        self._inc("tpu.match.readback_roundtrips", trips)
+        return self._collect_rows(topics, groups, results, reuses0, gen0)
 
     def _mint_hints(self, pending: List[Any], rows: List[Any],
                     epoch: int, rule_gen: int) -> None:
@@ -1177,7 +1358,7 @@ class MatchService:
             filters, rules = self._split_row(row)
             self._hints.pop(topic, None)
             self._hints[topic] = (epoch, rule_gen, tuple(filters),
-                                  tuple(rules))
+                                  tuple(rules), False)
             if not fut.done():
                 fut.set_result(None)
         self._evict()
@@ -1192,6 +1373,250 @@ class MatchService:
             for k in [next(it) for _ in range(excess)]:
                 del self._hints[k]
             self._inc("tpu.match.hint_evicted", excess)
+
+    def _cpu_serve(self, pending: List[Any]) -> None:
+        """Answer a batch from the host tables (the table's own walk and
+        the too-deep filters' trie, once per distinct topic), minting its
+        hints at the epoch and rule generation the host tables reflect,
+        and resolve its waiters: what a failed or stale pipelined slot
+        falls back to, so that the failure stays invisible to
+        publishes."""
+        if not pending:
+            return
+        epoch = self._seen_epoch
+        rule_gen = self._rule_gen
+        deep = (self._deep_trie.match_many([p[0] for p in pending])
+                if self._deep else None)
+        rows_of: Dict[str, List[int]] = {}
+        for p in pending:
+            topic, fut = p[0], p[1]
+            row = rows_of.get(topic)
+            if row is None:
+                row = list(self.inc.match_host(topic))
+                if deep is not None:
+                    row.extend(self._deep[f] for f in deep[topic])
+                rows_of[topic] = row
+            filters, rules = self._split_row(row)
+            self._hints.pop(topic, None)
+            self._hints[topic] = (epoch, rule_gen, tuple(filters),
+                                  tuple(rules), True)
+            if not fut.done():
+                fut.set_result(None)
+        self._evict()
+        self._inc("broker.match.cpu_fallback", len(pending))
+        self._count_misses(pending)
+
+    def _count_misses(self, pending: List[Any]) -> None:
+        """Count the waiters answered past their deadline (a deadline
+        waiter carries it third; the fixed-window loop's waiters carry
+        none, so this counts nothing until the deadline loop is
+        ported)."""
+        if self.metrics is None:
+            return
+        try:
+            now = asyncio.get_running_loop().time()
+        except RuntimeError:
+            return      # no running loop: nothing is timed by it
+        late = sum(1 for p in pending if len(p) > 2 and now > p[2])
+        if late:
+            self.metrics.inc("broker.match.deadline_miss", late)
+
+    def _note_split(self, disp_s: float, rb_s: float) -> None:
+        """Feed the split estimate: ``disp_s`` the encode and dispatch of
+        a batch, ``rb_s`` its readback (the queue wait of a pipelined
+        slot in neither)."""
+        self._est_disp_s = self._est_disp_s * 0.7 + disp_s * 0.3
+        self._est_rb_s = self._est_rb_s * 0.7 + rb_s * 0.3
+
+    # -- the overlapped pipeline (pipeline=True) -------------------------------
+
+    def _take_bufs(self, rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A (meta, ids) host buffer pair for ``rows`` padded batch rows
+        (``FLAT_MULT`` ids a row), pinned on the card: a free one, or a
+        new one sized for two depth groups of ``max_batch``."""
+        free = self._rb_free
+        for i, (meta, _ids) in enumerate(free):
+            if meta.numel() >= rows:
+                return free.pop(i)
+        rows = max(rows, 2 * _bucket(self.max_batch))
+        pin = self.dev.device.type == "cuda"
+        return (torch.empty(rows, dtype=torch.int32, pin_memory=pin),
+                torch.empty(self.FLAT_MULT * rows, dtype=torch.int32,
+                            pin_memory=pin))
+
+    async def _pipeline_dispatch(self, pending: List[Any]) -> None:
+        """The front half of a pipelined batch: encode and dispatch its
+        walks, enqueue each group's ``row_meta`` copy into the slot's
+        pinned buffer behind them, record the slot's event and hand the
+        slot to the readback task; then the batch loop goes back to
+        batching.  The slot carries the guards it was dispatched against,
+        so that a table change landing while it is in flight discards
+        exactly that slot.  A failure answers the batch from the host
+        tables."""
+        if not pending:
+            return
+        topics = [p[0] for p in pending]
+        epoch = self._synced_epoch
+        rule_gen = self._synced_rule_gen
+        reuses0, gen0 = self.inc.aid_reuses, self._table_gen
+        try:
+            if not self._usable():
+                raise RuntimeError("mirror stale")
+            await self._fault_gate()
+            groups = self._depth_groups(topics)
+            self._topic_sample.extend(topics[:8])
+            t0 = time.perf_counter()
+            handles = self._encode_dispatch(topics, groups)
+            slot = self._make_slot(pending, topics, groups, handles,
+                                   reuses0, gen0, epoch, rule_gen)
+            slot.dispatch_s = time.perf_counter() - t0
+            await self._inflight_q.put(slot)   # backpressure at the depth
+            self._inflight_n += 1
+            self._set_inflight_metric()
+        except asyncio.CancelledError:
+            # the loop is dying: its exit fails these waiters over
+            self._pending = pending + self._pending
+            raise
+        except Exception:
+            log.debug("device batch failed (pipelined dispatch); the host "
+                      "tables serve it", exc_info=True)
+            self._cpu_serve(pending)
+
+    def _make_slot(self, pending, topics, groups, handles, reuses0: int,
+                   gen0: int, epoch: int, rule_gen: int) -> _Slot:
+        """The slot of dispatched ``handles``: phase 1 of its readback
+        (each group's ``row_meta`` into a borrowed pinned buffer) is
+        enqueued behind the walks, and the event after it recorded.  The
+        slot holds the table's freed accept ids until
+        :meth:`_release_slot`."""
+        bufs = self._take_bufs(sum(int(res.row_meta.numel())
+                                   for res, _n in handles))
+        metas = []
+        off = 0
+        for res, _n in handles:
+            B = int(res.row_meta.numel())
+            meta = bufs[0][off:off + B]
+            meta.copy_(res.row_meta, non_blocking=True)
+            metas.append(meta)
+            off += B
+        self.dev.hold_ids()
+        return _Slot(pending, topics, groups, handles, reuses0, gen0, epoch,
+                     rule_gen, bufs=bufs, metas=metas,
+                     event=_record_event(self.dev.device), held=self.dev)
+
+    def _release_slot(self, slot: _Slot) -> None:
+        """A slot is done with: its buffers go back to the free list
+        once their copies are done (else they are dropped), and its hold
+        on the freed accept ids is lifted."""
+        if slot.bufs is not None and (slot.event is None
+                                      or slot.event.query()):
+            self._rb_free.append(slot.bufs)
+        slot.bufs = None
+        if slot.held is not None:
+            slot.held.release_ids()
+            slot.held = None
+
+    async def _readback_loop(self) -> None:
+        """The back half: finish the in-flight slots in dispatch order.
+        However the task ends, the waiters of the queued slots fail over
+        to the host path at once."""
+        try:
+            while True:
+                slot = await self._inflight_q.get()
+                try:
+                    await self._finish_slot(slot)
+                finally:
+                    self._inflight_n -= 1
+                    self._set_inflight_metric()
+        finally:
+            self._fail_over_slots()
+
+    async def _finish_slot(self, slot: _Slot) -> None:
+        """Readback, guard check and hint mint of one slot; any failure
+        (the ``match.readback`` seam, a stale guard) answers its batch
+        from the host tables.  Its waiters are resolved and the slot
+        released however it ends."""
+        try:
+            try:
+                await self._readback_gate()
+                results, nbytes, rb_s, trips = await self._readback_slot(
+                    slot)
+                self._note_split(slot.dispatch_s, rb_s)
+                self._inc("tpu.match.readback_bytes", nbytes)
+                self._inc("tpu.match.readback_roundtrips", trips)
+                rows = self._collect_rows(slot.topics, slot.groups, results,
+                                          slot.reuses0, slot.gen0)
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.debug("device batch failed (pipelined readback); the "
+                          "host tables serve it", exc_info=True)
+                self._cpu_serve(slot.pending)
+                return
+            self._mint_hints(slot.pending, rows, slot.epoch, slot.rule_gen)
+        finally:
+            self._release_slot(slot)
+            for p in slot.pending:
+                if not p[1].done():
+                    p[1].set_result(None)
+
+    async def _readback_slot(self, slot: _Slot):
+        """The two phases of a slot's readback, each one wait on an
+        event polled between rounds of the loop: the ``row_meta`` copies
+        that rode behind the walks, then one copy per group of the ids
+        :meth:`_phase2_count` asks for into the slot's ids buffer.
+        Returns ``([(rows, spilled)...], bytes, seconds, waits)``."""
+        t0 = time.perf_counter()
+        await _event_done(slot.event)
+        k = self.dev.max_matches
+        metas = [m.numpy() for m in slot.metas]
+        ids_buf = slot.bufs[1]
+        views = []
+        nbytes = copied = off = 0
+        for (res, n), meta in zip(slot.handles, metas):
+            nk, _sp = decode_row_meta(meta)
+            total = int(np.minimum(nk, k)[:n].sum())
+            count = self._phase2_count(total, int(res.matches.shape[0]),
+                                       self.readback_mode,
+                                       self.readback_auto_slack)
+            fetch = fetch_flat_ragged if count > total else fetch_flat_prefix
+            views.append(fetch(res.matches, total, ids_buf[off:]))
+            nbytes += 4 * (meta.size + count)
+            copied += count
+            off += count
+        trips = 1
+        if copied:
+            slot.event = _record_event(self.dev.device)
+            await _event_done(slot.event)
+            trips = 2
+        out = [self._rows_from_twophase(meta, view.numpy(), n, k)
+               for (_res, n), meta, view in zip(slot.handles, metas, views)]
+        return out, nbytes, time.perf_counter() - t0, trips
+
+    def _fail_over_slots(self) -> None:
+        """Readback task exit: resolve the waiters of every queued slot,
+        so that their publishes take the host path at once (the twin of
+        :meth:`_fail_over_waiters` for slots past dispatch)."""
+        q = self._inflight_q
+        n = 0
+        while q is not None and not q.empty():
+            slot = q.get_nowait()
+            self._release_slot(slot)
+            for p in slot.pending:
+                if not p[1].done():
+                    p[1].set_result(None)
+                    n += 1
+        self._inflight_n = 0
+        self._set_inflight_metric()
+        if n:
+            self._inc("broker.match.cpu_fallback", n)
+            log.warning("match readback loop exited with %d waiter(s) in "
+                        "flight; failed over to the host path", n)
+
+    def _set_inflight_metric(self) -> None:
+        if self.metrics is not None:
+            self.metrics.set("broker.match.pipeline_inflight",
+                             self._inflight_n)
 
     def _fail_over_waiters(self) -> None:
         """Serve-loop exit (stop, crash): resolve every waiter in flight
@@ -1223,6 +1648,13 @@ class MatchService:
             "pending": len(self._pending),
             "hints": len(self._hints),
             "backend": self.backend,
+            "pipeline": self.pipeline,
+            "pipeline_depth": self.pipeline_depth,
+            "pipeline_inflight": self._inflight_n,
+            "readback_mode": self.readback_mode,
+            "readback_auto_slack": self.readback_auto_slack,
+            "est_disp_ms": round(self._est_disp_s * 1e3, 3),
+            "est_readback_ms": round(self._est_rb_s * 1e3, 3),
             "dispatches": self.dispatches,
             "join_dispatches": self.join_dispatches,
             "join_rebuilds": self.dev.join_rebuilds,

@@ -130,6 +130,55 @@ class SharedSub:
             return members[_hash(topic) % len(members)]
         raise AssertionError(s)
 
+    def pick_batch(
+        self,
+        group: str,
+        flt: str,
+        keys: Sequence[Tuple[str, Optional[str]]],
+        local_node: str = "local",
+    ) -> List[Optional[Tuple[str, str]]]:
+        """Choose a member per ``(topic, sender)`` key in one call.
+
+        The fanout pipeline hands the whole batch slice of a
+        ``(group, filter)`` here instead of one :meth:`pick` per message:
+        the strategy state (round-robin cursor, sticky choice, RNG
+        stream) advances exactly as the same sequence of per-message
+        picks would, so batched and unbatched dispatch assign the same
+        members in the same order."""
+        key = (group, flt)
+        members = self._members.get(key, ())
+        n = len(members)
+        if not n:
+            return [None] * len(keys)
+        s = self.strategy
+        if s == "round_robin":
+            i = self._rr.get(key, -1)
+            out: List[Optional[Tuple[str, str]]] = []
+            for _ in keys:
+                i = (i + 1) % n
+                out.append(members[i])
+            self._rr[key] = i
+            return out
+        if s == "sticky":
+            cur = self._sticky.get(key)
+            if cur is None or cur not in members:
+                cur = members[self._rng.randrange(n)]
+                self._sticky[key] = cur
+            return [cur] * len(keys)
+        if s == "random":
+            rng = self._rng
+            return [members[rng.randrange(n)] for _ in keys]
+        if s == "local":
+            locals_ = [m for m in members if m[1] == local_node]
+            pool = locals_ or members
+            rng = self._rng
+            return [pool[rng.randrange(len(pool))] for _ in keys]
+        if s == "hash_clientid":
+            return [members[_hash(sender or "") % n] for _, sender in keys]
+        if s == "hash_topic":
+            return [members[_hash(topic) % n] for topic, _ in keys]
+        raise AssertionError(s)
+
     def dispatch_with_ack(
         self,
         group: str,

@@ -15,7 +15,7 @@ enumerating the filters that could match a topic.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 from .. import topic as T
 
@@ -120,6 +120,17 @@ class FilterTrie:
                 plus = node.children.get("+")
                 if plus is not None and not (i == 0 and sys_topic):
                     stack.append((plus, i + 1, acc + ("+",)))
+        return out
+
+    def match_many(self, names: Sequence[str]) -> Dict[str, List[str]]:
+        """:meth:`match` of each distinct topic of ``names``: the match
+        service's host fallback answers a whole batch here, and publish
+        batches repeat topics (one walk per distinct topic, not per
+        waiter)."""
+        out: Dict[str, List[str]] = {}
+        for name in names:
+            if name not in out:
+                out[name] = self.match(name)
         return out
 
 

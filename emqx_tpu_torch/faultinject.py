@@ -24,6 +24,9 @@ Named injection points:
 ``match.readback``   MatchService d2h readback boundary (raise / delay /
                      hang; a hang parks until the waiters' prefetch
                      timeout)
+``fanout.drain``     FanoutPipeline drain loop, before a batch pops
+                     (raise: the drain task dies with nothing popped;
+                     delay)
 ``inflight.insert``  Inflight.insert / insert_many (raise)
 ``inflight.retry``   Inflight.older_than retry scan (raise)
 ==================  =====================================================
@@ -49,7 +52,7 @@ __all__ = [
 ]
 
 POINTS = ("match.dispatch", "match.compile", "match.readback",
-          "inflight.insert", "inflight.retry")
+          "fanout.drain", "inflight.insert", "inflight.retry")
 
 _ACTIONS = ("raise", "drop", "delay", "dup", "hang")
 

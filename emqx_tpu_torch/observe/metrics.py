@@ -13,7 +13,8 @@ from __future__ import annotations
 from typing import Dict, Iterable, List, Optional
 
 __all__ = ["Metrics", "METRIC_NAMES", "TPU_METRIC_NAMES",
-           "BROKER_METRIC_NAMES", "MATCH_SERVE_METRIC_NAMES"]
+           "BROKER_METRIC_NAMES", "FANOUT_METRIC_NAMES",
+           "MATCH_SERVE_METRIC_NAMES"]
 
 # -- the reference's fixed counter names, grouped as in emqx_metrics.erl [U]
 METRIC_NAMES: List[str] = [
@@ -85,6 +86,9 @@ TPU_METRIC_NAMES: List[str] = [
     "tpu.mirror.delta_applied", "tpu.mirror.recompile",
     "tpu.match.hint_served", "tpu.match.hint_stale", "tpu.match.bypass",
     "tpu.match.hint_evicted",
+    # the served hints that the host tables answered (a failed or stale
+    # pipelined slot's, through _cpu_serve); the port's own counter
+    "tpu.match.hint_served_host",
 ]
 
 # -- broker drop accounting (outbox overflow) and the session's batched
@@ -94,15 +98,32 @@ BROKER_METRIC_NAMES: List[str] = [
     "broker.qos2.batch",
 ]
 
-# -- the serve loop: cpu_fallback counts waiters a dying serve loop
-# failed over to the host trie; readback_bytes / readback_roundtrips
-# accumulate the d2h bytes and copies of the readback stage;
+# -- the batched fanout pipeline (broker/fanout.py): batches and messages
+# drained (inc; mean batch = msgs / batches), the last batch's size and
+# the queue depth after it (set), the drain's microseconds (inc), and the
+# offers refused (low-rate bypass, overflow, shape gate) or fallen back to
+# the per-message path (fallback, errors)
+FANOUT_METRIC_NAMES: List[str] = [
+    "broker.fanout.batches", "broker.fanout.msgs",
+    "broker.fanout.batch_size", "broker.fanout.flush_us",
+    "broker.fanout.depth", "broker.fanout.bypass",
+    "broker.fanout.overflow", "broker.fanout.fallback",
+    "broker.fanout.errors", "broker.fanout.shape_bypass",
+]
+
+# -- the serve loop: cpu_fallback counts waiters answered from the host
+# tables (a dying serve loop's, a failed or stale pipelined slot's);
+# pipeline_inflight is the live count of pipelined slots past dispatch
+# (set); deadline_miss counts waiters answered past their deadline;
+# readback_bytes / readback_roundtrips accumulate the d2h bytes and the
+# waits of the readback stage;
 # backend_join_dispatches counts walk dispatches served by the join
 # backend (one per depth group) and autotune_picks the shapes the
 # autotuner measured
 MATCH_SERVE_METRIC_NAMES: List[str] = [
-    "broker.match.cpu_fallback",
-    "tpu.match.readback_bytes", "tpu.match.readback_roundtrips",
+    "broker.match.cpu_fallback", "broker.match.pipeline_inflight",
+    "broker.match.deadline_miss", "tpu.match.readback_bytes",
+    "tpu.match.readback_roundtrips",
     "tpu.match.backend_join_dispatches", "tpu.match.autotune_picks",
 ]
 
@@ -119,7 +140,8 @@ class Metrics:
     def __init__(self, extra: Optional[Iterable[str]] = None) -> None:
         self._c: Dict[str, int] = {}
         for names in (METRIC_NAMES, TPU_METRIC_NAMES, BROKER_METRIC_NAMES,
-                      MATCH_SERVE_METRIC_NAMES, extra or ()):
+                      FANOUT_METRIC_NAMES, MATCH_SERVE_METRIC_NAMES,
+                      extra or ()):
             self._c.update({n: 0 for n in names})
 
     def inc(self, name: str, n: int = 1) -> None:

@@ -103,17 +103,27 @@ class DeviceNfa:
         # one apply at a time (its slow half runs outside _lock)
         self._lock = threading.Lock()
         self._apply_lock = threading.Lock()
-        # freed accept ids stay unused until the device acks their epoch
+        # freed accept ids stay unused until the device acks their epoch,
+        # and while a batch holds them (hold_ids); _ack_lock orders an
+        # ack on a worker thread against a hold on the event loop
+        self._id_holds = 0
+        self._ack_lock = threading.Lock()
         inc.device_epoch = -1
         if not lazy:
             self.sync(full=True)
 
     # -- mirror maintenance ------------------------------------------------
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
-        """A device tensor that owns a copy of ``arr``."""
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            self.device, copy=True)
+    def _put(self, arr: np.ndarray, staged: bool = False) -> torch.Tensor:
+        """A device tensor that owns a copy of ``arr``.  ``staged`` (for
+        the small operands of a batch or a delta): on the card the copy
+        goes through pinned host memory and is enqueued on the current
+        stream without waiting for it, where a copy from pageable memory
+        waits for every launch queued before it."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if staged and self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device, copy=True)
 
     def arrays(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(node_tab, edge_tab, seeds) — one consistent epoch's view."""
@@ -184,7 +194,7 @@ class DeviceNfa:
             return None
         # (position in the tensor tuple, rows, values): node and edge
         # table rows; edge_next entries and overlay rows of the relation
-        rows = [(k, self._put(idx).long(), self._put(val))
+        rows = [(k, self._put(idx, True).long(), self._put(val, True))
                 for k, idx, val in ((0, d.state_idx, d.state_rows),
                                     (1, d.bucket_idx, d.bucket_rows))
                 if len(idx)]
@@ -207,7 +217,7 @@ class DeviceNfa:
                                for a in (start, word, nxt)))
             return rows, None, (start, word, nxt,
                                 self._put(self._join.overlay))
-        jrows = [(k, self._put(idx).long(), self._put(val))
+        jrows = [(k, self._put(idx, True).long(), self._put(val, True))
                  for k, idx, val in ((2, mpos, mval), (3, opos, orows))
                  if len(idx)]
         return rows, jrows, None
@@ -241,8 +251,27 @@ class DeviceNfa:
         return True
 
     def _ack(self, epoch: int) -> None:
-        self.epoch = epoch
-        self.inc.device_epoch = epoch
+        with self._ack_lock:
+            self.epoch = epoch
+            if not self._id_holds:
+                self.inc.device_epoch = epoch
+
+    def hold_ids(self) -> None:
+        """Keep every freed accept id unused until the matching
+        :meth:`release_ids`: the rows of a batch walked before an id was
+        freed may still name it, and a reuse would hand them the new
+        filter.  New filters take fresh ids meanwhile."""
+        with self._ack_lock:
+            self._id_holds += 1
+            self.inc.device_epoch = -1      # attached, nothing acked
+
+    def release_ids(self) -> None:
+        """Lift one :meth:`hold_ids`; after the last, the ids freed up
+        to the acked epoch are reusable again."""
+        with self._ack_lock:
+            self._id_holds -= 1
+            if not self._id_holds:
+                self.inc.device_epoch = self.epoch
 
     def sync(self, full: bool = False) -> bool:
         """Drain + apply in one call."""
@@ -312,8 +341,10 @@ class DeviceNfa:
 
     def put_batch(self, words: np.ndarray, lens: np.ndarray,
                   is_sys: np.ndarray):
-        """Encoded host operands → device tensors."""
-        return self._put(words), self._put(lens), self._put(is_sys)
+        """Encoded host operands → device tensors (copies enqueued on
+        the current stream; see :meth:`_put`)."""
+        return (self._put(words, True), self._put(lens, True),
+                self._put(is_sys, True))
 
     def match_names(self, names: Sequence[str],
                     batch: Optional[int] = None,

@@ -15,6 +15,15 @@ shares, picks one of three outputs, written as PyTorch ops:
   whose segment runs past ``flat_cap`` is truncated and flagged.
 
 Everything is int32 and matches the reference bit for bit.
+
+The second phase of the two-phase readback (the reference's XLA
+function K5, :func:`fetch_flat_prefix` and :func:`fetch_flat_ragged`)
+copies the head of the flat buffer into a host buffer.  The reference
+cuts the copy into power-of-two chunks, or pads it to a power-of-two
+capacity class, only to bound its number of XLA executables; here
+``matches[:n]`` is a view, so each is one non-blocking copy (``ragged``
+keeps the reference's padded length, so that its bytes are the
+reference's).
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ from .walk_kernel import nfa_walk
 
 __all__ = ["MatchResult", "SERVE_FLAT_MULT", "ROW_META_COUNT_MASK",
            "ROW_META_SPILL_SHIFT", "decode_flat", "decode_row_meta",
-           "epilogue", "flat_epilogue", "nfa_match"]
+           "epilogue", "fetch_flat_prefix", "fetch_flat_ragged",
+           "flat_epilogue", "nfa_match", "ragged_capacity"]
 
 #: serving flat-output capacity per padded batch row (ids per topic)
 SERVE_FLAT_MULT = 8
@@ -53,6 +63,39 @@ class MatchResult(NamedTuple):
 def decode_row_meta(meta: np.ndarray):
     """(B,) packed row_meta → (per-row flat entry counts, spilled bool)."""
     return (meta & ROW_META_COUNT_MASK), (meta >> ROW_META_SPILL_SHIFT) > 0
+
+
+def fetch_flat_prefix(matches: torch.Tensor, total: int,
+                      out: torch.Tensor) -> torch.Tensor:
+    """Phase 2 of the two-phase readback: the first ``total`` ids of the
+    flat buffer ``matches`` (at most all of it), in one copy enqueued
+    into the head of ``out`` (a host int32 tensor, pinned when
+    ``matches`` is on the card) without waiting.  Returns that view: it
+    holds the ids once an event recorded after the copy has
+    completed."""
+    n = min(max(0, int(total)), int(matches.shape[0]))
+    view = out[:n]
+    if n:
+        view.copy_(matches[:n], non_blocking=True)
+    return view
+
+
+def ragged_capacity(total: int, flat_cap: int) -> int:
+    """The capacity class of a ragged readback: the smallest power of
+    two ≥ ``total``, clipped to the flat buffer's size."""
+    if total <= 0:
+        return 0
+    return min(1 << max(0, int(total) - 1).bit_length(), int(flat_cap))
+
+
+def fetch_flat_ragged(matches: torch.Tensor, total: int,
+                      out: torch.Tensor) -> torch.Tensor:
+    """The ragged twin of :func:`fetch_flat_prefix`, with the
+    reference's bytes: the first :func:`ragged_capacity` ids in one
+    copy (the reference trims them to ``total`` on the host; the caller
+    reads the first ``total``)."""
+    return fetch_flat_prefix(
+        matches, ragged_capacity(total, int(matches.shape[0])), out)
 
 
 def decode_flat(matches: np.ndarray, n_matches: np.ndarray,

@@ -1,5 +1,7 @@
 """The port's CUDA walk kernels (hash and join) against their plain
-PyTorch versions, and the asyncio serve loop on them, on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
+PyTorch versions, and the asyncio serve loop on them (the fixed-window
+path and the overlapped pipeline with its two-phase readback), on the
+card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
 module imports neither JAX nor the reference package, so it also runs
 where only the port is installed:
 
@@ -20,6 +22,7 @@ from emqx_tpu_torch.ops import (DeviceNfa, IncrementalNfa, encode_batch,
                                 join_match, nfa_match)
 from emqx_tpu_torch.ops import walk_kernel
 from emqx_tpu_torch.ops.join_match import OVERLAY_EMPTY
+from emqx_tpu_torch.ops.match_kernel import ragged_capacity
 from emqx_tpu_torch.ops.walk_kernel import (join_walk, join_walk_plain,
                                             nfa_walk, nfa_walk_plain)
 from emqx_tpu_torch.workload import build_workload
@@ -228,4 +231,230 @@ def test_serve_loop_on_card_hints_equal_router(backend):
         finally:
             await ms.stop()
             gc.unfreeze()       # the service froze the started heap
+    asyncio.run(main())
+
+
+# -- the two-phase readback and the overlapped pipeline on the card --------
+
+def _card_service(filters, **kw):
+    """A broker-less service on the card with ``filters`` loaded and
+    synced (Python table, depth 16)."""
+    ms = MatchService(table="python", depth=16, **kw)
+    ms.load(filters)
+    ms.sync()
+    return ms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["chunked", "ragged", "auto"])
+def test_two_phase_readback_equals_slab_on_card(table, mode):
+    """Real walk results read back in two phases, one group at a time
+    and all groups in one slot, through the pipeline's pinned buffers
+    and events, equal the slab readback bit for bit; the bytes are
+    4·(B + Σcounts) (chunked) or 4·(B + the capacity class) (ragged,
+    and auto off the powers of two)."""
+    inc, topics = table
+    filters = [f for f in inc.accept_filters if f is not None]
+    ms = _card_service(filters, readback_mode=mode)
+    assert ms.dev.device.type == "cuda"
+    batch = topics[:1500]
+    groups = ms._depth_groups(batch)
+    handles = ms._encode_dispatch(batch, groups)
+    k = ms.dev.max_matches
+    slab = [MatchService._readback_rows(res, n, k) for res, n in handles]
+    want_bytes = 0
+    for (res, n), (rows, sp) in zip(handles, slab):
+        one = ms._make_slot([], [], [], [(res, n)], ms.inc.aid_reuses,
+                            ms._table_gen, 0, 0)
+        [got_rows], nbytes, _s, waits = asyncio.run(ms._readback_slot(one))
+        ms._release_slot(one)
+        got = got_rows + (nbytes, waits)
+        assert got[:2] == (rows, sp)
+        total = sum(len(r) for r in rows)
+        flat_cap = int(res.matches.shape[0])
+        count = MatchService._phase2_count(total, flat_cap, mode, 1.0)
+        assert count == (total if mode == "chunked" or
+                         (mode == "auto" and total & (total - 1) == 0)
+                         else ragged_capacity(total, flat_cap))
+        assert got[2] == 4 * (int(res.row_meta.numel()) + count)
+        assert got[3] == 2
+        want_bytes += got[2]
+    slot = ms._make_slot([], batch, groups, handles, ms.inc.aid_reuses,
+                         ms._table_gen, 0, 0)
+    assert slot.event is not None
+    results, nbytes, _s, waits = asyncio.run(ms._readback_slot(slot))
+    assert results == slab
+    assert nbytes == want_bytes and waits == 2
+
+
+@pytest.mark.cuda
+def test_pipeline_hints_equal_router_under_churn():
+    """The pipelined service on the card, ``auto`` readback: 2,048
+    topics prefetched in batches of 256 while filters come and go
+    between them; every hint equals ``router.match_routes`` and the
+    walks launched are the dispatches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    filters, topics = build_workload(np.random.default_rng(5), 5000, 2048)
+    fresh, _ = build_workload(np.random.default_rng(6), 400, 1)
+
+    async def main():
+        b = Broker()
+        for i, f in enumerate(filters + EDGE_FILTERS):
+            cid = f"c{i % 64}"
+            if cid not in b.sessions:
+                b.open_session(cid)
+            b.subscribe(cid, f)
+        m = Metrics()
+        ms = MatchService(b, m, bypass_rate=0, debounce_s=0.01,
+                          prefetch_timeout_s=30, pipeline=True,
+                          readback_mode="auto")
+        await ms.start()
+        try:
+            for _ in range(2000):
+                if ms.ready:
+                    break
+                await asyncio.sleep(0.01)
+            assert ms.ready
+            b.device_match = ms.hint_routes
+            launches0 = walk_kernel.launches
+            d0 = ms.dispatches
+            b.open_session("churn")
+            for j, lo in enumerate(range(0, len(topics), 256)):
+                for f in fresh[j * 50:(j + 1) * 50]:
+                    b.subscribe("churn", f)
+                for i in range(j * 50, (j + 1) * 50):
+                    b.unsubscribe(f"c{i % 64}", filters[i])
+                batch = topics[lo:lo + 256] + EDGE_TOPICS
+                await ms.prefetch_many({t: 0 for t in batch})
+                for t in batch:
+                    hint = ms.hint_routes(t)
+                    if hint is not None:
+                        assert sorted(hint) == \
+                            sorted(b.router.match_routes(t)), t
+            assert m.get("tpu.match.hint_served") > len(topics) // 2
+            assert walk_kernel.launches - launches0 == ms.dispatches - d0
+            assert m.get("broker.match.pipeline_inflight") == 0
+        finally:
+            await ms.stop()
+            gc.unfreeze()
+    asyncio.run(main())
+
+
+@pytest.mark.cuda
+def test_pipeline_slot_wait_keeps_the_loop_responsive():
+    """A slot whose walk queues behind ~0.3 s of ``torch.cuda._sleep``:
+    its prefetch waits for it, and a heartbeat task on the same loop
+    never waits more than 5 ms between beats (nothing of the pipeline
+    blocks the loop on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    filters, topics = build_workload(np.random.default_rng(7), 2000, 512)
+
+    async def main():
+        b = Broker()
+        b.open_session("c")
+        for f in filters:
+            b.subscribe("c", f)
+        ms = MatchService(b, Metrics(), bypass_rate=0, debounce_s=0.01,
+                          prefetch_timeout_s=30, pipeline=True)
+        await ms.start()
+        try:
+            for _ in range(2000):
+                if ms.ready:
+                    break
+                await asyncio.sleep(0.01)
+            assert ms.ready
+            await ms.prefetch_many(topics[:256])   # buffers allocated
+            loop = asyncio.get_running_loop()
+            gaps = []
+            stop = asyncio.Event()
+
+            async def heartbeat():
+                last = loop.time()
+                while not stop.is_set():
+                    await asyncio.sleep(0.001)
+                    now = loop.time()
+                    gaps.append(now - last)
+                    last = now
+
+            beat = asyncio.ensure_future(heartbeat())
+            await asyncio.sleep(0.01)
+            t0 = loop.time()
+            torch.cuda._sleep(600_000_000)      # ~0.3 s at boost clock
+            await ms.prefetch_many(topics[256:])
+            waited = loop.time() - t0
+            stop.set()
+            await beat
+            assert waited > 0.1, "the slot did not wait for the card"
+            assert all(ms._hints.get(t) is not None for t in topics[256:])
+            assert max(gaps) < 0.005, max(gaps)
+        finally:
+            await ms.stop()
+            gc.unfreeze()
+    asyncio.run(main())
+
+
+@pytest.mark.cuda
+def test_pipeline_delta_between_slots_on_card():
+    """Two slots in flight behind a ``torch.cuda._sleep``; a
+    subscription's row delta is written (on the same stream) between
+    their dispatches: the earlier slot's rows lack the new filter, the
+    later one's hold it.  On the native table (the node default), with
+    a freed and acked accept id waiting: while a slot is in flight the
+    new filter takes a fresh id, so that neither slot is discarded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+
+    async def main():
+        b = Broker()
+        b.open_session("c")
+        for i in range(200):
+            b.subscribe("c", f"a/+/x{i}")
+        m = Metrics()
+        ms = MatchService(b, m, bypass_rate=0, debounce_s=0.0,
+                          prefetch_timeout_s=30, pipeline=True)
+        await ms.start()
+        try:
+            for _ in range(2000):
+                if ms.ready:
+                    break
+                await asyncio.sleep(0.01)
+            assert ms.ready
+            b.unsubscribe("c", "a/+/x199")      # frees an accept id
+            while ms._synced_epoch != b.router.epoch:
+                await asyncio.sleep(0.001)
+            reuses = ms.inc.aid_reuses
+            loop = asyncio.get_running_loop()
+            topics = [f"a/{i}/x{i}" for i in range(100)]
+            groups = ms._depth_groups(topics)
+
+            def slot():
+                pending = [(t, loop.create_future()) for t in topics]
+                return ms._make_slot(
+                    pending, topics, groups,
+                    ms._encode_dispatch(topics, groups),
+                    ms.inc.aid_reuses, ms._table_gen, ms._synced_epoch,
+                    ms._synced_rule_gen)
+
+            torch.cuda._sleep(600_000_000)
+            s1 = slot()
+            b.subscribe("c", "a/#")
+            while ms._synced_epoch != b.router.epoch:
+                await asyncio.sleep(0.001)
+            assert ms.inc.aid_reuses == reuses   # a fresh id for a/#
+            uploads = ms.dev.uploads
+            s2 = slot()
+            assert not s1.event.query(), "the first slot already finished"
+            await ms._finish_slot(s1)
+            one = [sorted(ms._hints[t][2]) for t in topics]
+            await ms._finish_slot(s2)
+            two = [sorted(ms._hints[t][2]) for t in topics]
+            assert ms.dev.uploads == uploads     # rows written in place
+            assert m.get("broker.match.cpu_fallback") == 0
+            assert all("a/#" not in h for h in one)
+            assert all("a/#" in h for h in two)
+        finally:
+            await ms.stop()
+            gc.unfreeze()
     asyncio.run(main())

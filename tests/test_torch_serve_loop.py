@@ -955,8 +955,8 @@ def test_encoder_serialises_concurrent_encodes(table):
 # -- (g) parameters that are not ported, and the repair ---------------------
 
 @pytest.mark.parametrize("name,value", [
-    ("deadline", True), ("pipeline", True), ("readback_mode", "ragged"),
-    ("segments", True), ("multichip", True), ("multichip_ep", True),
+    ("deadline", True), ("breaker_threshold", 3),
+    ("dispatch_timeout_s", 1.0), ("segments", True), ("multichip", True), ("multichip_ep", True),
     ("hists", object()), ("flightrec", object()), ("alarms", object()),
     ("olp", object())])
 def test_unported_parameters_raise(name, value):
