@@ -39,7 +39,7 @@ phases, one JSON line each; any failure exits non-zero:
    repeated (``ms_warm``, tables' rows L2-resident); the plain version's
    device ms from a CUDA graph replay; the kernel's bytes bound on this
    run's data; the serve stage breakdown (with the ids the split stage
-   turned into filters); serve throughput with p50/p99 over 1000 timed
+   turned into filters); serve throughput with p50/p99 over 400 timed
    ``serve()`` calls of 2048 topics; the card's busy and idle share over
    20 ``serve()`` calls from a ``torch.profiler`` trace; table bytes and
    the spill share of the main path;
@@ -80,7 +80,7 @@ Between phases 8 and 9 it drives the broker's own publish path:
   the warm-up that builds the kernels) and the table sizes;
 * slice_node — 2048 publisher tasks take the workload's Zipfian topic
   stream in turn, each ``await ms.prefetch(topic)`` then
-  ``broker.publish``: 10 × 2048 publishes of warm-up, then 100 × 2048
+  ``broker.publish``: 10 × 2048 publishes of warm-up, then 10 × 2048
   timed while a churn subscribes 1,000 fresh filters and unsubscribes
   1,000 others through the broker, 100 of each a second whatever the
   service's state (the relation rebuilds it causes are counted).  Every route list a hint gave equals
@@ -121,16 +121,47 @@ Between phases 8 and 9 it drives the broker's own publish path:
   slab on the fixed-window ``chunked`` path, else 4·(B + the ids the
   reference's rule copies), each copy's size checked too).
 
+Then it drives the port's MQTT front door over TCP:
+
+* slice_mqtt_fleet — 10,000 MQTT clients (the port's client) in
+  ``MQTT_PROCS`` child processes (spawned), and 100 churn clients; each
+  process raises its RLIMIT_NOFILE soft limit to the hard one;
+* slice_mqtt — the port's ``BrokerNode`` at the reference's node
+  defaults (``tpu.enable``, ``tpu.table=auto``, ``match.backend=hash``,
+  the fast-path TCP listener, fanout off) on 127.0.0.1:0, started
+  empty; the fleet connects and each client subscribes its 100 of the 1M
+  filters in one SUBSCRIBE at QoS 1; the seconds from the last
+  SUBACK until the mirror routes all of them (the service freezes the
+  heap as the mirror grows); then ``MQTT_PUBLISHERS``
+  of the clients publish the Zipfian stream at QoS 1, each awaiting its
+  PUBACK, with the time of sending in the payload: ``MQTT_WARM`` × 2048
+  warm-up, the timed
+  storm with a churn of 100 subscribes and 100 unsubscribes a second
+  from the churn clients, a profiled storm, and the timed storm again
+  through the host trie (the match service stopped,
+  ``device_match = None``).  Each storm prints PUBACKed publishes/s,
+  p50/p99 of publish → PUBACK and publish → delivered, the deliveries
+  checked against ``Router.match_routes`` (every message once per
+  matching filter of each fleet client, delivered or dropped by a full
+  mqueue: 0 missing, duplicate or extra), the ``tpu.match.*`` and drop
+  counters (the ``queue_full`` drops, each recorded with its client; 0
+  other drops beside no_subscribers), the device-hint share of the
+  route lookups (≥ 1/2), walk launches against the service's dispatches (equal), the batches,
+  the collector, the broker's and each client process's CPU;
+* slice_mqtt_fanout — the same on a second node with
+  ``broker.fanout.enable`` (the batched stack: fanout, ack and write
+  coalescing, timer wheel), with its own host-trie storm.
+
 Each phase's line carries its wall seconds.
 The line before the last names every kernel with its numbers (and its
 launch shape, ``ptxas`` register count, launches on each path and its
 10M readings); the last line is ``{"ok": true, "device": {...}}``.
 With no CUDA device the script prints no result and exits 2.
-``--rehearse-cpu`` runs phases 4-11 and the slice_node phases on the
-CPU with the plain versions (give it small ``--filters``,
-``--python-filters``, ``--large-filters``, ``--timed-batches`` and
-``--storm-batches``) and prints no result either (a dry run of the
-control flow).
+``--rehearse-cpu`` runs phases 4-11, the slice_node and the slice_mqtt
+phases on the CPU with the plain versions (give it small ``--filters``,
+``--python-filters``, ``--large-filters``, ``--timed-batches``,
+``--storm-batches`` and ``--mqtt-clients``) and prints no result either
+(a dry run of the control flow).
 """
 
 from __future__ import annotations
@@ -152,7 +183,7 @@ BATCH = 2048
 SERVE_BATCHES = 16          # batches served before the churn
 CHURN = 1000                # filters removed, then added
 AFTER_BATCHES = 4           # batches served after the churn
-TIMED_BATCHES = 1000        # serve() calls timed for p50/p99 (phase 5)
+TIMED_BATCHES = 400         # serve() calls timed for p50/p99 (phase 5)
 PYTHON_FILTERS = 100_000    # slice_python: the Python table's size
 LARGE_FILTERS = 10_000_000  # slice_10m: BASELINE config 3
 BATCHES_10M = 20            # 10M batches served on each backend ...
@@ -162,10 +193,26 @@ SMALL_CHURN = (100, 40)     # join path: removes, adds within the overlay
 SESSIONS = 10_000           # slice_node: clients, each with an equal share
 STORM_TASKS = 2048          # slice_node: concurrent publishers (one batch)
 WARM_STORM = 10             # slice_node: warm-up publishes, in batches ...
-STORM_BATCHES = 100         # ... and timed publishes, in batches of 2048
+STORM_BATCHES = 10          # ... and timed publishes, in batches of 2048
 BUSY_BATCHES = 10           # slice_node: publishes under torch.profiler
 NODE_CHURN = 1000           # slice_node: subscribes and unsubscribes ...
 NODE_CHURN_RATE = 100.0     # ... of each a second, on the wall clock
+CHURN_CLIENTS = 100         # slice_mqtt: the churn's own clients
+#: slice_mqtt: the QoS of the fleet's subscriptions.  At QoS 1 the
+#: hottest client (L0w0/#, 48% of the stream) overflows the node
+#: default mqueue of 1,000 behind its inflight window of 32, which
+#: refills once a round of the loop: those queue_full drops are the
+#: reference's semantics, recorded with their clients (``_DropTap``)
+#: and held out of the deliveries owed.
+SUB_QOS = 1
+#: slice_mqtt: the closed-loop QoS 1 publishers (one batch of topics)
+MQTT_PUBLISHERS = 2048
+#: slice_mqtt: warm-up and profiled publishes, in batches of 2048 (the
+#: node's loop runs ~1k publishes/s: fewer than slice_node's, to fit
+#: the call's limit)
+MQTT_WARM = 4
+MQTT_BUSY = 4
+MQTT_PROCS = 6              # slice_mqtt: the fleet's child processes
 NODE_LOGGER = "emqx_tpu_torch.broker.match_service"
 FANOUT_LOGGER = "emqx_tpu_torch.broker.fanout"
 #: the reference node's broker.fanout.* defaults (emqx_tpu/config.py:141-157)
@@ -1771,6 +1818,762 @@ async def _slice_node(torch, device, n_filters, card, storm_batches):
         gc.unfreeze()       # the services froze the started heap
 
 
+# -- the MQTT front door: BrokerNode over TCP ---------------------------------
+#
+# The fleet lives in child processes (spawned: forking after CUDA is
+# initialised is unsafe), so that the broker's event loop is alone in
+# its process, as in a deployment.  Each child runs MQTT clients of the
+# port's client on its own loop and obeys commands from the broker's
+# process over a pipe.  Payloads carry the message's index in the topic
+# stream and time.monotonic_ns() at send (system-wide on Linux).
+
+
+def _raise_nofile(need: int) -> Dict[str, int]:
+    """Raise this process's RLIMIT_NOFILE soft limit to its hard limit;
+    fail with the numbers when that is fewer than ``need`` descriptors."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    soft = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    _check(soft == resource.RLIM_INFINITY or soft >= need,
+           f"RLIMIT_NOFILE: {soft} descriptors (hard limit {hard}), "
+           f"{need} needed")
+    return {"soft": soft, "hard": hard, "need": need}
+
+
+class _Fleet:
+    """One child process's clients: fleet clients (each subscribing its
+    filters in one SUBSCRIBE at ``SUB_QOS``, recording every delivery),
+    the publishers among them, and the churn clients (recording
+    nothing)."""
+
+    CONNECT_CONCURRENCY = 32
+
+    def __init__(self, spec: Dict) -> None:
+        self.spec = spec
+        self.clients = {}          # client id -> Client
+        self.recv_client = []      # per delivery: the fleet client's index
+        self.recv_msg = []         # ... the message's index
+        self.recv_lat_us = []      # ... publish -> delivered, microseconds
+        self.last_recv = 0.0
+        self.last_recv_ns = 0
+        self.churn_task = None
+        self.churn_reqs = []
+        self.churn_done = {"subscribed": 0, "unsubscribed": 0}
+
+    def _on_message(self, idx: int):
+        def on_message(m) -> None:
+            now = time.monotonic_ns()
+            i, t = m.payload.split(b" ")
+            self.recv_client.append(idx)
+            self.recv_msg.append(int(i))
+            self.recv_lat_us.append((now - int(t)) // 1000)
+            self.last_recv = time.monotonic()
+            self.last_recv_ns = now
+        return on_message
+
+    async def connect(self, port: int) -> Dict:
+        from emqx_tpu_torch.client import Client
+
+        sem = asyncio.Semaphore(self.CONNECT_CONCURRENCY)
+        last = [0]
+
+        async def one(cid, idx, filters):
+            async with sem:
+                c = Client(clientid=cid, port=port, keepalive=600,
+                           on_message=(self._on_message(idx)
+                                       if idx >= 0 else (lambda m: None)))
+                await c.connect(timeout=60)
+                self.clients[cid] = c
+            if filters:
+                codes = await c.subscribe([(f, SUB_QOS) for f in filters],
+                                          timeout=600)
+                _check(all(x == SUB_QOS for x in codes),
+                       f"{cid}: SUBACK codes {set(codes)}")
+                last[0] = max(last[0], time.monotonic_ns())
+
+        t0 = time.perf_counter()
+        c0 = time.process_time()
+        await asyncio.gather(
+            *[one(cid, idx, flts) for cid, idx, flts in self.spec["fleet"]],
+            *[one(cid, -1, flts) for cid, flts in self.spec["churn"]])
+        return {"clients": len(self.clients), "last_suback_ns": last[0],
+                "wall_s": time.perf_counter() - t0,
+                "cpu_s": time.process_time() - c0}
+
+    async def storm(self, topics: List[str], lo: int, hi: int) -> Dict:
+        """Each publisher of this process publishes, at QoS 1 and each
+        awaiting its PUBACK before the next, the stream indices ``i`` in
+        ``[lo, hi)`` with ``i`` modulo the publisher count its publisher
+        index."""
+        lat = []
+        stride = self.spec["n_publishers"]
+
+        async def publisher(cid: str, g: int) -> None:
+            c = self.clients[cid]
+            first = lo + (g - lo) % stride
+            for i in range(first, hi, stride):
+                t0 = time.perf_counter_ns()
+                rc = await c.publish(
+                    topics[i], b"%d %d" % (i, time.monotonic_ns()), qos=1,
+                    timeout=120)
+                lat.append((time.perf_counter_ns() - t0) // 1000)
+                _check(not rc, f"PUBACK reason {rc}")
+
+        c0 = time.process_time()
+        t0 = time.perf_counter()
+        await asyncio.gather(*[publisher(cid, g)
+                               for cid, g in self.spec["publishers"]])
+        return {"published": len(lat), "puback_us": lat,
+                "wall_s": time.perf_counter() - t0,
+                "cpu_s": time.process_time() - c0}
+
+    async def drain(self, quiet_s: float = 0.5) -> Dict:
+        """Wait until no delivery arrived for ``quiet_s``; hand over what
+        arrived since the last drain."""
+        c0 = time.process_time()
+        while time.monotonic() - self.last_recv < quiet_s:
+            await asyncio.sleep(0.05)
+        out = {"client": np.asarray(self.recv_client, np.int64),
+               "msg": np.asarray(self.recv_msg, np.int64),
+               "lat_us": np.asarray(self.recv_lat_us, np.int64),
+               "last_ns": self.last_recv_ns,
+               "cpu_s": time.process_time() - c0}
+        self.recv_client, self.recv_msg, self.recv_lat_us = [], [], []
+        return out
+
+    def churn_start(self, add: List, drop: List, rate: float) -> None:
+        """Send SUBSCRIBEs of ``add`` and UNSUBSCRIBEs of ``drop``
+        ((client, filter) pairs), ``rate`` of each a second on the wall
+        clock (each request its own task: the rate does not wait on the
+        broker's answers), until :meth:`churn_stop`."""
+        done = self.churn_done = {"subscribed": 0, "unsubscribed": 0,
+                                  "sent": 0}
+        reqs = self.churn_reqs = []
+
+        async def one(kind, call):
+            await call
+            done[kind] += 1
+
+        async def run():
+            n = max(len(add), len(drop))
+            sent = 0
+            t0 = time.perf_counter()
+            while sent < n:
+                due = min(n, int((time.perf_counter() - t0) * rate) + 1)
+                for cid, flt in add[sent:due]:
+                    reqs.append(asyncio.ensure_future(one(
+                        "subscribed", self.clients[cid].subscribe(
+                            flt, qos=SUB_QOS, timeout=300))))
+                for cid, flt in drop[sent:due]:
+                    reqs.append(asyncio.ensure_future(one(
+                        "unsubscribed", self.clients[cid].unsubscribe(
+                            flt, timeout=300))))
+                done["sent"] = sent = due
+                await asyncio.sleep(max(0.0, t0 + sent / rate
+                                        - time.perf_counter()))
+        self.churn_task = asyncio.ensure_future(run())
+
+    async def churn_stop(self) -> Dict:
+        """Stop sending; wait for the answers to what was sent."""
+        t = self.churn_task
+        self.churn_task = None
+        if t is not None:
+            if not t.done():
+                t.cancel()
+            try:
+                await t
+            except asyncio.CancelledError:
+                pass
+            await asyncio.gather(*self.churn_reqs)
+        return dict(self.churn_done)
+
+    async def disconnect(self) -> Dict:
+        for c in self.clients.values():
+            try:
+                await c.disconnect()
+            except Exception:  # noqa: BLE001 - a node may have closed it
+                pass
+            await c.close()
+        self.clients = {}
+        return {"disconnected": True}
+
+
+def _fleet_proc(conn, spec: Dict) -> None:
+    """A fleet child process: obey (command, args) messages from the
+    broker's process until ``exit``; answer each with ("ok", result) or
+    ("error", text)."""
+    try:
+        _raise_nofile(len(spec["fleet"]) + len(spec["churn"]) + 64)
+    except Exception as e:  # noqa: BLE001 - reported to the parent
+        conn.send(("error", f"{type(e).__name__}: {e}"))
+        return
+    asyncio.run(_fleet_loop(conn, spec))
+
+
+async def _fleet_loop(conn, spec: Dict) -> None:
+    fleet = _Fleet(spec)
+    topics = spec["topics"]
+    loop = asyncio.get_running_loop()
+    conn.send(("ok", {"pid": __import__("os").getpid()}))
+    while True:
+        cmd, args = await loop.run_in_executor(None, conn.recv)
+        try:
+            if cmd == "exit":
+                await fleet.churn_stop()
+                await fleet.disconnect()
+                conn.send(("ok", {}))
+                return
+            if cmd == "connect":
+                out = await fleet.connect(*args)
+            elif cmd == "storm":
+                out = await fleet.storm(topics, *args)
+            elif cmd == "drain":
+                out = await fleet.drain(*args)
+            elif cmd == "churn_start":
+                fleet.churn_start(*args)
+                out = {}
+            elif cmd == "churn_stop":
+                out = await fleet.churn_stop()
+            elif cmd == "disconnect":
+                out = await fleet.disconnect()
+            else:
+                raise ValueError(f"unknown command {cmd!r}")
+            conn.send(("ok", out))
+        except Exception as e:  # noqa: BLE001 - reported to the parent
+            conn.send(("error", f"{cmd}: {type(e).__name__}: {e}"))
+
+
+class _FleetProcs:
+    """The fleet's child processes, and the commands to all of them."""
+
+    def __init__(self, specs: List[Dict]) -> None:
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.conns, self.procs = [], []
+        for spec in specs:
+            parent, child = ctx.Pipe()
+            p = ctx.Process(target=_fleet_proc, args=(child, spec),
+                            daemon=True)
+            p.start()
+            child.close()
+            self.conns.append(parent)
+            self.procs.append(p)
+
+    async def _recv(self, conn):
+        status, out = await asyncio.to_thread(conn.recv)
+        _check(status == "ok", f"fleet process: {out}")
+        return out
+
+    async def ready(self) -> List[int]:
+        return [(await self._recv(c))["pid"] for c in self.conns]
+
+    async def all(self, cmd: str, *args, only=None) -> List[Dict]:
+        """Send ``cmd`` to every process (or those in ``only``), then
+        gather their answers."""
+        picked = [c for i, c in enumerate(self.conns)
+                  if only is None or i in only]
+        for c in picked:
+            c.send((cmd, args))
+        return list(await asyncio.gather(*[self._recv(c) for c in picked]))
+
+    def close(self) -> None:
+        for c in self.conns:
+            try:
+                c.send(("exit", ()))
+            except OSError:
+                pass
+        for p in self.procs:
+            p.join(30)
+            if p.is_alive():
+                p.terminate()
+                p.join(5)
+        for c in self.conns:
+            c.close()
+
+
+def _fleet_specs(filters: List[str], topics: List[str], n_clients: int,
+                 n_procs: int, churn: List[tuple]) -> List[Dict]:
+    """The fleet shared out to ``n_procs`` processes: client ``dev{k}``
+    holds its equal share of the filters (the slice_node assignment),
+    the first ``MQTT_PUBLISHERS`` clients publish (all, if fewer),
+    and the churn clients (with their initial filters) sit in the last
+    process."""
+    order = np.random.default_rng(1).permutation(len(filters))
+    per = -(-len(filters) // n_clients)
+    n_pub = min(MQTT_PUBLISHERS, n_clients)
+    specs = [{"fleet": [], "churn": [], "publishers": [], "topics": topics,
+              "n_publishers": n_pub} for _ in range(n_procs)]
+    for k in range(n_clients):
+        spec = specs[k % n_procs]
+        cid = f"dev{k}"
+        spec["fleet"].append(
+            (cid, k, [filters[i] for i in order[k * per:(k + 1) * per]]))
+        if k < n_pub:
+            spec["publishers"].append((cid, k))
+    specs[-1]["churn"] = churn
+    return specs
+
+
+def _expected_keys(broker, topics: List[str], lo: int, hi: int,
+                   client_idx: Dict[str, int], n_msgs: int) -> np.ndarray:
+    """``client * n_msgs + message`` of every delivery that messages
+    ``lo..hi`` owe the fleet: one for each subscription of a fleet client
+    whose filter matches the topic (``Router.match_routes`` of the
+    node's router, the churn stopped)."""
+    per_topic = {}
+    router, subs = broker.router, broker.subscribers
+    parts = []
+    for i in range(lo, hi):
+        t = topics[i]
+        got = per_topic.get(t)
+        if got is None:
+            cl = [client_idx[c] for flt, _dest in router.match_routes(t)
+                  for c in subs.get(flt, ()) if c in client_idx]
+            got = per_topic[t] = np.asarray(cl, np.int64) * n_msgs
+        parts.append(got + i)
+    return np.concatenate(parts) if parts else np.zeros(0, np.int64)
+
+
+def _diff_keys(want: np.ndarray, got: np.ndarray) -> Dict[str, int]:
+    """Missing, duplicate and extra deliveries of ``got`` against
+    ``want`` (multisets of keys)."""
+    want, got = np.sort(want), np.sort(got)
+    if len(want) == len(got) and np.array_equal(want, got):
+        return {"missing": 0, "duplicate": 0, "extra": 0}
+    uw, cw = np.unique(want, return_counts=True)
+    ug, cg = np.unique(got, return_counts=True)
+    at = np.searchsorted(uw, ug)
+    known = (at < len(uw)) & (uw[np.minimum(at, len(uw) - 1)] == ug)
+    extra = int(cg[~known].sum())
+    have = np.zeros(len(uw), np.int64)
+    have[at[known]] = cg[known]
+    d = have - cw
+    return {"missing": int(-d[d < 0].sum()), "duplicate": int(d[d > 0].sum()),
+            "extra": extra}
+
+
+class _DropTap:
+    """While active, every message a session's full mqueue dropped,
+    with the session's client: ``Session.deliver`` returns its victims
+    beside its sends (the ``message.dropped`` hook is told the message
+    alone).  ``keys(client_idx, n_msgs)`` gives ``client * n_msgs +
+    message`` of the fleet clients' drops."""
+
+    def __init__(self) -> None:
+        self.pairs = []            # (client id, payload)
+
+    def __enter__(self):
+        from emqx_tpu_torch.broker.session import Session
+
+        orig = self._orig = Session.deliver
+        pairs = self.pairs
+
+        def deliver(sess, msgs):
+            out, dropped = orig(sess, msgs)
+            for m in dropped:
+                pairs.append((sess.clientid, m.payload))
+            return out, dropped
+        Session.deliver = deliver
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from emqx_tpu_torch.broker.session import Session
+
+        Session.deliver = self._orig
+
+    def keys(self, client_idx: Dict[str, int], n_msgs: int) -> np.ndarray:
+        return np.asarray([client_idx[c] * n_msgs + int(p.split(b" ")[0])
+                           for c, p in self.pairs if c in client_idx],
+                          np.int64)
+
+
+class _LookupCount:
+    """``Broker.device_match`` counting its calls (the route lookups)."""
+
+    def __init__(self, fn) -> None:
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, topic: str):
+        self.calls += 1
+        return self.fn(topic)
+
+
+async def _mqtt_storm(fleet, node, topics, lo: int, hi: int, card: str,
+                      churn=None, profile=None) -> Dict:
+    """One storm over TCP: the publishers publish ``topics[lo:hi]``
+    (their PUBACKs awaited), the churn (if any) beside, under the
+    profiler when ``profile`` wraps the storm; then each child drains its
+    deliveries, which are held against the node's routes.  Returns the
+    storm's line."""
+    broker = node.broker
+    metrics = node.observed.metrics
+    m0 = metrics.all()
+    gc.collect()
+    t_cpu = time.process_time()
+    churn_done = None
+    tap = _DropTap()
+    with GcPauses() as pauses, tap:
+        if churn is not None:
+            await fleet.all("churn_start", *churn, only=[len(fleet.conns) - 1])
+        t0 = time.perf_counter()
+        t0_ns = time.monotonic_ns()
+        if profile is not None:
+            busy = await profile(lambda: fleet.all("storm", lo, hi))
+            done = busy.pop("result")
+        else:
+            busy = None
+            done = await fleet.all("storm", lo, hi)
+        wall = time.perf_counter() - t0
+        if churn is not None:
+            churn_done = (await fleet.all("churn_stop",
+                                          only=[len(fleet.conns) - 1]))[0]
+        broker_cpu = time.process_time() - t_cpu
+        # the fanout's deliveries (and its drops) may trail the PUBACKs
+        drained = await fleet.all("drain", 0.5)
+    m1 = metrics.all()
+    delta = {k: m1[k] - m0[k] for k in m1 if m1[k] != m0[k]}
+    n = sum(d["published"] for d in done)
+    puback = np.concatenate([np.asarray(d["puback_us"], np.int64)
+                             for d in done])
+    lat = np.concatenate([d["lat_us"] for d in drained])
+    # until the last delivery (the fanout acks a publish at its offer, so
+    # its deliveries may trail the last PUBACK)
+    delivered_wall = max(wall, (max(d["last_ns"] for d in drained)
+                                - t0_ns) / 1e9)
+    line = {"card": card, "publishes": n, "publishes_per_s": n / wall,
+            "wall_s": wall, "delivered_wall_s": delivered_wall,
+            "delivered_publishes_per_s": n / delivered_wall,
+            "puback_ms": {"p50": _pct(puback, 50) / 1e3,
+                          "p99": _pct(puback, 99) / 1e3,
+                          "max": float(puback.max()) / 1e3},
+            "delivered_ms": ({"p50": _pct(lat, 50) / 1e3,
+                              "p99": _pct(lat, 99) / 1e3,
+                              "max": float(lat.max()) / 1e3}
+                             if len(lat) else None),
+            "deliveries": int(len(lat)),
+            "deliveries_per_s": len(lat) / delivered_wall,
+            "gc": {**pauses.summary(), "full_collections": pauses.count[2],
+                   "full_ms": pauses.pause_ms[2]},
+            "broker_cpu_s": broker_cpu,
+            "client_cpu_s": [round(d["cpu_s"], 3) for d in done],
+            "churn": churn_done,
+            "counters": {k: v for k, v in delta.items()
+                         if k.startswith(("tpu.", "broker.match.",
+                                          "messages.dropped",
+                                          "delivery.dropped",
+                                          "broker.outbox", "broker.fanout.",
+                                          "broker.olp."))}}
+    if busy is not None:
+        line["device_busy"] = busy
+    n_msgs = len(topics)
+    want = _expected_keys(broker, topics, lo, hi, fleet.client_idx, n_msgs)
+    got = np.concatenate([d["client"] * n_msgs + d["msg"] for d in drained])
+    dropped = tap.keys(fleet.client_idx, n_msgs)
+    line["checked"] = int(len(want))
+    # each delivery owed arrived once, or a full mqueue dropped it once
+    line["queue_full"] = len(tap.pairs)
+    line["queue_full_fleet"] = int(len(dropped))
+    line["queue_full_clients"] = len({c for c, _p in tap.pairs})
+    line.update(_diff_keys(want, np.concatenate([got, dropped])))
+    return line
+
+
+def _storm_checks(line: Dict, device_path: bool, on_card: bool) -> List[str]:
+    """The checks of an MQTT storm's line."""
+    c = line["counters"]
+    queue_full = c.get("messages.dropped.queue_full", 0)
+    dropped = (c.get("messages.dropped", 0) - queue_full
+               - c.get("messages.dropped.no_subscribers", 0))
+    failed = [what for ok, what in (
+        (line["missing"] == line["duplicate"] == line["extra"] == 0,
+         f"deliveries: {line['missing']} missing, {line['duplicate']} "
+         f"duplicate, {line['extra']} extra of {line['checked']} "
+         f"({line['queue_full_fleet']} dropped queue_full)"),
+        (queue_full == line["queue_full"],
+         f"{queue_full} queue_full drops counted, {line['queue_full']} "
+         "recorded by the sessions"),
+        (dropped == 0 and c.get("delivery.dropped", 0) == 0
+         and c.get("broker.outbox.dropped", 0) == 0,
+         f"{dropped} messages dropped (beside no_subscribers and "
+         f"queue_full), {c.get('delivery.dropped', 0)} deliveries "
+         f"dropped, {c.get('broker.outbox.dropped', 0)} outbox drops"))
+        if not ok]
+    if device_path:
+        failed += [what for ok, what in (
+            (line["prefetch_timeouts"] == 0 and line["failed_batches"] == 0,
+             f"{line['prefetch_timeouts']} prefetches timed out, "
+             f"{line['failed_batches']} device batches failed"),)
+            if not ok]
+        if on_card:
+            failed += [what for ok, what in (
+                (line["kernel_launches"] == line["walk_dispatches"],
+                 f"walk launches {line['kernel_launches']} != dispatches "
+                 f"{line['walk_dispatches']}"),
+                (line["walk_dispatches"] > 0,
+                 "the storm never reached the card"),
+                (line["hint_share_device"] >= 0.5,
+                 f"device hint share {line['hint_share_device']:.3f} "
+                 "< 0.5"))
+                if not ok]
+    return failed
+
+
+async def _mqtt_device_storm(fleet, node, topics, lo, hi, card, churn,
+                             logs, device) -> Dict:
+    """A storm through the node's match service: launches counted from
+    just before to just after, the hint share of the route lookups, and
+    the service's logged failures."""
+    from emqx_tpu_torch.ops import walk_kernel
+
+    ms = node.match_service
+    lookups = _LookupCount(ms.hint_routes)
+    node.broker.device_match = lookups
+    logs.reset()
+    d0, b0 = ms.dispatches, len(ms._batch_ms)
+    # -- the main path: counts zeroed just before, read just after -------
+    walk_kernel.launches = 0
+    walk_kernel.join_launches = 0
+    line = await _mqtt_storm(fleet, node, topics, lo, hi, card, churn)
+    launches = walk_kernel.launches
+    join_launches = walk_kernel.join_launches
+    # ---------------------------------------------------------------------
+    c = line["counters"]
+    served = c.get("tpu.match.hint_served", 0)
+    host = c.get("tpu.match.hint_served_host", 0)
+    batches = len(ms._batch_ms) - b0
+    batch_ms = ms._batch_ms[b0:] or [0.0]
+    line.update({
+        "walk_dispatches": ms.dispatches - d0, "kernel_launches": launches,
+        "join_kernel_launches": join_launches, "route_lookups":
+        lookups.calls, "hint_share": served / max(1, lookups.calls),
+        "hint_share_device": (served - host) / max(1, lookups.calls),
+        "device_batches": batches,
+        "topics_per_device_batch":
+            c.get("tpu.match.topics", 0) / max(1, batches),
+        "batch_ms": {"mean": float(np.mean(batch_ms)),
+                     "p99": _pct(batch_ms, 99), "max": max(batch_ms)},
+        "prefetch_timeouts": logs.timeouts, "failed_batches": logs.failed,
+        "stale_race_batches": logs.stale_races,
+        "logged_errors": logs.errors})
+    node.broker.device_match = ms.hint_routes
+    return line
+
+
+async def _mqtt_node_phase(torch, device, name: str, fleet, filters, topics,
+                           card, storm_batches: int, fanout: bool,
+                           churn_seed: int, logs) -> Dict:
+    """One node at the reference's defaults (fanout per ``fanout``) on
+    127.0.0.1:0: the fleet connects and subscribes after ``start()``,
+    the time to route all of it, the warm-up and the timed storm with a
+    churn beside, a profiled storm, then the match service stopped and
+    the timed storm again through the host trie.  Emits the phase's
+    line; returns the walk launches of its main path."""
+    from emqx_tpu_torch.config import Config
+    from emqx_tpu_torch.node import BrokerNode
+
+    t_start = time.perf_counter()
+    fleet.churn_held = list(fleet.churn_start)
+    cfg = Config(env={})
+    cfg.put("listeners.tcp.default.bind", "127.0.0.1:0")
+    cfg.put("broker.fanout.enable", fanout)
+    if device.type != "cuda":
+        # the plain walks on the CPU (rehearsal) outlast the 0.5 s timeout
+        cfg.put("tpu.prefetch_timeout", 60.0)
+    node = BrokerNode(cfg, device=device)
+    try:
+        t0 = time.perf_counter()
+        await node.start()
+        start_s = time.perf_counter() - t0
+        ms = node.match_service
+        _count_batches(ms)
+        port = node.listeners.all()[0].port
+        connected = await fleet.all("connect", port)
+        last_suback = max(c["last_suback_ns"] for c in connected)
+        subscribed_s = time.perf_counter() - t0 - start_s
+        router = node.broker.router
+        wild = len(router.wildcard_filters())
+        while not (ms.ready and ms._synced_epoch == router.epoch
+                   and ms.dev.epoch == ms.inc.epoch
+                   and ms.inc.n_filters >= wild):
+            _check(time.perf_counter() - t0 < 1800,
+                   "the mirror never routed the fleet")
+            await asyncio.sleep(0.002)
+        routed_s = (time.monotonic_ns() - last_suback) / 1e9
+        line = {"phase": name, "ok": True, "card": card,
+                "fanout": fanout, "start_s": start_s,
+                "clients": sum(c["clients"] for c in connected),
+                "subscribe_s": subscribed_s,
+                "fleet_connect_cpu_s": [round(c["cpu_s"], 3)
+                                        for c in connected],
+                "routes": router.route_count(), "wildcard_filters": wild,
+                "table_filters": ms.inc.n_filters,
+                "last_suback_to_routed_s": routed_s,
+                "mirror": {"uploads": ms.dev.uploads,
+                           "delta_applies": ms.dev.delta_applies,
+                           "refresh": node.observed.metrics.get(
+                               "tpu.mirror.refresh"),
+                           "recompile": node.observed.metrics.get(
+                               "tpu.mirror.recompile")},
+                "service_freezes": ms.freezes,
+                "gc_frozen_objects": gc.get_freeze_count()}
+        warm_hi = MQTT_WARM * BATCH
+        hi = warm_hi + storm_batches * BATCH
+        busy_hi = hi + MQTT_BUSY * BATCH
+        held = set(router.wildcard_filters())
+        add = _fresh_filters(held, NODE_CHURN, churn_seed)
+        churners = fleet.churn_ids
+        adds = [(churners[i % len(churners)], f) for i, f in enumerate(add)]
+        drops = fleet.churn_held[:NODE_CHURN]
+        failed = []
+        warm = await _mqtt_device_storm(fleet, node, topics, 0, warm_hi,
+                                        card, None, logs, device)
+        failed += [f"warm-up: {f}" for f in
+                   _storm_checks(warm, True, device.type == "cuda")]
+        line["warmup"] = {k: warm[k] for k in (
+            "publishes", "publishes_per_s", "checked", "missing",
+            "duplicate", "extra", "hint_share_device")}
+        dev = await _mqtt_device_storm(fleet, node, topics, warm_hi, hi,
+                                       card, (adds, drops, NODE_CHURN_RATE),
+                                       logs, device)
+        dev_failed = _storm_checks(dev, True, device.type == "cuda")
+        # the churn's filters stay; the next churn unsubscribes them
+        fleet.churn_held = fleet.churn_held[NODE_CHURN:] + adds
+        # the card's busy share over more publishes, under the profiler
+        profiled = await _mqtt_storm(
+            fleet, node, topics, hi, busy_hi, card,
+            profile=lambda storm: _busy_result(torch, device, storm))
+        dev_failed += [f"profiled storm: {f}" for f in
+                       _storm_checks(profiled, False, False)]
+        dev["device_busy"] = profiled.pop("device_busy")
+        dev["device_busy"]["publishes"] = profiled["publishes"]
+        dev["service"] = ms.info()
+        _emit_storm(f"{name}.device", dev, dev_failed)
+        failed += dev_failed
+        # the host trie alone, on the same node: the service stopped
+        await ms.stop()
+        node.match_service = None
+        node.broker.device_match = None
+        if node.fanout_pipeline is not None:
+            node.fanout_pipeline.match_service = None
+        add2 = _fresh_filters(set(router.wildcard_filters()), NODE_CHURN,
+                              churn_seed + 100)
+        adds2 = [(churners[i % len(churners)], f)
+                 for i, f in enumerate(add2)]
+        drops2 = fleet.churn_held[:NODE_CHURN]
+        host = await _mqtt_storm(fleet, node, topics, warm_hi, hi, card,
+                                 (adds2, drops2, NODE_CHURN_RATE))
+        fleet.churn_held = fleet.churn_held[NODE_CHURN:] + adds2
+        host["device_busy"] = {"busy_share": "not measured",
+                               "why": "no device path"}
+        host_failed = _storm_checks(host, False, False)
+        _emit_storm(f"{name}.host_trie", host, host_failed)
+        failed += [f"host trie: {f}" for f in host_failed]
+        line["queue_full"] = {"device": dev["queue_full"],
+                              "host_trie": host["queue_full"]}
+        line["device_over_host"] = (dev["publishes_per_s"]
+                                    / host["publishes_per_s"])
+        line["delivered_device_over_host"] = (
+            dev["delivered_publishes_per_s"]
+            / host["delivered_publishes_per_s"])
+        await fleet.all("disconnect")
+        line["phase_wall_s"] = time.perf_counter() - t_start
+        _emit_checked(line, failed)
+        return {"launches": (dev["kernel_launches"],
+                             dev["join_kernel_launches"])}
+    finally:
+        await node.stop()
+
+
+def _emit_storm(phase: str, line: Dict, failed: List[str]) -> None:
+    """One storm's line, with the checks it failed (the phase fails on
+    them after its last storm)."""
+    out = {"phase": phase, "ok": not failed, **line}
+    if failed:
+        out["failed_checks"] = failed
+    emit(out)
+
+
+async def _busy_result(torch, device, storm) -> Dict:
+    """``_busy`` over ``storm()``, with the storm's result kept (on the
+    CPU the storm runs unprofiled)."""
+    box = {}
+
+    async def run():
+        box["result"] = await storm()
+    out = await _busy(torch, device, run)
+    out["result"] = box["result"] if box else await storm()
+    return out
+
+
+def phase_slice_mqtt(torch, device, n_filters: int, card: str,
+                     storm_batches: int, n_clients: int) -> Dict:
+    """The MQTT front door at 1M subscriptions (BASELINE config 2): the
+    port's ``BrokerNode`` at the reference's node defaults over TCP,
+    driven by a fleet of ``n_clients`` MQTT clients in ``MQTT_PROCS``
+    child processes and ``CHURN_CLIENTS`` churn clients
+    (``slice_mqtt``), then the same on a second node with
+    ``broker.fanout.enable`` (``slice_mqtt_fanout``)."""
+    return asyncio.run(_slice_mqtt(torch, device, n_filters, card,
+                                   storm_batches, n_clients))
+
+
+async def _slice_mqtt(torch, device, n_filters, card, storm_batches,
+                      n_clients):
+    from emqx_tpu_torch.workload import build_workload
+
+    t0 = time.perf_counter()
+    n_topics = (MQTT_WARM + storm_batches + MQTT_BUSY) * BATCH
+    filters, topics = build_workload(np.random.default_rng(0), n_filters,
+                                     n_topics)
+    held = set(filters)
+    # the churn clients' own filters: their first unsubscribes drop these
+    start = _fresh_filters(held, NODE_CHURN, 21)
+    churn_ids = [f"churn{k}" for k in range(CHURN_CLIENTS)]
+    per = -(-len(start) // CHURN_CLIENTS)
+    churn = [(cid, start[k * per:(k + 1) * per])
+             for k, cid in enumerate(churn_ids)]
+    # the broker's side of every client's socket, and a margin
+    nofile = _raise_nofile(n_clients + CHURN_CLIENTS + 256)
+    specs = _fleet_specs(filters, topics, n_clients, MQTT_PROCS, churn)
+    fleet = _FleetProcs(specs)
+    fleet.client_idx = {f"dev{k}": k for k in range(n_clients)}
+    fleet.churn_ids = churn_ids
+    fleet.churn_start = [(cid, f) for cid, flts in churn for f in flts]
+    logs = _LogCount()
+    svc_log = logging.getLogger(NODE_LOGGER)
+    svc_log.setLevel(logging.DEBUG)
+    svc_log.addHandler(logs)
+    node_log = logging.getLogger("emqx_tpu_torch.node")
+    node_log.addHandler(logs)
+    out = {}
+    try:
+        pids = await fleet.ready()
+        emit({"phase": "slice_mqtt_fleet", "ok": True,
+              "clients": n_clients, "churn_clients": CHURN_CLIENTS,
+              "processes": len(pids), "nofile": nofile,
+              "workload_s": time.perf_counter() - t0,
+              "wall_s": time.perf_counter() - t0})
+        for name, fanout, seed in (("slice_mqtt", False, 31),
+                                   ("slice_mqtt_fanout", True, 41)):
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            got = await _mqtt_node_phase(
+                torch, device, name, fleet, filters, topics, card,
+                storm_batches, fanout, seed, logs)
+            out[name] = got["launches"]
+        return out
+    finally:
+        fleet.close()
+        svc_log.removeHandler(logs)
+        node_log.removeHandler(logs)
+        gc.unfreeze()       # the services froze the started heap
+
+
 def _pct(xs, q) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
@@ -2023,6 +2826,8 @@ def main(argv=None) -> int:
                     "them at 10M)")
     ap.add_argument("--storm-batches", type=int, default=STORM_BATCHES,
                     help="slice_node: timed publishes, in batches of 2048")
+    ap.add_argument("--mqtt-clients", type=int, default=SESSIONS,
+                    help="slice_mqtt: the fleet's MQTT clients")
     ap.add_argument("--rehearse-cpu", action="store_true",
                     help="dry run of the serve phases on the CPU; prints "
                     "no result")
@@ -2112,6 +2917,15 @@ def main(argv=None) -> int:
         for name in ("slice_node_fanout", "slice_node_pipeline"):
             path = name[len("slice_"):]
             launches["hash"][path], launches["join"][path] = node[name]
+        node = None
+        gc.collect()
+        phase = "slice_mqtt"
+        mqtt = phase_slice_mqtt(torch, device, args.filters, card,
+                                args.storm_batches, args.mqtt_clients)
+        for name in ("slice_mqtt", "slice_mqtt_fanout"):
+            path = name[len("slice_"):]
+            launches["hash"][path], launches["join"][path] = mqtt[name]
+        mqtt = None
         gc.collect()
         phase = "slice_10m_build"
         big = phase_10m_build(torch, device, args.large_filters)

@@ -14,19 +14,24 @@ the host trie walk, and an absent or stale one falls back to
 
 The batched fanout (``broker/fanout.py``) publishes through the seams
 the reference gives it: :meth:`Broker.publish_folded` and the batched
-shared dispatch :meth:`Broker._dispatch_shared_batch`.  The reference's
-cluster forwarding seams (``on_forward``, ``on_forward_shared``,
-``dispatch_remote``), the admission plane, enhanced auth and the latency
-histograms are not part of this copy; sessions are not shard-owned, so
-there is no ``Session.mutex`` and delivery calls ``Session.deliver``
-directly.
+shared dispatch :meth:`Broker._dispatch_shared_batch`.  The node and its
+channels read ``usernames`` (kept by the channel on CONNECT),
+``enhanced_auth`` (no provider is registered: the port has no auth
+backends) and ``admission`` (always None: the admission plane is not
+ported); :meth:`attach_hists` wires the per-message publish path's
+stage histograms, and :meth:`deliver_direct` is the retainer's replay.
+The reference's cluster forwarding seams (``on_forward``,
+``on_forward_shared``, ``dispatch_remote``) are not part of this copy;
+sessions are not shard-owned, so there is no ``Session.mutex`` and
+delivery calls ``Session.deliver`` directly.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import replace
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from .. import topic as T
 from .hooks import Hooks
@@ -65,9 +70,13 @@ class Broker:
         self.router = Router()
         self.shared = SharedSub(shared_strategy)
         self.sessions: Dict[str, Session] = {}
+        # MQTT 5 enhanced auth providers: method name -> provider
+        self.enhanced_auth: Dict[str, Any] = {}
         # filter -> {clientid -> SubOpts}; non-shared local subscribers
         self.subscribers: Dict[str, Dict[str, SubOpts]] = {}
         self.session_defaults = session_defaults or {}
+        # clientid -> username, maintained by the channel on CONNECT
+        self.usernames: Dict[str, Optional[str]] = {}
         # the serving layer sets on_deliver to push straight to
         # connections; otherwise deliveries accumulate in outbox
         self.on_deliver = None  # Optional[Callable[[str, List[Publish]], None]]
@@ -80,9 +89,18 @@ class Broker:
         # whoever runs one; a channel offers publishes there and falls
         # back to publish() when it refuses
         self.fanout = None             # Optional[FanoutPipeline]
+        # the admission plane's seam, read by the channel and the
+        # transport; the port has no admission plane, so it stays None
+        self.admission = None
         # counter table; broker-internal drop accounting (outbox
         # overflow) and delivery counts land here when present
         self.metrics = None
+        # stage histograms of the per-message publish path (None: the
+        # recording sites cost one attribute test), set by attach_hists
+        self.hists = None
+        self._h_deliver = None
+        self._h_flush = None
+        self._h_e2e = None
         self._outbox_warned: set = set()  # clients already logged for drops
 
     # ------------------------------------------------------------------
@@ -120,6 +138,7 @@ class Broker:
         if discard or sess.clean_start:
             self._drop_session_state(sess)
             del self.sessions[clientid]
+            self.usernames.pop(clientid, None)
             self.outbox.pop(clientid, None)
             self._outbox_warned.discard(clientid)
             self.hooks.run("session.terminated", (clientid,))
@@ -208,10 +227,18 @@ class Broker:
         fold again would fire its side effects twice."""
         return self._publish_folded(msg, DeliverResult())
 
+    def attach_hists(self, hists) -> None:
+        """Wire the per-message publish path's span recording sites."""
+        self.hists = hists
+        self._h_deliver = hists.hist("obs.stage.deliver")
+        self._h_flush = hists.hist("obs.stage.flush")
+        self._h_e2e = hists.hist("obs.e2e.publish_deliver")
+
     def _publish_folded(self, msg: Message,
                         res: DeliverResult) -> DeliverResult:
         # a fresh micro-batched device answer replaces the per-publish
         # host trie walk; stale or absent hints fall back
+        t0 = time.perf_counter_ns() if self._h_deliver is not None else 0
         routes = None
         if self.device_match is not None:
             routes = self.device_match(msg.topic)
@@ -237,8 +264,18 @@ class Broker:
         msg.__dict__.pop("_pub0", None)
         # push the fan-out to the connection layer (or the outbox when no
         # serving layer is attached — unit tests read res.publishes)
+        t1 = time.perf_counter_ns() if self._h_deliver is not None else 0
         for clientid, pubs in res.publishes.items():
             self.emit(clientid, pubs)
+        if self._h_deliver is not None:
+            # match and deliver as one deliver span, the emit fan-out as
+            # flush, and the publish -> deliver sample when anything was
+            # delivered: the histograms the batched drain also writes
+            t2 = time.perf_counter_ns()
+            self._h_deliver.record(t1 - t0)
+            self._h_flush.record(t2 - t1)
+            if res.matched and self._h_e2e is not None:
+                self._h_e2e.record_s(time.time() - msg.timestamp)
         return res
 
     def _dispatch(self, flt: str, msg: Message, res: DeliverResult) -> None:
@@ -411,6 +448,28 @@ class Broker:
             res.dropped.append((clientid, d))
             self.hooks.run("message.dropped", (d, "queue_full"))
         return all(d.id != eff.id for d in dropped)
+
+    # ------------------------------------------------------------------
+    # out-of-band delivery (retained replay)
+    # ------------------------------------------------------------------
+
+    def deliver_direct(self, clientid: str, opts: SubOpts,
+                       msgs: List[Message]) -> None:
+        """Deliver ``msgs`` to one session outside a publish fan-out and
+        emit the resulting sends to the connection layer."""
+        sess = self.sessions.get(clientid)
+        if sess is None:
+            return
+        effs = [m.with_qos(min(m.qos, opts.qos)) for m in msgs]
+        sends, dropped = sess.deliver(effs)
+        for d in dropped:
+            self.hooks.run("message.dropped", (d, "queue_full"))
+        if sends:
+            if self.metrics is not None:
+                self.metrics.inc("messages.delivered", len(sends))
+            for pub in sends:   # only actually-sent messages, not queued
+                self.hooks.run("message.delivered", (clientid, pub.msg))
+            self.emit(clientid, sends)
 
     # ------------------------------------------------------------------
     # delivery to the connection layer

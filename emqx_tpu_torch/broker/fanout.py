@@ -52,13 +52,24 @@ and the queue is republished in order through ``Broker.publish``.  The
 delivery-stage fallback is at-least-once: a leg delivered before the
 error may be delivered again.
 
-The pipeline runs as a plain task.  The reference's supervisor, overload
-shedding (``olp``, ``deferred_cap``), latency histograms, per-leg e2e
-sampling, flight recorder and the broker's admission shed are not
-ported: setting one raises NotImplementedError.  The port has no
-cluster, so the reference's ``on_forward`` leg is absent, and no
-shard-owned sessions, so ``Session.deliver`` is called directly (the
-reference takes ``sess.mutex`` where a session has one).
+**Supervision and overload**, as the reference's: with a
+``Supervisor`` the drain loop runs as a permanent child (a crash or an
+injected kill restarts it, and a supervised shutdown republishes what
+is still queued); with an ``Olp``, sustained overload sheds at
+:meth:`offer`: QoS0 drops first (``broker.olp.shed_qos0``), retained and
+``$delayed/`` publishes wait in a deferral queue of ``deferred_cap``
+until the overload clears (``broker.olp.deferred``), and QoS1/2 ride
+the inflight window's backpressure.  ``hists`` records the
+``obs.stage.fanout_queue``, ``deliver`` and ``flush`` spans and the
+``obs.e2e.publish_deliver`` sample (once per session per batch; every
+``e2e_per_leg_sample``-th leg as well when it is set), ``flightrec``
+the ``fanout`` ring.
+
+The broker's admission shed is not ported (an ``admission`` set on the
+broker raises NotImplementedError).  The port has no cluster, so the
+reference's ``on_forward`` leg is absent, and no shard-owned sessions,
+so ``Session.deliver`` is called directly (the reference takes
+``sess.mutex`` where a session has one).
 """
 
 from __future__ import annotations
@@ -71,6 +82,7 @@ from typing import Any, Deque, Dict, List, Optional
 
 from .. import faultinject as _fi
 from .. import topic as T
+from ..observe.flightrec import STAGES as _FR_STAGES
 from .broker import DeliverResult
 from .message import Message
 
@@ -78,10 +90,10 @@ log = logging.getLogger(__name__)
 
 __all__ = ["FanoutPipeline"]
 
-#: reference parameters of features this port does not serve, with the
-#: default each must keep
-_UNPORTED = {"supervisor": None, "olp": None, "deferred_cap": 4096,
-             "hists": None, "e2e_per_leg_sample": 0, "flightrec": None}
+# packed flight-recorder stage ids (observe/flightrec.py STAGES)
+_SID_QUEUE = _FR_STAGES.index("fanout_queue")
+_SID_DELIVER = _FR_STAGES.index("deliver")
+_SID_FLUSH = _FR_STAGES.index("flush")
 
 
 class FanoutPipeline:
@@ -103,16 +115,13 @@ class FanoutPipeline:
         queue_cap: int = 65536,
         shape_routes: float = 0.0,
         shape_probe_s: float = 0.25,
-        **unported: Any,
+        supervisor: Any = None,
+        olp: Any = None,
+        deferred_cap: int = 4096,
+        hists: Any = None,
+        e2e_per_leg_sample: int = 0,
+        flightrec: Any = None,
     ) -> None:
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"unexpected keyword argument {name!r}")
-            if value != _UNPORTED[name]:
-                raise NotImplementedError(
-                    f"FanoutPipeline({name}={value!r}) is not ported; the "
-                    f"port serves the reference's default "
-                    f"{_UNPORTED[name]!r} only")
         if getattr(broker, "admission", None) is not None:
             raise NotImplementedError(
                 "the broker's admission shed is not ported")
@@ -127,6 +136,9 @@ class FanoutPipeline:
         self.queue_cap = queue_cap
         self.shape_routes = shape_routes
         self.shape_probe_s = shape_probe_s
+        self.supervisor = supervisor
+        self.olp = olp
+        self.deferred_cap = deferred_cap
 
         self._q: Deque[Message] = deque()
         # sender -> its messages in the pipeline's custody (queued or in
@@ -134,8 +146,12 @@ class FanoutPipeline:
         # topic, so a sender with nothing in custody may take the
         # per-message path while other senders' messages are queued
         self._pending_senders: Dict[Any, int] = {}
+        # retained and $delayed/ publishes deferred under overload; they
+        # rejoin the queue when it clears
+        self._deferred: Deque[Message] = deque()
         self._wake = asyncio.Event()
         self._task: Optional[asyncio.Task] = None
+        self._child = None           # supervise.Child when supervised
         self._running = False
         self._busy = False  # a batch is in flight (its prefetch await)
         # arrival-rate window (as MatchService._note_arrival)
@@ -149,6 +165,25 @@ class FanoutPipeline:
         # lifetime accounting (also in metrics when attached)
         self.batches = 0
         self.msgs = 0
+        # stage histograms (None: each recording site is one attribute
+        # test); the drain loop is their one writer
+        self.hists = hists
+        self._h_queue = self._h_deliver = None
+        self._h_flush = self._h_e2e = self._h_e2e_leg = None
+        self.e2e_per_leg_sample = int(e2e_per_leg_sample)
+        self._leg_ctr = 0
+        if hists is not None:
+            self._h_queue = hists.hist("obs.stage.fanout_queue")
+            self._h_deliver = hists.hist("obs.stage.deliver")
+            self._h_flush = hists.hist("obs.stage.flush")
+            self._h_e2e = hists.hist("obs.e2e.publish_deliver")
+            if self.e2e_per_leg_sample > 0:
+                self._h_e2e_leg = hists.hist("obs.e2e.publish_deliver_leg")
+        # when the queue's head message arrived (0: the queue is empty)
+        self._q_head_ns = 0
+        self.flightrec = flightrec
+        self._ring = (flightrec.ring("fanout")
+                      if flightrec is not None else None)
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -156,12 +191,23 @@ class FanoutPipeline:
 
     async def start(self) -> None:
         self._running = True
-        self._task = asyncio.ensure_future(self._run())
+        if self.supervisor is not None:
+            # a crashed or killed drain loop restarts; the drain callback
+            # republishes the queue when the supervisor stops the child
+            self._child = self.supervisor.start_child(
+                "broker.fanout", self._run, restart="permanent",
+                drain=self._drain_queue)
+        else:
+            self._task = asyncio.ensure_future(self._run())
 
     async def stop(self) -> None:
         """Stop draining; messages still queued take the per-message
         path, so that a shutdown loses no accepted publish."""
         self._running = False
+        if self._child is not None:
+            await self._child.stop()   # runs _drain_queue after the task
+            self._child = None
+            return
         if self._task is not None:
             self._task.cancel()
             try:
@@ -172,8 +218,10 @@ class FanoutPipeline:
         self._drain_queue()
 
     def _drain_queue(self) -> None:
-        """Republish everything still queued through the per-message
-        path.  Idempotent."""
+        """Republish everything still queued (and overload-deferred)
+        through the per-message path.  Idempotent."""
+        while self._deferred:
+            self._q.append(self._deferred.popleft())
         while self._q:
             msg = self._q.popleft()
             self._untrack([msg])
@@ -202,6 +250,24 @@ class FanoutPipeline:
             return False
         T.validate(msg.topic, "name")  # as Broker.publish
         self._note_arrival()
+        olp = self.olp
+        if olp is not None and olp.overloaded():
+            # sustained overload: shed QoS0 first, defer retained and
+            # delayed publishes, and let QoS1/2 ride the queue (their
+            # backpressure is the inflight window, not queue growth)
+            if msg.retain or msg.topic.startswith("$delayed/"):
+                if len(self._deferred) < self.deferred_cap:
+                    self._deferred.append(msg)
+                    self._track(msg)
+                    if self.metrics is not None:
+                        self.metrics.inc("broker.olp.deferred")
+                    return True
+                return False  # the deferral is full: the sync path
+            if msg.qos == 0:
+                if self.metrics is not None:
+                    self.metrics.inc("broker.olp.shed_qos0")
+                self.broker.hooks.run("message.dropped", (msg, "olp_shed"))
+                return True   # consumed: dropped by policy, not queued
         if len(self._q) >= self.queue_cap:
             # overload: shed to the per-message path, not an unbounded
             # queue
@@ -237,6 +303,8 @@ class FanoutPipeline:
                 if self.metrics is not None:
                     self.metrics.inc("broker.fanout.shape_bypass")
                 return False
+        if self._h_queue is not None and not self._q:
+            self._q_head_ns = time.perf_counter_ns()
         self._q.append(msg)
         self._track(msg)
         self._wake.set()
@@ -266,6 +334,8 @@ class FanoutPipeline:
         the offers."""
         if not self._running:
             return False
+        if self.olp is not None and self.olp.overloaded():
+            return False
         if len(self._q) + headroom > self.queue_cap:
             return False
         idle = not self._q and not self._busy
@@ -291,7 +361,7 @@ class FanoutPipeline:
     # ------------------------------------------------------------------
 
     async def _run(self) -> None:
-        if self._q:
+        if self._q or self._deferred:
             # a restart with a backlog: the previous run's wake may have
             # been consumed; never stall on a non-empty queue
             self._wake.set()
@@ -306,6 +376,12 @@ class FanoutPipeline:
                     raise _fi.InjectedFault("fanout.drain")
                 if act == "delay":
                     await _fi._injector.pause()
+            if self.olp is not None:
+                self.olp.report(queue_depth=len(self._q))
+                if self._deferred and not self.olp.overloaded():
+                    # the overload cleared: deferred publishes rejoin
+                    while self._deferred and len(self._q) < self.queue_cap:
+                        self._q.append(self._deferred.popleft())
             if not self._q:
                 continue
             if self.window_s > 0:
@@ -315,6 +391,16 @@ class FanoutPipeline:
             n = min(len(self._q), bound)
             popleft = self._q.popleft
             batch = [popleft() for _ in range(n)]
+            if self._h_queue is not None:
+                # fanout_queue span: the batch's oldest queue wait (head
+                # stamp to pop), re-armed for the rest of the queue
+                now_ns = time.perf_counter_ns()
+                head = self._q_head_ns
+                if head:
+                    self._h_queue.record(now_ns - head)
+                    if self._ring is not None:
+                        self._ring.push(_SID_QUEUE, head, now_ns - head, n)
+                self._q_head_ns = now_ns if self._q else 0
             if self._q:
                 self._wake.set()
             self._busy = True
@@ -342,6 +428,9 @@ class FanoutPipeline:
                       int((time.perf_counter() - t0) * 1e6))
             self.batches += 1
             self.msgs += n
+            if self._deferred and (
+                    self.olp is None or not self.olp.overloaded()):
+                self._wake.set()   # re-queue the deferred next round
 
     # loop fairness: at most this many messages fan out per synchronous
     # stretch; between chunks the drain loop yields, so that connection
@@ -528,6 +617,11 @@ class FanoutPipeline:
         sessions = broker.sessions
         delivered_taps = hooks.has("message.delivered")
         bmetrics = broker.metrics
+        h_e2e = self._h_e2e
+        h_leg = self._h_e2e_leg
+        t4 = time.perf_counter_ns() if self._h_deliver is not None else 0
+        now_wall = (time.time()
+                    if h_e2e is not None or h_leg is not None else 0.0)
         for clientid, effs in plan.items():
             sess = sessions.get(clientid)
             if sess is None:
@@ -546,6 +640,17 @@ class FanoutPipeline:
                 if delivered_taps:
                     for p in sends:
                         hooks.run("message.delivered", (clientid, p.msg))
+                if h_e2e is not None:
+                    # publish -> deliver, sampled once per session per
+                    # batch (its first send)
+                    h_e2e.record_s(now_wall - sends[0].msg.timestamp)
+                if h_leg is not None:
+                    step = self.e2e_per_leg_sample
+                    for p in sends:
+                        self._leg_ctr += 1
+                        if self._leg_ctr >= step:
+                            self._leg_ctr = 0
+                            h_leg.record_s(now_wall - p.msg.timestamp)
             for d in dropped:
                 hooks.run("message.dropped", (d, "queue_full"))
         # the legs shared one QoS0 Publish per message, cached on it
@@ -556,9 +661,17 @@ class FanoutPipeline:
         for m in views:
             m.__dict__.pop("_pub0", None)
         # -- stage 5: one emit per client per batch
+        t5 = time.perf_counter_ns() if self._h_deliver is not None else 0
         emit = broker.emit
         for clientid, pubs in out.items():
             emit(clientid, pubs)
+        if self._h_deliver is not None:
+            t6 = time.perf_counter_ns()
+            self._h_deliver.record(t5 - t4)
+            self._h_flush.record(t6 - t5)
+            if self._ring is not None:
+                self._ring.push(_SID_DELIVER, t4, t5 - t4, len(msgs))
+                self._ring.push(_SID_FLUSH, t5, t6 - t5, len(out))
 
     # ------------------------------------------------------------------
 
@@ -576,6 +689,7 @@ class FanoutPipeline:
         return {
             "running": self._running,
             "depth": len(self._q),
+            "deferred": len(self._deferred),
             "batches": self.batches,
             "msgs": self.msgs,
             "batch_bound": self._batch_bound(),

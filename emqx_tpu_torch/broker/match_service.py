@@ -88,8 +88,18 @@ dispatches, and the answers are parked in a hint cache that
   broker's subscriptions, the router's trie, the mirror) goes to the
   collector's permanent generation (``gc.freeze``): a
   full collection over a 1M-subscription heap pauses the event loop
-  for seconds, past ``prefetch_timeout_s``.  The reference does not
-  freeze.
+  for seconds, past ``prefetch_timeout_s``.  A sync that leaves the
+  mirror ``FREEZE_GROWTH`` filters above its size at the last freeze
+  freezes again (no collection first: that would be the pause), so a
+  fleet that subscribes after ``start()`` is frozen as it arrives.  The
+  reference does not freeze;
+* on a saturated loop the service keeps the round of the loop as its
+  unit of delay: the sync's debounce and the batching window both run
+  from the first event that needs them (a router mutation, the oldest
+  waiter), not from the wake that comes a round later, and a waiter's
+  ``prefetch_timeout_s`` expires only the answers the batch loop had
+  not given when the timer ran (the reference's ``wait_for`` also drops
+  an answer given in the round before its waiter resumes).
 
 **The synchronous core** (a service without a broker): :meth:`load`,
 :meth:`add`, :meth:`remove`, :meth:`sync` and :meth:`serve` chain the
@@ -104,11 +114,17 @@ the port raises.  Nothing here stands in for a failing kernel: a failed
 batch resolves its waiters without a hint (publish walks the host trie
 and the failure is logged), a failed ``_warm`` keeps ``ready`` false.
 
-The reference's deadline loop (with its per-dispatch timeout, which also
-bounds a pipelined readback there), breaker, brownout, segments,
-multichip plane, histograms and flight recorder are not ported: their
-parameters raise NotImplementedError when set to anything but their
-defaults.
+The node's seams are the reference's: ``hists`` (a ``HistSet``: the
+``obs.stage.match_wait`` / ``match_encode`` / ``match_dispatch`` /
+``match_readback`` histograms), ``flightrec`` (the ``match.serve``,
+``match.encode`` and ``match.readback`` rings), ``alarms`` and ``olp``
+(kept; only the deadline loop reads them), and a ``supervisor``
+attribute set before :meth:`start`, under which the sync, batch and
+readback loops run as restartable children.  The reference's deadline
+loop (with its per-dispatch timeout, which also bounds a pipelined
+readback there), breaker, brownout, segments and multichip plane are not
+ported: their parameters raise NotImplementedError when set to anything
+but their defaults.
 """
 
 from __future__ import annotations
@@ -126,6 +142,7 @@ import torch
 from .. import faultinject as _fi
 from .. import topic as T
 from ..native.nfa import NativeNfa
+from ..observe.flightrec import STAGES as _FR_STAGES
 from ..ops import cuda_build
 from ..ops.device_table import BACKENDS, JOIN_BACKENDS, DeviceNfa, check_backend
 from ..ops.encode import TopicEncoder, encode_batch, table_encoder
@@ -148,6 +165,12 @@ SERVICE_BACKENDS = BACKENDS + ("auto",)
 BACKEND_KERNELS = {"hash": "nfa_walk", "join": "nfa_join_walk",
                    "join-pallas": "nfa_join_walk"}
 
+# packed flight-recorder stage ids (observe/flightrec.py STAGES)
+_SID_WAIT = _FR_STAGES.index("match_wait")
+_SID_ENCODE = _FR_STAGES.index("match_encode")
+_SID_DISPATCH = _FR_STAGES.index("match_dispatch")
+_SID_READBACK = _FR_STAGES.index("match_readback")
+
 #: reference parameters of features this port does not serve, with the
 #: default each must keep
 _UNPORTED = {
@@ -163,7 +186,6 @@ _UNPORTED = {
     "multichip_ep_grow_threshold": 0.05,
     "multichip_ep_shrink_threshold": 0.01, "multichip_ep_max_cap_class": 3,
     "multichip_balance_budget": 64,
-    "hists": None, "flightrec": None, "alarms": None, "olp": None,
 }
 
 
@@ -320,6 +342,31 @@ def _record_event(device: torch.device):
     return ev
 
 
+async def _await_answers(futs: Sequence[asyncio.Future], timeout: float,
+                         msg: str, arg: Any) -> None:
+    """Wait for the batch loop to answer the waiters ``futs``, at most
+    ``timeout`` seconds: the timer then answers those still open with
+    None (their publishes walk the host trie) and logs ``msg % arg``.
+    An answer given before the timer runs is kept, even when the loop
+    has not yet resumed this waiter: on a saturated loop the batch loop
+    answers at the start of a round and its waiters resume in the next,
+    after the round's due timers (``asyncio.wait_for`` would cancel the
+    answered waiter then)."""
+    def expire() -> None:
+        late = [f for f in futs if not f.done()]
+        for f in late:
+            f.set_result(None)
+        if late:
+            log.debug(msg, arg)
+
+    timer = asyncio.get_running_loop().call_later(timeout, expire)
+    try:
+        for f in futs:
+            await f
+    finally:
+        timer.cancel()
+
+
 async def _event_done(ev) -> None:
     """Wait for ``ev`` without blocking the event loop: poll it between
     rounds of the loop (a busy loop polls once a round; an idle one
@@ -357,6 +404,8 @@ class MatchService:
                  autotune_reps: int = 3, pipeline: bool = False,
                  pipeline_depth: int = 2, readback_mode: str = "chunked",
                  readback_auto_slack: float = 1.0,
+                 alarms: Any = None, olp: Any = None, hists: Any = None,
+                 flightrec: Any = None,
                  device: Union[None, str, torch.device] = None,
                  **unported: Any) -> None:
         for name, value in unported.items():
@@ -376,6 +425,29 @@ class MatchService:
         self.broker = broker
         self.router = broker.router if broker is not None else None
         self.metrics = metrics
+        # kept for the deadline loop's brownout and breaker (not ported)
+        self.alarms = alarms
+        self.olp = olp
+        # set by the node before start(): the loops run as its children
+        self.supervisor = None
+        # stage histograms (None: every recording site is one attribute
+        # test); the serve loop on the event loop is their one writer
+        self.hists = hists
+        self._h_wait = self._h_encode = None
+        self._h_dispatch = self._h_readback = None
+        if hists is not None:
+            self._h_wait = hists.hist("obs.stage.match_wait")
+            self._h_encode = hists.hist("obs.stage.match_encode")
+            self._h_dispatch = hists.hist("obs.stage.match_dispatch")
+            self._h_readback = hists.hist("obs.stage.match_readback")
+        # the flight recorder's rings: one a batch for its queue wait,
+        # its encode and dispatch, and its readback
+        self.flightrec = flightrec
+        self._ring_loop = self._ring_disp = self._ring_rb = None
+        if flightrec is not None:
+            self._ring_loop = flightrec.ring("match.serve")
+            self._ring_disp = flightrec.ring("match.encode")
+            self._ring_rb = flightrec.ring("match.readback")
         self.backend = backend
         self.depth = depth
         self.batch_window_s = batch_window_s
@@ -449,12 +521,19 @@ class MatchService:
         self.fallback_host = 0
         self.autotune_launches = 0
         self.load_seconds: Dict[str, float] = {}
-        # the serve loop's state
+        # the serve loop's state; sync_error is the last sync's failure
+        # (a failed upload or warm-up), None once a sync lands
         self.ready = False
+        self.sync_error: Optional[BaseException] = None
         self._seen_epoch = 0          # router delta-log position (drained)
         self._synced_epoch = 0        # router epoch the DEVICE table reflects
         self._synced_rule_gen = 0     # rule gen the device table reflects
         self._dirty = asyncio.Event()
+        self._dirty_since = 0.0       # the first mutation not yet synced
+        # the live wildcard filters at the last gc.freeze, and the
+        # freezes since start()
+        self._frozen_filters = 0
+        self.freezes = 0
         self._pending: List[Tuple[str, asyncio.Future]] = []
         self._pending_since = 0.0     # arrival of the oldest waiter
         self._batch_wake = asyncio.Event()
@@ -665,17 +744,28 @@ class MatchService:
         when this returns."""
         handles = []
         dev = self.dev
+        gen = self._table_gen
         for idx, d in groups:
             B = _bucket(len(idx))
             be = self._backend_for(B, d)
+            t0 = time.perf_counter_ns()
             enc = encode_batch(self.inc, [topics[i] for i in idx], batch=B,
                                depth=d)
+            t1 = time.perf_counter_ns()
             res = dev.match(*dev.put_batch(*enc),
                             flat_cap=self.FLAT_MULT * B, backend=be)
+            t2 = time.perf_counter_ns()
             self.dispatches += 1
             if be in JOIN_BACKENDS:
                 self.join_dispatches += 1
                 self._inc("tpu.match.backend_join_dispatches")
+            if self._h_encode is not None:
+                self._h_encode.record(t1 - t0)
+                self._h_dispatch.record(t2 - t1)
+            if self._ring_disp is not None:
+                self._ring_disp.push(_SID_ENCODE, t0, t1 - t0, len(idx), gen)
+                self._ring_disp.push(_SID_DISPATCH, t1, t2 - t1, len(idx),
+                                     gen)
             handles.append((res, len(idx)))
         return handles
 
@@ -734,10 +824,24 @@ class MatchService:
         out = []
         nbytes = 0
         k = self.dev.max_matches
+        t0 = time.perf_counter_ns()
         for res, n in handles:
             out.append(self._readback_rows(res, n, k))
             nbytes += 4 * (res.matches.numel() + 3 * res.n_matches.numel())
+        self._rec_readback(t0, handles)
         return out, nbytes, len(handles)
+
+    def _rec_readback(self, t0: int, handles) -> None:
+        """Record a batch's readback span, from ``t0`` (ns) to now."""
+        if self._h_readback is None and self._ring_rb is None:
+            return
+        rb_ns = time.perf_counter_ns() - t0
+        if self._h_readback is not None:
+            self._h_readback.record(rb_ns)
+        if self._ring_rb is not None:
+            self._ring_rb.push(_SID_READBACK, t0, rb_ns,
+                               sum(n for _res, n in handles),
+                               self._table_gen)
 
     def _deep_ids(self, topic: str) -> List[int]:
         if not self._deep:
@@ -885,16 +989,23 @@ class MatchService:
         # collected as usual; stop() leaves the heap frozen)
         gc.collect()
         gc.freeze()
-        self._tasks = [asyncio.ensure_future(self._sync_loop()),
-                       asyncio.ensure_future(self._batch_loop())]
+        self._frozen_filters = len(self._ref)
+        loops = [("match.sync", self._sync_loop),
+                 ("match.batch", self._batch_loop)]
         if self.pipeline:
             # the queue bounds the slots waiting for the readback task;
             # with the one it holds, at most pipeline_depth batches sit
             # past dispatch (2: double buffering)
             self._inflight_q = asyncio.Queue(
                 maxsize=max(1, self.pipeline_depth - 1))
-            self._tasks.append(asyncio.ensure_future(self._readback_loop()))
-        self._dirty.set()
+            loops.append(("match.readback", self._readback_loop))
+        sup = self.supervisor
+        # supervised (the node's): a crashed loop restarts instead of
+        # freezing hint freshness or the waiters until the node restarts
+        self._tasks = [sup.start_child(name, fn) if sup is not None
+                       else asyncio.ensure_future(fn())
+                       for name, fn in loops]
+        self._mark_dirty()
 
     async def stop(self) -> None:
         """Stop the loops (waiters in flight, those of pipelined slots
@@ -912,10 +1023,15 @@ class MatchService:
 
     # -- the serve loop: mirror maintenance (event loop) ---------------------
 
+    def _mark_dirty(self) -> None:
+        if not self._dirty.is_set():
+            self._dirty_since = time.monotonic()
+        self._dirty.set()
+
     def _on_router_mutation(self, epoch: int) -> None:
         # no hint invalidation here: freshness is proven per topic at
         # consume time against the delta log (_hint_fresh)
-        self._dirty.set()
+        self._mark_dirty()
 
     def _add(self, flt: str) -> None:
         n = self._ref.get(flt, 0)
@@ -968,12 +1084,15 @@ class MatchService:
     async def _sync_loop(self) -> None:
         while True:
             await self._dirty.wait()
-            if self.router.epoch - self._synced_epoch \
+            wait = self.debounce_s - (time.monotonic() - self._dirty_since)
+            if wait > 0 and self.router.epoch - self._synced_epoch \
                     < self.max_stale_deltas // 4:
-                # coalesce a burst; a mirror already this far behind
-                # syncs at once (on a busy loop the sleep costs a whole
-                # round of the loop, while the churn goes on)
-                await asyncio.sleep(self.debounce_s)
+                # coalesce a burst, counted from its first mutation; a
+                # mirror already this far behind syncs at once.  On a
+                # busy loop the wake comes a round late and the debounce
+                # has run out: a sleep would cost one more round, while
+                # the churn goes on past max_stale_deltas
+                await asyncio.sleep(wait)
             self._dirty.clear()
             try:
                 first = not self.ready
@@ -1003,10 +1122,31 @@ class MatchService:
                     self._inc("tpu.mirror.recompile")
                 elif pending.delta is not None and not pending.delta.empty:
                     self._inc("tpu.mirror.delta_applied")
-            except Exception:
+                self.sync_error = None
+                self._freeze_growth()
+            except Exception as exc:
+                # kept for the node, whose start() raises on it
+                self.sync_error = exc
                 log.exception("match-service sync failed; host path serves")
                 await asyncio.sleep(1.0)
-                self._dirty.set()
+                self._mark_dirty()
+
+    #: a sync that leaves this many more live wildcard filters than the
+    #: last freeze freezes the heap again
+    FREEZE_GROWTH = 65536
+
+    def _freeze_growth(self) -> None:
+        """After a sync: once the mirror has grown ``FREEZE_GROWTH``
+        filters past the last freeze, what the growth made (sessions,
+        routes, trie nodes, table entries) joins the collector's
+        permanent generation.  No collection first: over a heap that
+        grew by a fleet it would be the seconds-long pause that the
+        freeze spares the loop; what is garbage now merely stays."""
+        n = len(self._ref)
+        if n - self._frozen_filters >= self.FREEZE_GROWTH:
+            gc.freeze()
+            self._frozen_filters = n
+            self.freezes += 1
 
     def _warm(self) -> None:
         """Before ``ready``: build and load the CUDA kernel of every walk
@@ -1051,7 +1191,7 @@ class MatchService:
         self._rule_refs[rule_id] = refs
         self._rule_gen += 1
         self._rule_log.append((self._rule_gen, tuple(from_filters)))
-        self._dirty.set()
+        self._mark_dirty()
 
     def unregister_rule(self, rule_id: str) -> None:
         refs = self._rule_refs.pop(rule_id, None)
@@ -1071,7 +1211,7 @@ class MatchService:
         # harmless (the engine skips ids not in its live rule map)
         self._rule_gen += 1
         self._rule_log.append((self._rule_gen, ()))
-        self._dirty.set()
+        self._mark_dirty()
 
     # -- the serve loop: hints -------------------------------------------------
 
@@ -1152,11 +1292,8 @@ class MatchService:
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         self._enqueue(topic, fut)
         self._batch_wake.set()
-        try:
-            await asyncio.wait_for(fut, self.prefetch_timeout_s)
-        except Exception:
-            # timeout/cancel: publish falls back to the host path
-            log.debug("prefetch for %r timed out", topic, exc_info=True)
+        await _await_answers((fut,), self.prefetch_timeout_s,
+                             "prefetch for %r timed out", topic)
 
     async def prefetch_many(self, topics, qos_of=None) -> None:
         """Batched prefetch (the fanout pipeline's): every topic missing
@@ -1183,13 +1320,9 @@ class MatchService:
         if not waits:
             return
         self._batch_wake.set()
-        try:
-            await asyncio.wait_for(asyncio.gather(*waits),
-                                   self.prefetch_timeout_s)
-        except Exception:
-            # timeout/cancel: those topics fall back to the host trie
-            log.debug("prefetch_many (%d topics) timed out", len(waits),
-                      exc_info=True)
+        await _await_answers(waits, self.prefetch_timeout_s,
+                             "prefetch_many (%d topics) timed out",
+                             len(waits))
 
     def hint_available(self, topic: str) -> bool:
         """Non-consuming freshness peek: True iff a device hint would
@@ -1234,7 +1367,12 @@ class MatchService:
     def _enqueue(self, topic: str, fut: asyncio.Future) -> None:
         if not self._pending:
             self._pending_since = time.monotonic()
-        self._pending.append((topic, fut))
+        # with histograms on, the match_wait stamp rides as the waiter's
+        # last element (consumers index from the front)
+        if self._h_wait is not None:
+            self._pending.append((topic, fut, time.perf_counter_ns()))
+        else:
+            self._pending.append((topic, fut))
 
     async def _batch_loop(self) -> None:
         """The fixed-window serve loop: wake, let the batching window run
@@ -1270,6 +1408,7 @@ class MatchService:
         """Device rows → hints; any failure, or the loop's cancellation,
         resolves the waiters without a hint (the host trie serves them);
         a failure is logged here."""
+        self._rec_wait(pending)
         if self.pipeline:
             await self._pipeline_dispatch(pending)
             return
@@ -1287,9 +1426,31 @@ class MatchService:
             log.debug("device batch failed; publishes fall back",
                       exc_info=True)
         finally:
-            for _topic, fut in pending:
-                if not fut.done():
-                    fut.set_result(None)
+            for p in pending:
+                if not p[1].done():
+                    p[1].set_result(None)
+
+    def _rec_wait(self, pending: List[Any]) -> None:
+        """Record each popped waiter's queue wait (enqueue to dispatch
+        start) and one flight-recorder event a batch."""
+        h = self._h_wait
+        if h is None or not pending:
+            return
+        now_ns = time.perf_counter_ns()
+        oldest = now_ns
+        n = 0
+        for p in pending:
+            ts = p[-1]
+            # a waiter queued before the histograms were on (or injected
+            # bare) ends in its future: no stamp to record
+            if type(ts) is not int:
+                continue
+            h.record(now_ns - ts)
+            n += 1
+            oldest = min(oldest, ts)
+        if n and self._ring_loop is not None:
+            self._ring_loop.push(_SID_WAIT, oldest, now_ns - oldest, n,
+                                 self._table_gen)
 
     async def _fault_gate(self) -> None:
         """The ``match.dispatch`` chaos seam."""
@@ -1350,7 +1511,8 @@ class MatchService:
 
     def _mint_hints(self, pending: List[Any], rows: List[Any],
                     epoch: int, rule_gen: int) -> None:
-        for (topic, fut), row in zip(pending, rows):
+        for p, row in zip(pending, rows):
+            topic, fut = p[0], p[1]
             # pop-then-insert: a refreshed hint is the most recent.  The
             # filters and rule ids are kept as tuples of strings, which
             # the cyclic GC stops tracking: the cache then adds nothing
@@ -1408,16 +1570,17 @@ class MatchService:
 
     def _count_misses(self, pending: List[Any]) -> None:
         """Count the waiters answered past their deadline (a deadline
-        waiter carries it third; the fixed-window loop's waiters carry
-        none, so this counts nothing until the deadline loop is
-        ported)."""
+        waiter carries it third, a float; the fixed-window loop's waiters
+        carry none, at most an int match_wait stamp, so this counts
+        nothing until the deadline loop is ported)."""
         if self.metrics is None:
             return
         try:
             now = asyncio.get_running_loop().time()
         except RuntimeError:
             return      # no running loop: nothing is timed by it
-        late = sum(1 for p in pending if len(p) > 2 and now > p[2])
+        late = sum(1 for p in pending
+                   if len(p) > 2 and type(p[2]) is float and now > p[2])
         if late:
             self.metrics.inc("broker.match.deadline_miss", late)
 
@@ -1566,7 +1729,7 @@ class MatchService:
         that rode behind the walks, then one copy per group of the ids
         :meth:`_phase2_count` asks for into the slot's ids buffer.
         Returns ``([(rows, spilled)...], bytes, seconds, waits)``."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         await _event_done(slot.event)
         k = self.dev.max_matches
         metas = [m.numpy() for m in slot.metas]
@@ -1591,7 +1754,8 @@ class MatchService:
             trips = 2
         out = [self._rows_from_twophase(meta, view.numpy(), n, k)
                for (_res, n), meta, view in zip(slot.handles, metas, views)]
-        return out, nbytes, time.perf_counter() - t0, trips
+        self._rec_readback(t0, slot.handles)
+        return out, nbytes, (time.perf_counter_ns() - t0) * 1e-9, trips
 
     def _fail_over_slots(self) -> None:
         """Readback task exit: resolve the waiters of every queued slot,
@@ -1625,9 +1789,9 @@ class MatchService:
         pending, self._pending = self._pending, []
         if not pending:
             return
-        for _topic, fut in pending:
-            if not fut.done():
-                fut.set_result(None)
+        for p in pending:
+            if not p[1].done():
+                p[1].set_result(None)
         self._inc("broker.match.cpu_fallback", len(pending))
         log.warning("match serve loop exited with %d waiter(s) in "
                     "flight; failed over to the host path", len(pending))

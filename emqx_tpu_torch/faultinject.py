@@ -18,6 +18,11 @@ until :func:`install` is called, and every call site guards with::
 Named injection points:
 
 ==================  =====================================================
+``transport.write``  MqttProtocol's socket write of a delivery or a
+                     coalesced flush (drop: the bytes are lost; dup:
+                     written twice; raise)
+``frame.parse``      Parser.feed, per read (raise: a ``FrameError``, the
+                     malformed-packet path)
 ``match.dispatch``   MatchService device dispatch (raise / delay / hang)
 ``match.compile``    MatchService warm step: kernel builds and the first
                      walks before ``ready`` (raise / delay)
@@ -51,8 +56,9 @@ __all__ = [
     "install", "uninstall", "get",
 ]
 
-POINTS = ("match.dispatch", "match.compile", "match.readback",
-          "fanout.drain", "inflight.insert", "inflight.retry")
+POINTS = ("transport.write", "frame.parse", "match.dispatch",
+          "match.compile", "match.readback", "fanout.drain",
+          "inflight.insert", "inflight.retry")
 
 _ACTIONS = ("raise", "drop", "delay", "dup", "hang")
 

@@ -14,6 +14,7 @@ from typing import Dict, Iterable, List, Optional
 
 __all__ = ["Metrics", "METRIC_NAMES", "TPU_METRIC_NAMES",
            "BROKER_METRIC_NAMES", "FANOUT_METRIC_NAMES",
+           "CONNPLANE_METRIC_NAMES", "ROBUSTNESS_METRIC_NAMES",
            "MATCH_SERVE_METRIC_NAMES"]
 
 # -- the reference's fixed counter names, grouped as in emqx_metrics.erl [U]
@@ -111,6 +112,24 @@ FANOUT_METRIC_NAMES: List[str] = [
     "broker.fanout.errors", "broker.fanout.shape_bypass",
 ]
 
+# -- the connection plane: ack or write flushes that merged more than one
+# packet (inc), ack runs the parser's fast path packed (inc), the timers
+# resident in the batched stack's wheel (set, by housekeeping)
+CONNPLANE_METRIC_NAMES: List[str] = [
+    "broker.ack.coalesced_writes", "broker.ack.run_parsed",
+    "broker.ingest.publish_runs", "broker.timer.wheel_conns",
+]
+
+# -- the supervision tree (supervise.py: restarts accumulate, degraded is
+# the current degraded-child count) and overload protection (broker/olp.py:
+# the fanout's QoS0 shed and deferrals, the loop-lag probe's last drift in
+# microseconds), and the flight recorder's dumps (observe/flightrec.py)
+ROBUSTNESS_METRIC_NAMES: List[str] = [
+    "broker.supervisor.restarts", "broker.supervisor.degraded",
+    "broker.olp.shed_qos0", "broker.olp.deferred",
+    "broker.olp.loop_lag_us", "obs.flightrec.dumps",
+]
+
 # -- the serve loop: cpu_fallback counts waiters answered from the host
 # tables (a dying serve loop's, a failed or stale pipelined slot's);
 # pipeline_inflight is the live count of pipelined slots past dispatch
@@ -140,7 +159,8 @@ class Metrics:
     def __init__(self, extra: Optional[Iterable[str]] = None) -> None:
         self._c: Dict[str, int] = {}
         for names in (METRIC_NAMES, TPU_METRIC_NAMES, BROKER_METRIC_NAMES,
-                      FANOUT_METRIC_NAMES, MATCH_SERVE_METRIC_NAMES,
+                      FANOUT_METRIC_NAMES, CONNPLANE_METRIC_NAMES,
+                      ROBUSTNESS_METRIC_NAMES, MATCH_SERVE_METRIC_NAMES,
                       extra or ()):
             self._c.update({n: 0 for n in names})
 
@@ -166,3 +186,41 @@ class Metrics:
     def reset(self) -> None:
         for k in self._c:
             self._c[k] = 0
+
+    # -- convenience aggregations used by the v3-compat REST shape --------
+    def received_msgs(self) -> int:
+        return self._c["messages.received"]
+
+    def sent_msgs(self) -> int:
+        return self._c["messages.sent"]
+
+    def inc_recv_packet(self, ptype: str, nbytes: int = 0) -> None:
+        """Bump the packets.<type>.received family (+ totals + bytes)."""
+        self._c["packets.received"] += 1
+        if nbytes:
+            self._c["bytes.received"] += nbytes
+        key = f"packets.{ptype}.received"
+        if key in self._c:
+            self._c[key] += 1
+
+    def inc_sent_packet(self, ptype: str, nbytes: int = 0) -> None:
+        self._c["packets.sent"] += 1
+        if nbytes:
+            self._c["bytes.sent"] += nbytes
+        key = f"packets.{ptype}.sent"
+        if key in self._c:
+            self._c[key] += 1
+
+    def inc_msg_received(self, qos: int) -> None:
+        self._c["messages.received"] += 1
+        self._c[f"messages.qos{min(qos, 2)}.received"] += 1
+
+    def inc_msg_sent(self, qos: int) -> None:
+        self._c["messages.sent"] += 1
+        self._c[f"messages.qos{min(qos, 2)}.sent"] += 1
+
+    def inc_msg_dropped(self, reason: str) -> None:
+        self._c["messages.dropped"] += 1
+        key = f"messages.dropped.{reason}"
+        if key in self._c:
+            self._c[key] += 1

@@ -21,7 +21,7 @@ SHARE_PREFIX = "$share"
 QUEUE_PREFIX = "$queue"
 
 __all__ = ["TopicError", "words", "join", "levels", "wildcard", "is_sys",
-           "validate", "match", "parse_share", "is_shared", "strip_share",
+           "validate", "is_valid", "match", "parse_share", "is_shared", "strip_share",
            "make_share"]
 
 
@@ -115,6 +115,13 @@ def validate(topic: str, kind: str = "filter") -> None:
         elif w != "+" and "+" in w:
             raise TopicError(f"'+' must occupy a whole level: {topic!r}")
 
+
+def is_valid(topic: str, kind: str = "filter") -> bool:
+    try:
+        validate(topic, kind)
+        return True
+    except TopicError:
+        return False
 
 def match(name, flt) -> bool:
     """Does concrete topic ``name`` match filter ``flt``?  Both may be

@@ -458,3 +458,86 @@ def test_pipeline_delta_between_slots_on_card():
             await ms.stop()
             gc.unfreeze()
     asyncio.run(main())
+
+
+# -- the port's node on the card, over TCP ----------------------------------
+
+@pytest.mark.cuda
+def test_node_on_card_delivers_the_host_routes():
+    """A 100k-filter ``BrokerNode`` at the node defaults on ``cuda:0``,
+    driven over TCP by the port's MQTT client: 100 clients subscribe 1,000
+    filters each at QoS 1, 64 publishers publish 2,048 workload topics at
+    QoS 1 (each awaiting its PUBACK); every client receives each message
+    once per filter of its own that matches (``router.match_routes``),
+    and the walks launched equal the service's dispatches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from collections import Counter
+
+    from emqx_tpu_torch.client import Client
+    from emqx_tpu_torch.config import Config
+    from emqx_tpu_torch.node import BrokerNode
+
+    filters, topics = build_workload(np.random.default_rng(7), 100_000,
+                                     2048)
+
+    async def main():
+        cfg = Config(env={})
+        cfg.put("listeners.tcp.default.bind", "127.0.0.1:0")
+        node = BrokerNode(cfg)
+        await node.start()
+        try:
+            ms = node.match_service
+            assert ms.dev.device.type == "cuda"
+            port = node.listeners.all()[0].port
+            got = Counter()
+            subs = []
+            for k in range(100):
+                def on_message(m, cid=f"s{k}"):
+                    got[(cid, int(m.payload))] += 1
+                c = Client(clientid=f"s{k}", port=port,
+                           on_message=on_message)
+                await c.connect()
+                await c.subscribe([(f, 1) for f in
+                                   filters[k * 1000:(k + 1) * 1000]])
+                subs.append(c)
+            router = node.broker.router
+            for _ in range(6000):
+                if (ms.ready and ms._synced_epoch == router.epoch
+                        and ms.dev.epoch == ms.inc.epoch):
+                    break
+                await asyncio.sleep(0.01)
+            pubs = []
+            for k in range(64):
+                c = Client(clientid=f"p{k}", port=port)
+                await c.connect()
+                pubs.append(c)
+            walk_kernel.launches = 0
+            d0 = ms.dispatches
+
+            async def publisher(k):
+                for i in range(k, len(topics), 64):
+                    await pubs[k].publish(topics[i], b"%d" % i, qos=1)
+            await asyncio.gather(*[publisher(k) for k in range(64)])
+            launched, dispatched = walk_kernel.launches, ms.dispatches - d0
+            want = Counter()
+            for i, t in enumerate(topics):
+                for flt, _dest in router.match_routes(t):
+                    for cid in node.broker.subscribers.get(flt, ()):
+                        want[(cid, i)] += 1
+            for _ in range(3000):
+                if sum(got.values()) >= sum(want.values()):
+                    break
+                await asyncio.sleep(0.01)
+            await asyncio.sleep(0.2)
+            assert got == want
+            assert sum(want.values()) > len(topics)
+            assert dispatched > 0 and launched == dispatched
+            m = node.observed.metrics
+            assert m.get("tpu.match.hint_served") > 0
+            for c in subs + pubs:
+                await c.disconnect()
+        finally:
+            await node.stop()
+            gc.unfreeze()       # the service froze the started heap
+    asyncio.run(main())

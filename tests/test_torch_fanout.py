@@ -779,12 +779,24 @@ def test_fanout_with_port_match_service_delivers_as_the_reference():
 
 
 def test_fanout_unported_parameters_raise():
+    """The node's seams (supervisor, olp with deferred_cap, hists with
+    e2e_per_leg_sample, flightrec) are ported and taken as given; an
+    unknown parameter raises TypeError, and the broker's admission shed,
+    still unported, raises NotImplementedError."""
+    from emqx_tpu_torch.broker.olp import Olp
+    from emqx_tpu_torch.observe.flightrec import FlightRecorder
+    from emqx_tpu_torch.observe.hist import HistSet
+    from emqx_tpu_torch.supervise import Supervisor
+
     b = Broker()
-    for name, value in (("supervisor", object()), ("olp", object()),
-                        ("hists", object()), ("flightrec", object()),
-                        ("e2e_per_leg_sample", 4), ("deferred_cap", 8)):
-        with pytest.raises(NotImplementedError, match=name):
-            FanoutPipeline(b, **{name: value})
+    sup, olp = Supervisor(), Olp()
+    hists, rec = HistSet("main"), FlightRecorder("trace")
+    fp = FanoutPipeline(b, supervisor=sup, olp=olp, deferred_cap=8,
+                        hists=hists, e2e_per_leg_sample=4, flightrec=rec)
+    assert (fp.supervisor, fp.olp, fp.deferred_cap, fp.hists,
+            fp.e2e_per_leg_sample, fp.flightrec) == (sup, olp, 8, hists, 4,
+                                                     rec)
+    assert fp._h_e2e_leg is hists.hist("obs.e2e.publish_deliver_leg")
     FanoutPipeline(b, supervisor=None, e2e_per_leg_sample=0)
     with pytest.raises(TypeError, match="no_such_knob"):
         FanoutPipeline(b, no_such_knob=1)

@@ -13,7 +13,10 @@ with a broker attached) on the CPU, where the plain walks serve.
   delivers through the host trie; a stopped loop fails its waiters over
   at once; a failed warm-up keeps the service from serving; a join
   relation rebuild (sorted on the device, outside the dispatch lock)
-  does not stall the loop; the started heap is frozen;
+  does not stall the loop; the started heap is frozen, and so is a
+  large growth of the mirror after start;
+* (d') a saturated loop: an answer given before its waiter's timer ran
+  is kept, and a late wake runs the sync without a second debounce;
 * (e) the autotuner against the reference class, and ``auto`` routing;
 * (f) the encoder lock under concurrent encodes;
 * (g) the parameters that are not ported raise.
@@ -781,6 +784,113 @@ def test_start_freezes_the_started_heap():
     run(main())
 
 
+def test_a_large_sync_freezes_its_growth():
+    """A fleet that subscribes after start() is frozen as the mirror
+    takes it in: once ``FREEZE_GROWTH`` more live filters than at the
+    last freeze are synced; a churn that adds as many as it removes
+    freezes nothing."""
+    gc.unfreeze()
+
+    async def main():
+        b, ms, _m = await started("python", ["a/+"])
+        ms.FREEZE_GROWTH = 40
+        try:
+            for i in range(39):
+                sub(b, f"f{i}", f"fleet/{i}/+")
+            assert await settle(lambda: synced(ms))
+            assert ms.freezes == 0
+            for i in range(39, 45):
+                sub(b, f"f{i}", f"fleet/{i}/+")
+            assert await settle(lambda: synced(ms))
+            assert ms.freezes == 1 and ms._frozen_filters == 46
+            fleet = b.sessions["f44"]
+            assert not any(o is fleet for o in gc.get_objects())
+            for i in range(30):
+                b.unsubscribe(f"f{i}", f"fleet/{i}/+")
+                sub(b, f"g{i}", f"churn/{i}/+")
+                assert await settle(lambda: synced(ms))
+            late = b.sessions["g29"]
+            assert ms.freezes == 1
+            assert any(o is late for o in gc.get_objects())
+        finally:
+            await ms.stop()
+    run(main())
+
+
+def test_prefetch_keeps_an_answer_given_before_its_timer(caplog):
+    """A round of a saturated loop outlasts the timeout: the batch loop
+    answers at the start of the next round, before that round's due
+    timers, while the waiter resumes a round later.  ``wait_for`` (the
+    reference's) then cancels the answered waiter; the port keeps the
+    answer.  An answer that comes after the timer ran is expired."""
+    async def late_round(fut, answer, gap):
+        loop = asyncio.get_running_loop()
+
+        def round_of_work():        # the rest of the round, past the timer
+            time.sleep(gap)
+            loop.call_soon(answer, fut)   # the batch loop, next round
+        loop.call_soon(round_of_work)
+
+    def give(fut):
+        if not fut.done():
+            fut.set_result(None)
+
+    async def main():
+        loop = asyncio.get_running_loop()
+        # the reference's wait: the answer is lost
+        fut = loop.create_future()
+        waiter = asyncio.ensure_future(asyncio.wait_for(fut, 0.05))
+        await asyncio.sleep(0)
+        await late_round(fut, give, 0.1)
+        with pytest.raises(asyncio.TimeoutError):
+            await waiter
+        assert fut.done()
+        # the port's: kept, and nothing logged
+        fut = loop.create_future()
+        waiter = asyncio.ensure_future(match_service._await_answers(
+            (fut,), 0.05, "prefetch for %r timed out", "a/b"))
+        await asyncio.sleep(0)
+        await late_round(fut, give, 0.1)
+        await waiter
+        assert "timed out" not in caplog.text
+        # no answer before the timer: expired, logged, a late answer
+        # finds the waiter done
+        futs = (loop.create_future(), loop.create_future())
+        give(futs[0])
+        await match_service._await_answers(
+            futs, 0.02, "prefetch_many (%d topics) timed out", 2)
+        assert all(f.done() for f in futs)
+        give(futs[1])
+        assert "prefetch_many (2 topics) timed out" in caplog.text
+
+    with caplog.at_level(logging.DEBUG, logger=LOGGER):
+        run(main())
+
+
+@pytest.mark.parametrize("table", TABLES)
+def test_late_wake_syncs_without_a_second_debounce(table):
+    """The debounce runs from the first unsynced mutation: when the
+    loop was busy past it, the woken sync loop syncs at once instead of
+    sleeping another ``debounce_s``."""
+    async def main():
+        b, ms, _m = await started(table, ["a/+"])
+        ms.debounce_s = 0.5
+        try:
+            sub(b, "x", "late/+")
+            time.sleep(0.6)                 # a long round of the loop
+            t0 = time.monotonic()
+            assert await settle(lambda: synced(ms), timeout=5)
+            assert time.monotonic() - t0 < 0.3
+            # an idle loop still coalesces for debounce_s
+            sub(b, "y", "idle/+")
+            t0 = time.monotonic()
+            assert await settle(lambda: synced(ms), timeout=5)
+            assert time.monotonic() - t0 >= 0.45
+        finally:
+            await ms.stop()
+    run(main())
+
+
 def test_sync_mutators_raise_with_a_broker():
     ms = MatchService(Broker(), device="cpu")
     for call in (lambda: ms.add("a/+"), lambda: ms.remove("a/+"),
@@ -957,11 +1067,32 @@ def test_encoder_serialises_concurrent_encodes(table):
 @pytest.mark.parametrize("name,value", [
     ("deadline", True), ("breaker_threshold", 3),
     ("dispatch_timeout_s", 1.0), ("segments", True), ("multichip", True), ("multichip_ep", True),
-    ("hists", object()), ("flightrec", object()), ("alarms", object()),
-    ("olp", object())])
+    ("segments_dir", "seg"), ("compact_interval_s", 1.0),
+    ("prewarm", False), ("multichip_tp", 2)])
 def test_unported_parameters_raise(name, value):
     with pytest.raises(NotImplementedError, match=name):
         MatchService(device="cpu", **{name: value})
+
+
+@pytest.mark.parametrize("name", ["hists", "flightrec", "alarms", "olp"])
+def test_node_seams_are_taken(name):
+    """The node's seams, once unported parameters, are now taken: the
+    histograms and the flight recorder's rings are bound at
+    construction, alarms and olp kept for the deadline loop."""
+    from emqx_tpu_torch.broker.olp import Olp
+    from emqx_tpu_torch.observe.alarm import Alarms
+    from emqx_tpu_torch.observe.flightrec import FlightRecorder
+    from emqx_tpu_torch.observe.hist import HistSet
+
+    value = {"hists": HistSet("main"), "flightrec": FlightRecorder("trace"),
+             "alarms": Alarms(), "olp": Olp()}[name]
+    ms = MatchService(device="cpu", **{name: value})
+    assert getattr(ms, name) is value
+    if name == "hists":
+        assert ms._h_wait is value.hist("obs.stage.match_wait")
+        assert ms._h_readback is value.hist("obs.stage.match_readback")
+    if name == "flightrec":
+        assert ms._ring_rb is value.ring("match.readback")
 
 
 def test_unported_defaults_accepted_and_unknown_rejected():
