@@ -39,7 +39,7 @@ phases, one JSON line each; any failure exits non-zero:
    repeated (``ms_warm``, tables' rows L2-resident); the plain version's
    device ms from a CUDA graph replay; the kernel's bytes bound on this
    run's data; the serve stage breakdown (with the ids the split stage
-   turned into filters); serve throughput with p50/p99 over 400 timed
+   turned into filters); serve throughput with p50/p99 over 200 timed
    ``serve()`` calls of 2048 topics; the card's busy and idle share over
    20 ``serve()`` calls from a ``torch.profiler`` trace; table bytes and
    the spill share of the main path;
@@ -57,9 +57,11 @@ phases, one JSON line each; any failure exits non-zero:
    ``split_per_id``: the split stage's µs per id of the 1M native table
    (phase 5) beside this one's;
 9. slice_10m_build — BASELINE config 3: 10M filters (seed 0, depth-8
-   Zipfian) started with ``load`` on ``table="auto"`` (native), the
-   join mirror enabled on the same ``DeviceNfa``, and the ``FilterSet``
-   oracle built after the table; seconds of each step and the sizes;
+   Zipfian; generated in a spawned child process while the slice_node,
+   acl_batch and MQTT phases run) started with ``load`` on
+   ``table="auto"`` (native), the join mirror enabled on the same
+   ``DeviceNfa``, and the ``FilterSet`` oracle built after the table;
+   seconds of each step and the sizes;
 10. slice_10m — 16 batches served on ``hash`` and on ``join`` from the
    one table, each topic equal to the oracle; 1,000 removes (synced),
    then 1,000 adds that reuse freed accept ids (synced); 4 more batches
@@ -121,6 +123,37 @@ Between phases 8 and 9 it drives the broker's own publish path:
   slab on the fixed-window ``chunked`` path, else 4·(B + the ids the
   reference's rule copies), each copy's size checked too).
 
+Last on that broker, BASELINE config 3's co-batched rules:
+
+* slice_node_rules — 1,000 rules from the port's
+  ``RuleEngine.create_rule`` (``_rule_set``: FROM filters of the
+  workload generator with their own seed, about half of them routing
+  filters too, every tenth rule two; ``WHERE payload.temp >
+  <threshold>``; each records its outputs, ten also republish to one
+  subscriber), the engine attached to a fresh node-default hash service
+  (the rule filters co-batched into the walk's table), then the
+  slice_node storm with a JSON payload of seeded ``temp`` on every
+  publish and a churn beside it.  Every rule-id list ``hint_rules``
+  gave equals the host trie of the rule filters, every republished
+  message reaches the subscriber once, 0 route mismatches, failed
+  batches and timeouts, launches equal dispatches, ``hint_rules``
+  serves at least half the publishes; publishes/s, p50/p99, the
+  ``hint_rules`` shares and the card's busy share are printed;
+* slice_node_rules_host — the engine detached from the service (the
+  rules found in the engine's host trie of the rule filters), the same timed
+  publishes with no warm-up and no churn: every rule's counters, the
+  outputs it recorded and the republished messages equal
+  slice_node_rules'.
+
+Then ``acl_batch``: 1,000 static ACL rules (a ``FileSource`` and a
+``BuiltinDbSource``'s global rows) compiled by ``compile_acl_batch``;
+``batch_authorize`` walks 8 × 2048 Zipfian topics on the card for
+``publish`` and for ``subscribe``, every verdict equal to the host
+``Authz`` pipeline's, one launch a batch.  Phase 10 registers the same
+rules in the 10M table before its churn, and ``slice_10m_rules`` holds
+the rule ids of 4 × 2048 topics (``serve_split``) to the host trie of
+the rule filters.
+
 Then it drives the port's MQTT front door over TCP:
 
 * slice_mqtt_fleet — 10,000 MQTT clients (the port's client) in
@@ -135,8 +168,7 @@ Then it drives the port's MQTT front door over TCP:
   heap as the mirror grows); then ``MQTT_PUBLISHERS``
   of the clients publish the Zipfian stream at QoS 1, each awaiting its
   PUBACK, with the time of sending in the payload: ``MQTT_WARM`` × 2048
-  warm-up, the timed
-  storm with a churn of 100 subscribes and 100 unsubscribes a second
+  warm-up, the timed storm (``MQTT_STORM`` × 2048) with a churn of 100 subscribes and 100 unsubscribes a second
   from the churn clients, a profiled storm, and the timed storm again
   through the host trie (the match service stopped,
   ``device_match = None``).  Each storm prints PUBACKed publishes/s,
@@ -183,7 +215,7 @@ BATCH = 2048
 SERVE_BATCHES = 16          # batches served before the churn
 CHURN = 1000                # filters removed, then added
 AFTER_BATCHES = 4           # batches served after the churn
-TIMED_BATCHES = 400         # serve() calls timed for p50/p99 (phase 5)
+TIMED_BATCHES = 200         # serve() calls timed for p50/p99 (phase 5)
 PYTHON_FILTERS = 100_000    # slice_python: the Python table's size
 LARGE_FILTERS = 10_000_000  # slice_10m: BASELINE config 3
 BATCHES_10M = 20            # 10M batches served on each backend ...
@@ -207,11 +239,12 @@ CHURN_CLIENTS = 100         # slice_mqtt: the churn's own clients
 SUB_QOS = 1
 #: slice_mqtt: the closed-loop QoS 1 publishers (one batch of topics)
 MQTT_PUBLISHERS = 2048
-#: slice_mqtt: warm-up and profiled publishes, in batches of 2048 (the
-#: node's loop runs ~1k publishes/s: fewer than slice_node's, to fit
-#: the call's limit)
-MQTT_WARM = 4
-MQTT_BUSY = 4
+#: slice_mqtt: warm-up, timed and profiled publishes, in batches of
+#: 2048 (the node's loop runs ~1k publishes/s: fewer than slice_node's,
+#: to fit the call's limit)
+MQTT_WARM = 2
+MQTT_STORM = 5
+MQTT_BUSY = 2
 MQTT_PROCS = 6              # slice_mqtt: the fleet's child processes
 NODE_LOGGER = "emqx_tpu_torch.broker.match_service"
 FANOUT_LOGGER = "emqx_tpu_torch.broker.fanout"
@@ -227,6 +260,30 @@ FANOUT_PHASES = (
                              "readback_mode": "auto"}, 14),
     ("slice_node_fanout_host", None, 15),
 )
+#: slice_node_rules: BASELINE config 3's co-batched rule set on the 1M
+#: broker: RULES rules from RuleEngine.create_rule, each with one FROM
+#: filter drawn by the workload generator with its own seed (every tenth
+#: a second one), a WHERE on the payload's temp against a seeded
+#: threshold and a recording action; RULE_REPUBLISH of them also
+#: republish to RULE_SINK's subscription: those ranked from
+#: RULE_REPUBLISH_RANK on by their matches in the timed stream (hot
+#: rules: ~1,500 republishes a storm).  A republished message is never
+#: prefetched, so the engine finds its rules in its host trie of the
+#: rule filters.
+RULES = 1000
+RULE_SEED = 21
+RULE_REPUBLISH = 10
+RULE_REPUBLISH_RANK = 40
+RULE_SINK = "rule_sink"
+RULE_CHURN_SEED = 16            # the device storm's churn
+RULE_HOST_BUSY = 1              # host storm: profiled batches of 2048
+RULE_BATCHES_10M = 4            # slice_10m_rules: batches of 2048 checked
+#: acl_batch: static ACL rules (a FileSource, and a BuiltinDbSource with
+#: global rows only) over ACL_BATCHES batches of 2048 topics
+ACL_RULES = 1000
+ACL_DB_RULES = 100
+ACL_BATCHES = 8
+ACL_SEED = 31
 #: name, source and replaced TPU kernel of each walk kernel
 KERNELS = {
     "hash": ("nfa_walk", "emqx_tpu_torch/ops/csrc/nfa_walk.cu",
@@ -844,11 +901,16 @@ def phase_10m_build(torch, device, n_filters: int) -> Dict:
             "topics": topics}
 
 
-def phase_10m(torch, device, b: Dict) -> Dict:
+def phase_10m(torch, device, b: Dict, rules) -> Dict:
     """The 10M table served on ``hash`` and on ``join`` (one table, one
     device twin): every served topic against the filter-set oracle,
     before and after 1,000 removes and 1,000 adds.  The removes are
-    synced before the adds, so that the adds reuse freed accept ids."""
+    synced before the adds, so that the adds reuse freed accept ids.
+    Before the churn, ``rules`` (slice_node_rules' set) are co-batched
+    into the table (``register_rule``); after it, ``slice_10m_rules``
+    holds the rule ids of ``RULE_BATCHES_10M`` batches of 2048 topics
+    (``serve_split``: the same walks as ``serve()``, the rule half of
+    each row) to the host trie of the rule filters."""
     from emqx_tpu_torch.ops import walk_kernel
 
     t_start = time.perf_counter()
@@ -881,6 +943,11 @@ def phase_10m(torch, device, b: Dict) -> Dict:
                                svc.inc.shape_key())
     rebuilds0 = svc.dev.join_rebuilds
     bad = serve_both(0, before)
+    n_filters0 = svc.inc.n_filters
+    for rid, froms, _thr in rules:
+        svc.register_rule(rid, froms)
+    rule_sync_s = _sync(torch, device, svc)
+    rule_filters = svc.inc.n_filters - n_filters0
     for f in gone:
         _check(svc.remove(f), f"remove {f!r}")
         oracle.delete(f)
@@ -934,9 +1001,45 @@ def phase_10m(torch, device, b: Dict) -> Dict:
           "uploads": svc.dev.uploads, "delta_applies": svc.dev.delta_applies,
           "host_reruns": svc.fallback_host,
           "wall_s": time.perf_counter() - t_start})
+    # -- the rule path: counts zeroed just before, read just after -------
+    t0 = time.perf_counter()
+    oracle_rules = _RuleOracle(rules)
+    walk_kernel.launches = 0
+    walk_kernel.join_launches = 0
+    d0 = svc.dispatches
+    rule_bad = matched = 0
+    for i in range(RULE_BATCHES_10M):
+        batch = topics[i * BATCH:(i + 1) * BATCH]
+        for t, (_f, rids) in zip(batch, svc.serve_split(batch)):
+            rule_bad += rids != oracle_rules(t)
+            matched += len(rids)
+    rule_launches = walk_kernel.launches
+    rule_dispatches = svc.dispatches - d0
+    rule_join_launches = walk_kernel.join_launches
+    # ---------------------------------------------------------------------
+    _check(rule_bad == 0, f"{rule_bad} rule-id lists at 10M differ from "
+           "the host trie of the rule filters")
+    _check(matched > 0, "no topic matched a rule at 10M")
+    if device.type == "cuda":
+        _check(rule_launches == rule_dispatches > 0
+               and rule_join_launches == 0,
+               f"rule path launches {rule_launches} != dispatches "
+               f"{rule_dispatches}")
+    emit({"phase": "slice_10m_rules", "ok": True, "rules": len(rules),
+          "rule_filters_added_to_table": rule_filters,
+          "rule_filters": len(oracle_rules.by_filter),
+          "rule_sync_ms": rule_sync_s * 1e3,
+          "topics_checked": RULE_BATCHES_10M * BATCH,
+          "rule_id_mismatches": rule_bad,
+          "rules_matched_per_topic": matched / (RULE_BATCHES_10M * BATCH),
+          "walk_dispatches": rule_dispatches,
+          "kernel_launches": rule_launches,
+          "join_kernel_launches": rule_join_launches,
+          "wall_s": time.perf_counter() - t0})
     # the timing phases' distinct batches: every served topic
     return {"svc": svc, "topics": topics, "launches": launches,
-            "join_launches": join_launches,
+            "join_launches": join_launches, "rule_launches": rule_launches,
+            "rule_join_launches": rule_join_launches,
             "spill_share": svc.fallback_host / svc.topics}
 
 
@@ -1047,12 +1150,15 @@ class _LogCount(logging.Handler):
 
 
 async def _storm(ms, broker, topics, lo: int, hi: int,
-                 lat: List[float]) -> Dict[str, float]:
+                 lat: List[float], payloads=None) -> Dict[str, float]:
     """``STORM_TASKS`` publisher tasks, each taking the next topic of
     ``topics[lo:hi]``: ``await ms.prefetch(topic)`` (none when ``ms`` is
     None, the host trie), then ``broker.publish``, then one yield to the
     event loop, as a connection's read of its next packet yields.
-    Appends each publish's seconds (prefetch and publish) to ``lat``."""
+    Appends each publish's seconds (prefetch and publish) to ``lat``.
+    With ``payloads`` the i-th publish carries ``payloads[i]`` from
+    sender ``pub<i % STORM_TASKS>`` (what a rule sees of it depends on
+    the message alone), else ``b"x"`` from its task's sender."""
     from emqx_tpu_torch.broker.message import make_message
 
     nxt = [lo]
@@ -1060,16 +1166,22 @@ async def _storm(ms, broker, topics, lo: int, hi: int,
 
     async def publisher(k: int) -> None:
         sender = f"pub{k}"
+        payload = b"x"
         while nxt[0] < hi:
-            topic = topics[nxt[0]]
+            i = nxt[0]
+            topic = topics[i]
             nxt[0] += 1
+            if payloads is not None:
+                payload = payloads[i]
+                sender = f"pub{i % STORM_TASKS}"
             t0 = time.perf_counter()
             if ms is not None:
                 await ms.prefetch(topic, qos=0)
             # the result is not held across the yield, as a connection
             # does not hold it: 2048 of them would outlive the young
             # collections and load the full ones
-            matched = broker.publish(make_message(sender, topic, b"x")).matched
+            matched = broker.publish(
+                make_message(sender, topic, payload)).matched
             lat.append(time.perf_counter() - t0)
             delivered[0] += matched
             await asyncio.sleep(0)
@@ -1175,11 +1287,12 @@ def _storm_line(res: Dict, lat: List[float], n: int, gcp, ms, m0, m1,
                "full_ms": gcp.pause_ms[2]}}
 
 
-async def _busy_storm(torch, device, ms, broker, topics, lo, hi) -> Dict:
+async def _busy_storm(torch, device, ms, broker, topics, lo, hi,
+                      payloads=None) -> Dict:
     """Device busy share of the card over a storm of ``topics[lo:hi]``
     (``torch.profiler``); not measured on the CPU."""
-    out = await _busy(torch, device,
-                      lambda: _storm(ms, broker, topics, lo, hi, []))
+    out = await _busy(torch, device, lambda: _storm(
+        ms, broker, topics, lo, hi, [], payloads))
     out["publishes"] = hi - lo
     return out
 
@@ -1223,19 +1336,27 @@ async def _start_node_service(torch, device, broker, metrics, backend,
 
 
 async def _node_storms(torch, device, ms, broker, metrics, topics, card,
-                       churn, storm_batches: int, name: str):
-    """Warm-up and the timed storm (with ``churn`` running beside it)
-    through ``ms``.  Returns its line and the checks of ``slice_node``
-    that failed.  ``join_rebuilds`` counts the relation rebuilds the
-    churn caused (each sorted and uploaded on the sync thread while the
-    loop serves; ``batch_ms.max`` would show a stall)."""
+                       churn, storm_batches: int, name: str,
+                       payloads=None, warm: bool = True,
+                       before_timed=None):
+    """Warm-up (unless ``warm`` is false) and the timed storm (with
+    ``churn`` running beside it) through ``ms``, with ``payloads`` (see
+    :func:`_storm`); ``before_timed()`` runs just before the timed
+    storm's counts are zeroed.  Returns its line and the checks of
+    ``slice_node`` that failed.  ``join_rebuilds`` counts the relation
+    rebuilds the churn caused (each sorted and uploaded on the sync
+    thread while the loop serves; ``batch_ms.max`` would show a
+    stall)."""
     from emqx_tpu_torch.ops import walk_kernel
 
     check = _RouteLog(ms, broker.router)
     broker.device_match = check
     warm_hi = WARM_STORM * BATCH
     hi = warm_hi + storm_batches * BATCH
-    await _storm(ms, broker, topics, 0, warm_hi, [])
+    if warm:
+        await _storm(ms, broker, topics, 0, warm_hi, [], payloads)
+    if before_timed is not None:
+        before_timed()
     # -- the main path: counts zeroed just before, read just after -------
     walk_kernel.launches = 0
     walk_kernel.join_launches = 0
@@ -1247,7 +1368,7 @@ async def _node_storms(torch, device, ms, broker, metrics, topics, card,
     gc.collect()
     with GcPauses() as pauses:
         storm = asyncio.ensure_future(
-            _storm(ms, broker, topics, warm_hi, hi, lat))
+            _storm(ms, broker, topics, warm_hi, hi, lat, payloads))
         churned = await _broker_churn(ms, broker, *churn) if churn else None
         res = await storm
     m1 = metrics.all()
@@ -1812,10 +1933,389 @@ async def _slice_node(torch, device, n_filters, card, storm_batches):
                 out[name] = got["launches"]
         finally:
             fan_log.removeHandler(logs)
+        # the rule engine co-batched on the card, then on the host; last,
+        # since its hooks stay on the broker
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out["rules"] = _rule_set()
+        out.update(await _rule_storms(torch, device, broker, metrics, topics,
+                                      card, storm_batches, logs,
+                                      out["rules"]))
         return out
     finally:
         svc_log.removeHandler(logs)
         gc.unfreeze()       # the services froze the started heap
+
+
+# -- the rule engine on the card: BASELINE config 3's co-batched rules ---------
+
+def _rule_set() -> List[tuple]:
+    """``RULES`` rules ``(id, FROM filters, WHERE threshold)``.  The
+    filters are the workload generator's (45% ``+``, 30% ``#``, 2-8
+    levels) with ``RULE_SEED``: its hot filters are the 1M broker's too,
+    so about half are also routing filters and share their accept id."""
+    from emqx_tpu_torch.workload import build_workload
+
+    rng = np.random.default_rng(RULE_SEED)
+    pool, _ = build_workload(np.random.default_rng(RULE_SEED),
+                             RULES + RULES // 10, 0)
+    pool = [pool[int(i)] for i in rng.permutation(len(pool))]
+    rules, k = [], 0
+    for i in range(RULES):
+        n = 2 if i % 10 == 9 else 1
+        rules.append((f"r{i:04d}", pool[k:k + n],
+                      int(rng.integers(10, 40))))
+        k += n
+    return rules
+
+
+def _rule_sql(froms: List[str], threshold: int) -> str:
+    """The EMQX documentation's form.  The WHERE reads the payload's
+    field: the reference's runtime evaluates WHERE over the event's
+    columns, where a SELECT alias is not bound."""
+    src = ", ".join(json.dumps(f) for f in froms)
+    return (f"SELECT clientid, topic, payload.temp AS t FROM {src} "
+            f"WHERE payload.temp > {threshold}")
+
+
+def _rule_payloads(n: int) -> List[bytes]:
+    """A JSON object with a seeded ``temp`` for each publish of the
+    stream: the WHERE thresholds (10-39) pass and fail."""
+    temps = np.random.default_rng(RULE_SEED + 1).integers(0, 50, size=n)
+    return [b'{"temp": %d, "unit": "C"}' % t for t in temps.tolist()]
+
+
+class _RuleOracle:
+    """The rule ids whose FROM filters match a topic, by the host trie."""
+
+    def __init__(self, rules) -> None:
+        from emqx_tpu_torch.broker.trie import FilterTrie
+
+        self.trie = FilterTrie()
+        self.by_filter: Dict[str, List[str]] = {}
+        for rid, froms, _thr in rules:
+            for f in froms:
+                if f not in self.by_filter:
+                    self.trie.insert(f)
+                self.by_filter.setdefault(f, []).append(rid)
+
+    def __call__(self, topic: str) -> List[str]:
+        return sorted({rid for f in self.trie.match(topic)
+                       for rid in self.by_filter[f]})
+
+
+class _RuleHintLog:
+    """The service's ``hint_rules`` for the rule engine, logging each
+    rule-id list it returns (as one string) for the check after the
+    storm, and counting the publishes it left to the host."""
+
+    def __init__(self, ms) -> None:
+        self.inner = ms.hint_rules
+        self.reset()
+
+    def reset(self) -> None:
+        self.topics: List[str] = []
+        self.keys: List[str] = []
+        self.calls = self.none = 0
+
+    def __call__(self, topic: str):
+        self.calls += 1
+        ids = self.inner(topic)
+        if ids is None:
+            self.none += 1
+        else:
+            self.topics.append(topic)
+            self.keys.append("\n".join(sorted(ids)))
+        return ids
+
+
+async def _rule_storms(torch, device, broker, metrics, topics, card,
+                       storm_batches: int, logs, rules) -> Dict:
+    """``slice_node_rules`` and ``slice_node_rules_host`` on the 1M
+    broker: the port's ``RuleEngine`` with ``rules`` attached to a fresh
+    node-default hash service (``attach_match_service`` co-batches the
+    FROM filters into the walk's table), the slice_node storm with JSON
+    payloads (rule ids from ``hint_rules``), then the engine detached
+    from the service (rule ids from the engine's host trie of the rule
+    filters) over the same timed publishes.  Every hinted rule-id list is held to
+    the host trie of the rule filters, and each rule's counters, the
+    outputs its action recorded and the republished messages the sink
+    received must be equal on both storms."""
+    from collections import Counter
+
+    from emqx_tpu_torch.rule_engine import RuleEngine
+
+    t_start = time.perf_counter()
+    payloads = _rule_payloads(len(topics))
+    outs: List[tuple] = []
+    sink: Counter = Counter()
+    broker.open_session(RULE_SINK)
+    broker.subscribe(RULE_SINK, "rules/alert/#")
+    inner_deliver = broker.on_deliver
+
+    def on_deliver(cid, pubs) -> None:
+        if cid == RULE_SINK:
+            for p in pubs:
+                sink[(p.msg.topic, p.msg.payload)] += 1
+        inner_deliver(cid, pubs)
+    broker.on_deliver = on_deliver
+    engine = RuleEngine(broker)
+    timed = slice(WARM_STORM * BATCH, (WARM_STORM + storm_batches) * BATCH)
+    n = timed.stop - timed.start
+    oracle = _RuleOracle(rules)
+    hits = Counter(rid for t in topics[timed] for rid in oracle(t))
+    ranked = sorted((rid for rid, _f, _t in rules),
+                    key=lambda rid: (-hits[rid], rid))
+    republishers = set(ranked[RULE_REPUBLISH_RANK:
+                              RULE_REPUBLISH_RANK + RULE_REPUBLISH])
+    t0 = time.perf_counter()
+    for rid, froms, thr in rules:
+        acts = [lambda out, cols, rid=rid: outs.append(
+            (rid, out["clientid"], out["topic"], out["t"]))]
+        if rid in republishers:
+            acts.insert(0, {"function": "republish", "args": {
+                "topic": f"rules/alert/{rid}", "payload": "${t}"}})
+        engine.create_rule(rid, _rule_sql(froms, thr), actions=acts)
+    create_s = time.perf_counter() - t0
+    logs.reset()
+    ms, ready_s = await _start_node_service(torch, device, broker, metrics,
+                                            "hash")
+    n_filters0 = ms.inc.n_filters
+    t0 = time.perf_counter()
+    engine.attach_match_service(ms)
+    while not (ms._synced_rule_gen == ms._rule_gen
+               and ms._synced_epoch == broker.router.epoch):
+        _check(time.perf_counter() - t0 < 120, "the rules never synced")
+        await asyncio.sleep(0.005)
+    register_s = time.perf_counter() - t0
+    hint_log = _RuleHintLog(ms)
+    ms.hint_rules = hint_log
+
+    def reset() -> None:
+        outs.clear()
+        sink.clear()
+        hint_log.reset()
+        for r in engine.rules.values():
+            for k in r.metrics:
+                r.metrics[k] = 0
+
+    def snapshot() -> Dict:
+        return {"metrics": {rid: dict(r.metrics)
+                            for rid, r in engine.rules.items()},
+                "outs": Counter(outs), "sink": Counter(sink)}
+
+    def rule_numbers(n: int) -> Dict:
+        tot = Counter()
+        for r in engine.rules.values():
+            tot.update(r.metrics)
+        return {"rules_matched_per_publish": tot["matched"] / n,
+                "rules_passed_per_publish": tot["passed"] / n,
+                "outputs": len(outs), "republished_delivered":
+                    sum(sink.values()), "counters": dict(tot)}
+
+    out = {}
+    try:
+        # -- device: rule ids from the walk's hints -----------------------
+        add, drop, _hit = _node_churn(broker, (), RULE_CHURN_SEED, ())
+        line, failed = await _node_storms(
+            torch, device, ms, broker, metrics, topics, card, (add, drop),
+            storm_batches, "slice_node_rules", payloads=payloads,
+            before_timed=reset)
+        dev = snapshot()
+        t0 = time.perf_counter()
+        bad = sum(key != "\n".join(oracle(t))
+                  for t, key in zip(hint_log.topics, hint_log.keys))
+        want_sink = Counter((f"rules/alert/{rid}", str(t).encode())
+                            for rid, _c, _t, t in outs
+                            if rid in republishers)
+        line.update({
+            "rules": len(engine.rules), "rule_filters": len(oracle.by_filter),
+            "rule_filters_routing_too": sum(
+                ms._filter_of[ms._aid(f)] is not None
+                for f in oracle.by_filter),
+            "table_filters_before_rules": n_filters0,
+            "table_filters_with_rules": ms.inc.n_filters,
+            "create_s": create_s, "register_and_sync_s": register_s,
+            "start_to_ready_s": ready_s,
+            "hint_rules": {"calls": hint_log.calls,
+                           "served": len(hint_log.topics),
+                           "host_matched": hint_log.none,
+                           "served_share": len(hint_log.topics)
+                           / max(1, hint_log.calls),
+                           "host_share": hint_log.none
+                           / max(1, hint_log.calls)},
+            "rule_id_mismatches": bad,
+            "rule_ids_checked": len(hint_log.topics),
+            "rule_check_s": time.perf_counter() - t0,
+            "republish_rules": {rid: hits[rid]
+                                for rid in sorted(republishers)},
+            **rule_numbers(n)})
+        failed += [what for ok, what in (
+            (bad == 0, f"{bad} hinted rule-id lists differ from the host "
+             "trie of the rule filters"),
+            (sink == want_sink, "the sink did not receive every "
+             "republished message exactly once"),
+            (line["outputs"] > 0 and line["republished_delivered"] > 0,
+             "no rule passed or no republish reached the sink"))
+            if not ok]
+        if device.type == "cuda":
+            failed += [what for ok, what in (
+                (len(hint_log.topics) >= n / 2,
+                 f"hint_rules served {len(hint_log.topics)} of {n} "
+                 "publishes"),) if not ok]
+        failed += _log_checks(logs)
+        busy = slice(timed.stop, timed.stop + BUSY_BATCHES * BATCH)
+        check = _RouteLog(ms, broker.router)
+        broker.device_match = check
+        line["device_busy"] = await _busy_storm(
+            torch, device, ms, broker, topics, busy.start, busy.stop,
+            payloads)
+        if _verify_routes(broker.router, check):
+            failed.append("device routes differ from the router in the "
+                          "profiled storm")
+        line["wall_s"] = time.perf_counter() - t_start
+        _emit_checked(line, failed)
+        out["node_rules"] = (line["kernel_launches"],
+                             line["join_kernel_launches"])
+        # -- host: the engine detached, its rules found on the host.  No
+        # churn beside it: it compares the rules' matching alone, and the
+        # routes' half is slice_node_rules' ----------------------------
+        t1 = time.perf_counter()
+        logs.reset()
+        engine._match_service = None
+        host, failed = await _node_storms(
+            torch, device, ms, broker, metrics, topics, card, None,
+            storm_batches, "slice_node_rules_host", payloads=payloads,
+            warm=False, before_timed=reset)
+        got = snapshot()
+        diff = [rid for rid in engine.rules
+                if got["metrics"][rid] != dev["metrics"][rid]]
+        host.update({
+            "warm_up": "none (the routes' hints are warm from "
+                       "slice_node_rules; the rules run on the host)",
+            "churn": "none: the rules' matching alone is compared",
+            "hint_rules": {"calls": hint_log.calls},
+            "rules_with_other_counters": len(diff),
+            "outputs_equal": got["outs"] == dev["outs"],
+            "sink_equal": got["sink"] == dev["sink"],
+            "publishes_per_s_vs_device": host["publishes_per_s"]
+            / line["publishes_per_s"], **rule_numbers(n)})
+        failed += [what for ok, what in (
+            (not diff, f"{len(diff)} rules' counters differ from "
+             f"slice_node_rules' (first {diff[:3]})"),
+            (host["outputs_equal"], "the recorded outputs differ from "
+             "slice_node_rules'"),
+            (host["sink_equal"], "the republished messages differ from "
+             "slice_node_rules'"),
+            (hint_log.calls == 0, "the detached engine asked the service"))
+            if not ok]
+        failed += _log_checks(logs)
+        busy = slice(timed.stop, timed.stop + RULE_HOST_BUSY * BATCH)
+        check = _RouteLog(ms, broker.router)
+        broker.device_match = check
+        host["device_busy"] = await _busy_storm(
+            torch, device, ms, broker, topics, busy.start, busy.stop,
+            payloads)
+        if _verify_routes(broker.router, check):
+            failed.append("device routes differ from the router in the "
+                          "profiled storm")
+        host["wall_s"] = time.perf_counter() - t1
+        _emit_checked(host, failed)
+        out["node_rules_host"] = (host["kernel_launches"],
+                                  host["join_kernel_launches"])
+        return out
+    finally:
+        await ms.stop()
+        broker.device_match = None
+        broker.on_deliver = inner_deliver
+
+
+def phase_acl_batch(torch, device, card: str) -> Dict:
+    """``acl_batch``: ``ACL_RULES`` static ACL rules (the workload
+    generator's filters with ``ACL_SEED``, a seeded permission and
+    action each, a tenth of them ``eq`` literals; the first
+    ``ACL_RULES - ACL_DB_RULES`` in a ``FileSource``, the rest as the
+    global rows of a ``BuiltinDbSource`` with no per-client rows),
+    compiled by ``compile_acl_batch``; ``batch_authorize`` walks
+    ``ACL_BATCHES`` batches of 2048 Zipfian topics on the card for
+    ``publish`` and for ``subscribe``, and every verdict must equal the
+    host ``Authz`` pipeline's."""
+    from emqx_tpu_torch.auth import (AclRule, Authz, BuiltinDbSource,
+                                     FileSource, batch_authorize,
+                                     compile_acl_batch)
+    from emqx_tpu_torch.ops import walk_kernel
+    from emqx_tpu_torch.workload import build_workload
+
+    t_start = time.perf_counter()
+    filters, topics = build_workload(np.random.default_rng(ACL_SEED),
+                                     ACL_RULES, ACL_BATCHES * BATCH)
+    rng = np.random.default_rng(ACL_SEED + 1)
+    rules = []
+    for k, f in enumerate(filters):
+        pat = f
+        if k % 10 == 5:     # a literal: one of the stream's topics
+            pat = "eq " + topics[int(rng.integers(len(topics)))]
+        rules.append(AclRule(("allow", "deny")[int(rng.integers(2))],
+                             ("publish", "subscribe", "all")[
+                                 int(rng.integers(3))], [pat]))
+    rng.shuffle(rules)
+    db = BuiltinDbSource()
+    db.set_rules(rules[ACL_RULES - ACL_DB_RULES:])
+    sources = [FileSource(rules[:ACL_RULES - ACL_DB_RULES]), db]
+    t0 = time.perf_counter()
+    table, index = compile_acl_batch(sources)
+    compile_s = time.perf_counter() - t0
+    _check(table is not None, "the static ACL did not compile")
+    line = {"phase": "acl_batch", "ok": True, "card": card,
+            "acl_rules": len(rules), "patterns": len(index),
+            "table_states": table.n_states, "table_S": table.S,
+            "table_Hb": table.Hb, "compile_s": compile_s, "actions": {}}
+    total_launches = total_join = total_bad = 0
+    for action in ("publish", "subscribe"):
+        no_match = "deny" if action == "publish" else "allow"
+        gc.collect()    # no pause of the earlier phases' garbage in it
+        # -- the main path: counts zeroed just before, read just after ---
+        walk_kernel.launches = 0
+        walk_kernel.join_launches = 0
+        got: List[bool] = []
+        t0 = time.perf_counter()
+        for i in range(ACL_BATCHES):
+            got += batch_authorize(table, index,
+                                   topics[i * BATCH:(i + 1) * BATCH],
+                                   action, no_match=no_match, device=device)
+        card_s = time.perf_counter() - t0
+        launches = walk_kernel.launches
+        join_launches = walk_kernel.join_launches
+        # -----------------------------------------------------------------
+        az = Authz(sources, no_match=no_match, cache_max_size=1 << 16)
+        t0 = time.perf_counter()
+        want = [az.authorize("c", action, t) for t in topics]
+        host_s = time.perf_counter() - t0
+        bad = sum(g != w for g, w in zip(got, want))
+        total_bad += bad
+        total_launches += launches
+        total_join += join_launches
+        line["actions"][action] = {
+            "no_match": no_match, "topics": len(topics),
+            "allowed": sum(got), "denied": len(got) - sum(got),
+            "verdict_mismatches": bad, "kernel_launches": launches,
+            "join_kernel_launches": join_launches,
+            "batch_authorize_ms_per_batch": card_s / ACL_BATCHES * 1e3,
+            "host_authz_us_per_topic": host_s / len(topics) * 1e6,
+            "host_authz_metrics": dict(az.metrics)}
+        _check(bad == 0, f"{bad} {action} verdicts differ from host Authz")
+        _check(0 < sum(got) < len(got), f"{action}: one verdict for all")
+        if device.type == "cuda":
+            _check(launches == ACL_BATCHES and join_launches == 0,
+                   f"{action}: {launches} walk launches for "
+                   f"{ACL_BATCHES} batches")
+    line.update(kernel_launches=total_launches,
+                join_kernel_launches=total_join,
+                verdict_mismatches=total_bad,
+                wall_s=time.perf_counter() - t_start)
+    emit(line)
+    return {"launches": total_launches, "join_launches": total_join}
 
 
 # -- the MQTT front door: BrokerNode over TCP ---------------------------------
@@ -2803,12 +3303,12 @@ def _kernel_entry(backend: str, launches: Dict[str, int], max_err: int,
 
 
 def _native_build() -> Dict[str, float]:
-    """``g++`` of the native table and encoder (seconds each; 0.0 when
-    already built)."""
+    """``g++`` of the native table, the encoder and the rule runtime's
+    JSON extractor (seconds each; 0.0 when already built)."""
     from emqx_tpu_torch.native import build
 
     took = {}
-    for name in ("nfa", "encoder"):
+    for name in ("nfa", "encoder", "fastjson"):
         t0 = time.perf_counter()
         fresh = not build._lib_path(name).exists()
         build.load_library(name)
@@ -2917,11 +3417,18 @@ def main(argv=None) -> int:
         for name in ("slice_node_fanout", "slice_node_pipeline"):
             path = name[len("slice_"):]
             launches["hash"][path], launches["join"][path] = node[name]
+        for path in ("node_rules", "node_rules_host"):
+            launches["hash"][path], launches["join"][path] = node[path]
+        rules = node["rules"]
         node = None
         gc.collect()
+        phase = "acl_batch"
+        acl = phase_acl_batch(torch, device, card)
+        launches["hash"]["acl_batch"] = acl["launches"]
+        launches["join"]["acl_batch"] = acl["join_launches"]
         phase = "slice_mqtt"
         mqtt = phase_slice_mqtt(torch, device, args.filters, card,
-                                args.storm_batches, args.mqtt_clients)
+                                MQTT_STORM, args.mqtt_clients)
         for name in ("slice_mqtt", "slice_mqtt_fanout"):
             path = name[len("slice_"):]
             launches["hash"][path], launches["join"][path] = mqtt[name]
@@ -2930,10 +3437,12 @@ def main(argv=None) -> int:
         phase = "slice_10m_build"
         big = phase_10m_build(torch, device, args.large_filters)
         phase = "slice_10m"
-        s = phase_10m(torch, device, big)
+        s = phase_10m(torch, device, big, rules)
         big = None      # the filter list and the oracle go
         launches["hash"]["10m"] = s["launches"]
         launches["join"]["10m"] = s["join_launches"]
+        launches["hash"]["10m_rules"] = s["rule_launches"]
+        launches["join"]["10m_rules"] = s["rule_join_launches"]
         phase = "times_10m"
         shapes_10m, _ = phase_times(torch, device, s, card, name="times_10m",
                                     timed=args.timed_batches // 5)

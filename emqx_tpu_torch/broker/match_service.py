@@ -709,7 +709,13 @@ class MatchService:
     def serve(self, topics: Sequence[str]) -> List[List[str]]:
         """Matching routing filters for each topic, in batches of at most
         ``max_batch`` topics."""
-        out: List[List[str]] = []
+        return [filters for filters, _rules in self.serve_split(topics)]
+
+    def serve_split(self, topics: Sequence[str]
+                    ) -> List[Tuple[List[str], List[str]]]:
+        """:meth:`serve` with the co-batched rules: ``(routing filters,
+        sorted rule ids)`` for each topic, from the same walks."""
+        out: List[Tuple[List[str], List[str]]] = []
         for lo in range(0, len(topics), self.max_batch):
             batch = list(topics[lo:lo + self.max_batch])
             self._topic_sample.extend(batch[:8])
@@ -717,7 +723,7 @@ class MatchService:
             results, _nbytes, _trips = self._readback_groups(
                 self._encode_dispatch(batch, groups))
             rows = self._collect_rows(batch, groups, results)
-            out.extend(self._split_row(row)[0] for row in rows)
+            out.extend(map(self._split_row, rows))
             self._autotune_queued()
         return out
 

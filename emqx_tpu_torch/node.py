@@ -6,25 +6,33 @@ counters, stats and alarms, the supervision tree, overload protection
 with its loop-lag probe, the retainer and the delayed publish, the stage
 histograms and the flight recorder, the limiter, the TCP listener with
 the protocol-mode fast path (and the stream path when ``fast_path`` is
-off), the match service on the card with the publish prefetch, and the
-batched fanout with its timer wheel when ``broker.fanout.enable`` is set.
+off), the match service on the card with the publish prefetch, the
+batched fanout with its timer wheel when ``broker.fanout.enable`` is set,
+the rule engine (``rule_engine/``, attached to the started match service
+so that rule selection rides the walk on the card) and access control
+(``auth/``: the authn chain and the authz sources on the broker's
+``client.authenticate`` / ``client.authorize`` hooks, when the caller
+passes ``auth_chain`` or ``authz``, or on :meth:`ensure_access_control`).
 Boot order is the reference's (core workers, then services, the match
 service and the fanout, listeners last); stop order is the reverse.
 
-``BrokerNode(config, device=None)`` serves its match service on the card
-unless ``device`` names another (``"cpu"`` runs the kernels' plain
-versions).  Where the reference logs a match service that cannot start
-and serves from the host trie, :meth:`BrokerNode.start` raises.
+``BrokerNode(config, auth_chain=None, authz=None, device=None)`` serves
+its match service on the card unless ``device`` names another (``"cpu"``
+runs the kernels' plain versions).  Where the reference logs a match
+service that cannot start and serves from the host trie,
+:meth:`BrokerNode.start` raises.
 
-The subsystems the port does not have yet (auth backends, the rule
-engine, bridges, cluster, exhook, management and dashboard, gateways,
+The subsystems the port does not have yet (the network-backed auth
+backends, bridges, cluster, exhook, management and dashboard, gateways,
 QUIC, TLS and WebSocket listeners, connection shards, admission,
 persistence, statsd and telemetry, slow_subs, topic metrics, ``$SYS``
 publishing, banned and flapping, rewrite and auto-subscribe) are left
 out.  At their defaults the reference's are inert for a client of this
 node, apart from ``$SYS``; a config that sets one of their keys
 (:data:`UNPORTED_KEYS`) away from its default makes the constructor
-raise NotImplementedError.
+raise NotImplementedError.  With no bridges, a rule's
+``"<type>:<name>"`` action fails (counted in ``actions.failed``), as on
+a reference node with no such bridge.
 """
 
 from __future__ import annotations
@@ -37,6 +45,9 @@ from typing import Any, Dict, List, Optional, Union
 import torch
 
 from . import __version__
+from .auth.access_control import attach_auth
+from .auth.authn import AuthChain
+from .auth.authz import Authz
 from .broker.broker import Broker
 from .broker.channel import Channel
 from .broker.cm import ConnectionManager
@@ -47,6 +58,7 @@ from .mqtt import packet as P
 from .observe.flightrec import FlightRecorder
 from .observe.hist import HistSet
 from .observe.wiring import observe
+from .rule_engine.engine import RuleEngine
 from .services.delayed import DelayedPublish
 from .services.retainer import Retainer
 from .supervise import Supervisor
@@ -62,8 +74,6 @@ __all__ = ["BrokerNode", "UNPORTED_KEYS"]
 UNPORTED_KEYS = {
     "admission.": "the admission plane",
     "api_key.": "the management API",
-    "authn.": "the auth backends",
-    "authz.": "the auth backends",
     "broker.conn.shards": "connection shards",
     "broker.sys_msg_interval": "$SYS publishing",
     "cluster.": "the cluster",
@@ -101,7 +111,9 @@ class BrokerNode:
     fanout, the listeners and the periodic jobs.
     """
 
-    def __init__(self, config: Optional[Config] = None, *,
+    def __init__(self, config: Optional[Config] = None,
+                 auth_chain: Optional[AuthChain] = None,
+                 authz: Optional[Authz] = None, *,
                  device: Union[None, str, torch.device] = None) -> None:
         self.config = config if config is not None else Config()
         cfg = self.config
@@ -168,6 +180,12 @@ class BrokerNode:
             if cfg.get("delayed.enable")
             else None
         )
+        # the rule engine taps message.publish and the lifecycle hooks
+        # now; _start_match_service co-batches its FROM filters
+        self.rule_engine = RuleEngine(self.broker)
+        self.access_control = None
+        if auth_chain is not None or authz is not None:
+            self.ensure_access_control(auth_chain, authz)
         # stage-level latency observatory: the histogram set (None: every
         # recording site is one attribute test) and the always-on flight
         # recorder, dumping into ./trace (the reference's trace dir at
@@ -315,6 +333,23 @@ class BrokerNode:
     # connection plumbing
     # ------------------------------------------------------------------
 
+    def ensure_access_control(self, chain: Optional[AuthChain] = None,
+                              authz: Optional[Authz] = None):
+        """Attach access control on first use, with ``chain`` and
+        ``authz`` or, for either not given, an empty one configured by
+        ``authn.allow_anonymous`` / ``authz.no_match`` (a node that
+        booted with no auth gets a live chain and pipeline); return it."""
+        if self.access_control is None:
+            cfg = self.config
+            self.access_control = attach_auth(
+                self.broker,
+                chain if chain is not None else AuthChain(
+                    allow_anonymous=cfg.get("authn.allow_anonymous")),
+                authz if authz is not None else Authz(
+                    no_match=cfg.get("authz.no_match")),
+            )
+        return self.access_control
+
     def make_channel(self, conninfo: Optional[dict] = None) -> Channel:
         cfg = self.config
         return Channel(
@@ -327,7 +362,11 @@ class BrokerNode:
         )
 
     def _wants_intercept(self) -> bool:
-        return self.match_service is not None
+        return (
+            self.match_service is not None
+            or (self.access_control is not None
+                and self.access_control.needs_async())
+        )
 
     def _register_on_connect(self, channel, conn) -> None:
         """Wrap handle_in so that the clientid -> connection registry
@@ -430,14 +469,44 @@ class BrokerNode:
     async def _intercept(self, channel, pkt):
         """The async stage before handle_in: the match prefetch, which
         micro-batches concurrent publishes into one walk on the card
-        (Broker.publish consumes the hint).  With the fanout on, its
-        drain prefetches each batch at once instead."""
+        (Broker.publish consumes the hint; with the fanout on, its drain
+        prefetches each batch at once instead), then the pre-resolution
+        of async auth backends.  No ported backend is async
+        (``needs_async()`` is false), so the second step runs only for a
+        backend a caller adds that has ``authenticate_async`` or
+        ``prefetch_async``."""
         if self.match_service is not None and pkt.type == P.PUBLISH \
                 and self.broker.fanout is None:
             try:
                 await self.match_service.prefetch(pkt.topic, qos=pkt.qos)
             except Exception:
                 log.exception("match prefetch failed (host path serves)")
+        ac = self.access_control
+        if ac is not None and ac.needs_async():
+            # resolve async backends off the sync hook fold: the verdicts
+            # park in the backends and the fold consumes them
+            try:
+                if pkt.type == P.CONNECT:
+                    # enhanced-auth CONNECTs never run the authn chain
+                    if not (pkt.proto_ver == 5 and pkt.properties.get(
+                            "Authentication-Method")):
+                        await ac.preauthenticate(channel, pkt)
+                elif pkt.type == P.PUBLISH:
+                    # a topic-alias publish carries an empty topic: the
+                    # channel's alias map gives the one it authorizes
+                    topic = channel.peek_topic(pkt)
+                    if topic:
+                        await ac.preauthorize(
+                            channel.clientid, "publish", topic, pkt.qos)
+                elif pkt.type == P.SUBSCRIBE:
+                    # no subscribe rewrite in the port: the channel
+                    # authorizes the filters as sent
+                    for flt, opts in pkt.topic_filters:
+                        await ac.preauthorize(
+                            channel.clientid, "subscribe", flt,
+                            opts.get("qos", 0))
+            except Exception:
+                log.exception("async auth pre-resolution failed")
         return None
 
     async def start(self) -> None:
@@ -539,6 +608,7 @@ class BrokerNode:
             raise
         self.match_service = ms
         self.broker.device_match = ms.hint_routes
+        self.rule_engine.attach_match_service(ms)
 
     @staticmethod
     async def _await_ready(ms, timeout: float) -> None:
@@ -650,13 +720,21 @@ class BrokerNode:
 
     def info(self) -> dict:
         """The reference's ``info()`` keys for the subsystems this node
-        has; those of the subsystems it leaves out are absent."""
+        has; those of the subsystems it leaves out are absent.  ``auth``
+        counts the attached chain's authenticators and sources (the
+        reference counts those created over its management API, which
+        the port does not have)."""
+        ac = self.access_control
         return {
             "node": self.node_name,
             "version": __version__,
             "uptime": time.time() - self.started_at,
             "connections": len(self.connections),
             "listeners": [lst.info() for lst in self.listeners.all()],
+            "rules": len(self.rule_engine.rules),
+            "auth": {"authenticators": len(ac.chain._chain) if ac else 0,
+                     "sources": len(ac.authz.sources) if ac else 0,
+                     "attached": ac is not None},
             "tpu_match": (self.match_service.info()
                           if self.match_service is not None else None),
             "fanout": (self.fanout_pipeline.info()

@@ -16,6 +16,11 @@ shares, picks one of three outputs, written as PyTorch ops:
 
 Everything is int32 and matches the reference bit for bit.
 
+:func:`match_topics` is the reference's end-to-end convenience (encode,
+walk, decode to filter strings) for a stand-alone :class:`NfaTable`:
+the rule engine's ``compile_table`` and the ACL batch path
+(``auth/authz.py`` ``batch_authorize``) run it, one walk a call.
+
 The second phase of the two-phase readback (the reference's XLA
 function K5, :func:`fetch_flat_prefix` and :func:`fetch_flat_ragged`)
 copies the head of the flat buffer into a host buffer.  The reference
@@ -28,17 +33,18 @@ reference's).
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from .compiler import NfaTable, encode_topics
 from .walk_kernel import nfa_walk
 
 __all__ = ["MatchResult", "SERVE_FLAT_MULT", "ROW_META_COUNT_MASK",
            "ROW_META_SPILL_SHIFT", "decode_flat", "decode_row_meta",
            "epilogue", "fetch_flat_prefix", "fetch_flat_ragged",
-           "flat_epilogue", "nfa_match", "ragged_capacity"]
+           "flat_epilogue", "match_topics", "nfa_match", "ragged_capacity"]
 
 #: serving flat-output capacity per padded batch row (ids per topic)
 SERVE_FLAT_MULT = 8
@@ -171,3 +177,33 @@ def nfa_match(words, lens, is_sys, node_tab, edge_tab, seeds, *,
     acc, aover = nfa_walk(words, lens, is_sys, node_tab, edge_tab, seeds,
                           active_slots=active_slots)
     return epilogue(acc, aover, max_matches, compact_output, flat_cap)
+
+
+def match_topics(table: NfaTable, names: Sequence[str],
+                 active_slots: int = 16, max_matches: int = 32, *,
+                 device: Union[None, str, torch.device] = None
+                 ) -> List[List[str]]:
+    """Encode ``names``, walk them through ``table`` in one hash walk on
+    ``device`` (the card unless the caller names another; ``"cpu"`` runs
+    the plain walk) and decode each row to its matching filters, in the
+    compact order.  Raises OverflowError if a row's active set spilled
+    or it matched more than ``max_matches`` filters (callers wanting
+    fail-open use :func:`nfa_match` directly)."""
+    from .device_table import resolve_device
+
+    dev = resolve_device(device)
+    words, lens, is_sys = encode_topics(table, names)
+    ops = [torch.from_numpy(a).to(dev)
+           for a in (words, lens, is_sys, *table.device_arrays())]
+    res = nfa_match(*ops, active_slots=active_slots,
+                    max_matches=max_matches)
+    aover = int(res.active_overflow.sum())
+    mover = int(res.match_overflow.sum())
+    if aover or mover:
+        raise OverflowError(
+            f"match overflow: active={aover} rows>{max_matches}={mover}")
+    matches = res.matches.cpu().numpy()
+    counts = res.n_matches.cpu().numpy()
+    acc = table.accept_filters
+    return [[acc[a] for a in matches[r, :counts[r]]]
+            for r in range(len(names))]

@@ -345,8 +345,13 @@ def test_pipeline_hints_equal_router_under_churn():
 def test_pipeline_slot_wait_keeps_the_loop_responsive():
     """A slot whose walk queues behind ~0.3 s of ``torch.cuda._sleep``:
     its prefetch waits for it, and a heartbeat task on the same loop
-    never waits more than 5 ms between beats (nothing of the pipeline
-    blocks the loop on the card)."""
+    keeps beating through the wait (nothing of the pipeline blocks the
+    loop on the card).  A wait on the card would hold the loop for the
+    rest of the sleep; the chip machine's own scheduling holds a loop
+    with nothing else on it up to ~15 ms between 1 ms beats
+    (``scripts/torch_slot_wait_probe.py``: gaps over 5 ms in half its
+    idle runs, with no step of the service in them), so the bound on a
+    gap sits between the two, at 50 ms."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     filters, topics = build_workload(np.random.default_rng(7), 2000, 512)
@@ -388,7 +393,8 @@ def test_pipeline_slot_wait_keeps_the_loop_responsive():
             await beat
             assert waited > 0.1, "the slot did not wait for the card"
             assert all(ms._hints.get(t) is not None for t in topics[256:])
-            assert max(gaps) < 0.005, max(gaps)
+            assert max(gaps) < 0.05, max(gaps)
+            assert len(gaps) >= 50, len(gaps)
         finally:
             await ms.stop()
             gc.unfreeze()
@@ -540,4 +546,136 @@ def test_node_on_card_delivers_the_host_routes():
         finally:
             await node.stop()
             gc.unfreeze()       # the service froze the started heap
+    asyncio.run(main())
+
+
+# -- the rule engine's and the ACL batch's walks on the card ------------------
+
+def _skip_without_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+
+
+@pytest.mark.cuda
+def test_match_topics_on_card_equals_cpu():
+    """``match_topics`` (encode, one hash walk, decode) of a compiled
+    table: on ``cuda`` it launches the kernel once and gives the plain
+    walk's rows on the CPU, filter for filter."""
+    _skip_without_card()
+    from emqx_tpu_torch.ops import compile_filters, match_topics
+
+    filters, topics = build_workload(np.random.default_rng(3), 3000, 2048)
+    table = compile_filters(filters)
+    walk_kernel.launches = 0
+    got = match_topics(table, topics, max_matches=64, device="cuda")
+    assert walk_kernel.launches == 1
+    assert got == match_topics(table, topics, max_matches=64, device="cpu")
+    assert sum(map(len, got)) > len(topics)
+
+
+@pytest.mark.cuda
+def test_batch_authorize_on_card_equals_host_authz():
+    """1,000 static ACL rules (a ``FileSource`` and a ``BuiltinDbSource``
+    with global rules only), 2,048 topics: every verdict of the walk on
+    the card equals the host ``Authz`` pipeline's, for both actions and
+    both ``no_match`` policies."""
+    _skip_without_card()
+    import random
+
+    from emqx_tpu_torch.auth import (AclRule, Authz, BuiltinDbSource,
+                                     FileSource, batch_authorize,
+                                     compile_acl_batch)
+
+    filters, topics = build_workload(np.random.default_rng(4), 1000, 2048)
+    rng = random.Random(4)
+    rules = [AclRule(rng.choice(["allow", "deny"]),
+                     rng.choice(["publish", "subscribe", "all"]), [f])
+             for f in filters]
+    db = BuiltinDbSource()
+    db.set_rules(rules[900:])
+    sources = [FileSource(rules[:900]), db]
+    table, idx = compile_acl_batch(sources)
+    for action in ("publish", "subscribe"):
+        for no_match in ("allow", "deny"):
+            walk_kernel.launches = 0
+            got = batch_authorize(table, idx, topics, action,
+                                  no_match=no_match, device="cuda")
+            assert walk_kernel.launches == 1
+            az = Authz(sources, no_match=no_match, cache_enable=False)
+            assert got == [az.authorize("c", action, t) for t in topics]
+            assert 0 < sum(got) < len(got)
+
+
+@pytest.mark.cuda
+def test_node_on_card_fires_a_cobatched_rule_from_its_hint():
+    """A ``BrokerNode`` on ``cuda:0`` over TCP: a rule created through
+    ``node.rule_engine`` is co-batched into the walk's table; a QoS 1
+    publish's prefetch walks on the card, the engine takes the rule ids
+    from ``hint_rules`` and the rule republishes to a subscriber
+    (``tpu.match.hint_served`` grows, launches equal dispatches)."""
+    _skip_without_card()
+    from emqx_tpu_torch.client import Client
+    from emqx_tpu_torch.config import Config
+    from emqx_tpu_torch.node import BrokerNode
+
+    async def main():
+        cfg = Config(env={})
+        cfg.put("listeners.tcp.default.bind", "127.0.0.1:0")
+        cfg.put("tpu.bypass_rate", 0.0)
+        node = BrokerNode(cfg)
+        await node.start()
+        try:
+            ms = node.match_service
+            assert ms.dev.device.type == "cuda"
+            hits = []
+            node.rule_engine.create_rule(
+                "hot", 'SELECT payload.temp as t FROM "sensors/+/temp" '
+                "WHERE payload.temp > 30",
+                actions=[{"function": "republish",
+                          "args": {"topic": "alert/${t}", "qos": 1}},
+                         lambda out, cols: hits.append(out["t"])])
+            served = []
+            inner = ms.hint_rules
+
+            def counted(topic):
+                ids = inner(topic)
+                served.append((topic, ids))
+                return ids
+            ms.hint_rules = counted
+            port = node.listeners.all()[0].port
+            sink = Client(clientid="sink", port=port)
+            await sink.connect()
+            await sink.subscribe([("alert/#", 1)])
+            pub = Client(clientid="pub", port=port)
+            await pub.connect()
+            for _ in range(3000):
+                if (ms.ready and ms._synced_epoch == node.broker.router.epoch
+                        and ms._synced_rule_gen == ms._rule_gen):
+                    break
+                await asyncio.sleep(0.01)
+            m = node.observed.metrics
+            h0 = m.get("tpu.match.hint_served")
+            walk_kernel.launches = 0
+            d0 = ms.dispatches
+            for i, temp in enumerate((35, 5, 41)):
+                await pub.publish(f"sensors/k{i}/temp",
+                                  b'{"temp": %d}' % temp, qos=1)
+            got = [await sink.recv(timeout=10) for _ in range(2)]
+            assert sorted(g.topic for g in got) == ["alert/35", "alert/41"]
+            assert hits == [35, 41]
+            # the republished messages were never prefetched: the host
+            # matches the rules for them
+            assert served == [("sensors/k0/temp", ["hot"]),
+                              ("alert/35", None),
+                              ("sensors/k1/temp", ["hot"]),
+                              ("sensors/k2/temp", ["hot"]),
+                              ("alert/41", None)]
+            assert m.get("tpu.match.hint_served") > h0
+            assert ms.dispatches > d0 and walk_kernel.launches == \
+                ms.dispatches - d0
+            await sink.disconnect()
+            await pub.disconnect()
+        finally:
+            await node.stop()
+            gc.unfreeze()
     asyncio.run(main())

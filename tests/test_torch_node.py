@@ -9,10 +9,15 @@ topic, payload, QoS and retain flag, in order; the hints and rule ids the
 service answered; the ``tpu.match.*`` counters the reference case
 asserts) and the two transcripts must be equal.  A counter whose value
 depends on timing (how many batches a window caught) enters as the
-reference case's predicate on it, not as its value.  The reference's
-rule engine has no port yet: where a case creates a rule, the port's
-side registers the rule's FROM filter with its match service directly
-(``register_rule``), which is what the engine does on the reference's.
+reference case's predicate on it, not as its value.  Where a reference
+case creates a rule, the port's side registers the rule's FROM filter
+with its match service directly (``register_rule``, what the engine
+does): these stay the service-level cases.  The rule engine itself runs
+on both nodes in ``rules_and_access_control``: a rule created through
+``node.rule_engine`` republishing to a subscriber, beside an
+``auth_chain`` that refuses a bad password and an ACL that denies a
+publish and a subscription; the intercept's async auth pre-resolution
+runs on both nodes with an async authenticator and source.
 
 A seeded script (connect, subscribe, retained and QoS 0/1/2 publishes,
 ``$delayed/`` publishes, unsubscribe, a ``clean_start=false`` resume)
@@ -25,14 +30,17 @@ construction; ``stop()`` leaves no task and no open socket.
 
 import asyncio
 import dataclasses
+import json
 import random
 
 import pytest
 import torch
 
+import emqx_tpu.auth as ref_auth
+import emqx_tpu_torch.auth as port_auth
 from emqx_tpu import topic as T
 from emqx_tpu.broker.message import make_message as ref_make_message
-from emqx_tpu.client import Client
+from emqx_tpu.client import Client, MqttError
 from emqx_tpu.config import Config as RefConfig
 from emqx_tpu.node import BrokerNode as RefNode
 from emqx_tpu_torch.broker.message import make_message as port_make_message
@@ -57,8 +65,9 @@ async def settle(pred, timeout=30.0, interval=0.02):
     return pred()
 
 
-def make_node(side, tpu=True, **extra):
-    """A node of ``side`` as the reference cases make theirs."""
+def make_node(side, tpu=True, auth=None, **extra):
+    """A node of ``side`` as the reference cases make theirs; ``auth``
+    is an ``(auth_chain, authz)`` pair of the side's package."""
     Config = RefConfig if side == REF else PortConfig
     cfg = Config(file_text='listeners.tcp.default.bind = "127.0.0.1:0"\n')
     cfg.put("tpu.enable", tpu)  # the env layer disables it for the suite
@@ -66,7 +75,10 @@ def make_node(side, tpu=True, **extra):
     cfg.put("tpu.bypass_rate", 0.0)  # pin the device path on for tests
     for k, v in extra.items():
         cfg.put(k, v)
-    return RefNode(cfg) if side == REF else PortNode(cfg, device="cpu")
+    chain, authz = auth or (None, None)
+    if side == REF:
+        return RefNode(cfg, auth_chain=chain, authz=authz)
+    return PortNode(cfg, chain, authz, device="cpu")
 
 
 def sub(b, cid, flt):
@@ -520,6 +532,223 @@ def test_node_e2e_roundtrip_equals_the_reference(fanout_on):
     assert [int(g[1]) for g in out[1]] == list(range(20))
 
 
+# -- the rule engine and access control over TCP -------------------------------
+
+def access(side, allow_anonymous=False, no_match="allow"):
+    """A builtin-DB chain (alice, bob) and an ACL that denies publishes
+    under ``denied/``, of the side's package."""
+    A = ref_auth if side == REF else port_auth
+    db = A.BuiltinDbAuthenticator()
+    db.add_user("alice", b"pw", salt=b"s1")
+    db.add_user("bob", b"pw2", salt=b"s2", is_superuser=True)
+    chain = A.AuthChain(allow_anonymous=allow_anonymous).add(db)
+    authz = A.Authz([A.FileSource([
+        A.AclRule("deny", "publish", ["denied/#"]),
+        A.AclRule("deny", "subscribe", ["secret/#"]),
+        A.AclRule("allow", "all", ["#"])])], no_match=no_match)
+    return chain, authz
+
+
+async def rules_and_access_control(side, fanout_on=False):
+    """A rule created through ``node.rule_engine`` republishing to a
+    subscriber; a bad password refused at CONNECT; an ACL denying a
+    publish and a subscription; the rule's metrics and outputs."""
+    extra = {"broker.fanout.enable": True} if fanout_on else {}
+    node = make_node(side, auth=access(side), **extra)
+    await node.start()
+    port = node.listeners.all()[0].port
+    hits = []
+    try:
+        node.rule_engine.create_rule(
+            "hot", 'SELECT payload.temp as t, clientid FROM '
+            '"sensors/+/temp" WHERE payload.temp > 30',
+            actions=[{"function": "republish",
+                      "args": {"topic": "alert/${clientid}",
+                               "payload": "hot ${t}", "qos": 1}},
+                     lambda out, cols: hits.append(sorted(out.items()))])
+        node.rule_engine.create_rule(
+            "bridge", 'SELECT topic FROM "sensors/#"', actions=["kafka:k"])
+        out = []
+        bad = Client(clientid="bad", port=port, username="alice",
+                     password=b"nope")
+        try:
+            await bad.connect()
+            out.append("connected")
+        except MqttError as e:
+            out.append(str(e))
+        sink = Client(clientid="sink", port=port, username="alice",
+                      password=b"pw", proto_ver=5)
+        await sink.connect()
+        out.append(await sink.subscribe([("alert/#", 1), ("secret/x", 0)]))
+        assert await settle(lambda: ms_synced(node))
+        pub = Client(clientid="pub", port=port, username="alice",
+                     password=b"pw", proto_ver=5)
+        root = Client(clientid="root", port=port, username="bob",
+                      password=b"pw2", proto_ver=5)
+        await pub.connect()
+        await root.connect()
+        for cl, topic, temp in ((pub, "sensors/k1/temp", 35),
+                                (pub, "sensors/k2/temp", 5),
+                                (pub, "denied/x", 50),
+                                (root, "denied/y", 50),
+                                (pub, "sensors/k3/temp", 41)):
+            out.append(await cl.publish(
+                topic, json.dumps({"temp": temp}).encode(), qos=1))
+        assert await settle(lambda: sink.messages.qsize() >= 2)
+        await asyncio.sleep(0.05)   # nothing more arrives
+        out.append(received(sink))
+        out.append(hits)
+        out.append({rid: dict(r.metrics)
+                    for rid, r in node.rule_engine.rules.items()})
+        info = node.info()
+        out.append((info["rules"], info["auth"]["attached"]))
+        out.append(node.observed.metrics.get("tpu.match.hint_served") >= 1)
+        for cl in (sink, pub, root):
+            await cl.disconnect()
+        return out
+    finally:
+        await node.stop()
+
+
+@pytest.mark.parametrize("fanout_on", [False, True])
+def test_rules_and_access_control_equal_the_reference(fanout_on):
+    out = play(rules_and_access_control, fanout_on=fanout_on)
+    # the fanout acks at the offer, before the match
+    ok = 0 if fanout_on else 0x10       # success / no matching subscribers
+    not_authorized = 0x87
+    assert out[0] == "CONNACK refused rc=4"    # 3.1.1: bad user or password
+    assert out[1] == [1, not_authorized]
+    assert out[2:7] == [ok, ok, not_authorized, ok, ok]
+    assert [m[0] for m in out[7]] == ["alert/pub", "alert/pub"]
+    assert out[9]["hot"]["passed"] == 2 and out[9]["hot"]["no_result"] == 1
+    assert out[9]["bridge"]["actions.failed"] == 3
+    assert out[10] == (2, True) and out[11] is True
+
+
+def test_rules_ride_the_match_service_hints():
+    """On the port's node the rule engine is attached to the started
+    service: its publish rules sit in the walk's table, and a publish's
+    rule selection comes from ``hint_rules``."""
+    async def main():
+        node = make_node(PORT)
+        await node.start()
+        try:
+            ms = node.match_service
+            assert node.rule_engine._match_service is ms
+            node.rule_engine.create_rule("r", 'SELECT topic FROM "k/+"')
+            served = []
+            inner = ms.hint_rules
+
+            def counted(topic):
+                ids = inner(topic)
+                served.append(ids)
+                return ids
+            ms.hint_rules = counted
+            sub(node.broker, "c", "k/#")
+            assert await settle(lambda: ms_synced(node)
+                                and ms._synced_rule_gen == ms._rule_gen)
+            await ms.prefetch("k/1")
+            node.broker.publish(port_make_message("p", "k/1", b"{}"))
+            assert served == [["r"]]
+            assert node.rule_engine.rules["r"].metrics["matched"] == 1
+            assert ms._rule_refs == {"r": {"k/+": 1}}
+            node.rule_engine.set_enable("r", False)
+            assert ms._rule_refs == {}
+        finally:
+            await node.stop()
+
+    run(main())
+
+
+def test_auth_keys_are_honoured():
+    """The ``authn.*`` / ``authz.*`` keys no longer raise: a node built
+    with them and no chain has no access control (as the reference's),
+    and ``ensure_access_control`` builds one from them."""
+    for side in (REF, PORT):
+        node = make_node(side, tpu=False, **{
+            "authn.allow_anonymous": False, "authz.no_match": "deny"})
+        assert node.access_control is None
+        ac = node.ensure_access_control()
+        assert ac is node.ensure_access_control()
+        assert ac.chain.allow_anonymous is False
+        assert ac.authz.no_match == "deny"
+        assert sorted(node.broker.hooks.callbacks("client.authorize")) == \
+            ["authz.sources"]
+        assert not node._wants_intercept()
+
+
+def test_async_auth_pre_resolution_runs_in_the_intercept():
+    """No ported backend is async, but the intercept's pre-resolution
+    step is there: a backend with ``authenticate_async`` and a source
+    with ``prefetch_async`` are awaited before the sync folds consume
+    their parked verdicts, on both nodes alike."""
+    def run_side(side):
+        A = ref_auth if side == REF else port_auth
+        calls = []
+
+        class AsyncAuthn:
+            def __init__(self):
+                self.parked = {}
+
+            async def authenticate_async(self, creds):
+                calls.append(("authn", creds.clientid, creds.username))
+                res = A.authn.AuthResult(
+                    "ok" if creds.password == b"pw" else "deny")
+                self.parked[creds.clientid] = res
+                return res
+
+            def authenticate(self, creds):
+                return self.parked.pop(creds.clientid, A.authn.DENY)
+
+        class AsyncSource:
+            verdicts = {}
+
+            async def prefetch_async(self, cid, user, peer, action, topic):
+                calls.append(("authz", cid, action, topic))
+                v = "deny" if topic.startswith("no/") else "allow"
+                self.verdicts[(cid, action, topic)] = v
+                return v
+
+            def authorize(self, cid, user, peer, action, topic, **kw):
+                return self.verdicts.pop((cid, action, topic), "nomatch")
+
+        chain = A.AuthChain(allow_anonymous=False).add(AsyncAuthn())
+        authz = A.Authz([AsyncSource()], no_match="deny",
+                        cache_enable=False)
+
+        async def main():
+            node = make_node(side, tpu=False, auth=(chain, authz))
+            assert node._wants_intercept()
+            await node.start()
+            port = node.listeners.all()[0].port
+            try:
+                out = []
+                c = Client(clientid="c1", port=port, username="u",
+                           password=b"pw", proto_ver=5)
+                await c.connect()
+                out.append(await c.subscribe([("ok/#", 1), ("no/#", 1)]))
+                out.append(await c.publish("ok/1", b"x", qos=1))
+                out.append(await c.publish("no/1", b"x", qos=1))
+                got = await c.recv(timeout=5)
+                out.append((got.topic, got.payload))
+                bad = Client(clientid="c2", port=port, username="u",
+                             password=b"no")
+                try:
+                    await bad.connect()
+                except MqttError as e:
+                    out.append(str(e))
+                await c.disconnect()
+                return out + [calls]
+            finally:
+                await node.stop()
+
+        return run(main())
+
+    want = run_side(REF)
+    assert run_side(PORT) == want
+    assert want[3] == ("ok/1", b"x") and want[4] == "CONNACK refused rc=4"
+
+
 # -- a seeded script: decoded packets per client -------------------------------
 
 def _norm(pkt):
@@ -694,7 +923,7 @@ def test_start_on_cuda_without_a_card_raises():
     ("listeners.ws.default.enable", True), ("broker.conn.shards", 2),
     ("admission.enable", True), ("node.data_dir", "data"),
     ("exhook.servers", "s=127.0.0.1:9000"), ("gateway.stomp.enable", True),
-    ("broker.sys_msg_interval", "10s"), ("authz.no_match", "deny"),
+    ("broker.sys_msg_interval", "10s"), ("psk.enable", True),
 ])
 def test_unported_subsystem_key_raises(key, value):
     cfg = PortConfig(env={})
@@ -709,8 +938,11 @@ def test_info_says_what_is_left_out():
     port = PortNode(PortConfig(env={}), device="cpu").info()
     assert set(port) <= set(ref)
     assert set(ref) - set(port) == {
-        "gateways", "bridges", "rules", "plugins", "auth", "topic_metrics",
-        "cluster_peers", "admission"}
+        "gateways", "bridges", "plugins", "topic_metrics", "cluster_peers",
+        "admission"}
+    assert port["rules"] == ref["rules"] == 0
+    assert port["auth"] == ref["auth"] == {
+        "authenticators": 0, "sources": 0, "attached": False}
 
 
 def test_stop_leaves_no_task_and_no_open_socket():

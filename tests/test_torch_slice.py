@@ -49,6 +49,20 @@ def _assert_tables_equal(port, ref):
     assert port.epoch == ref.epoch
 
 
+@pytest.mark.parametrize("seed,n_filters,n_topics,depth", [
+    (0, 50, 10, 8), (1, 1500, 200, 8), (2, 5000, 100, 12), (3, 20000, 2048, 8),
+    (4, 10, 5, 3), (5, 3, 0, 2), (6, 0, 4, 8), (9, 3000, 300, 16)])
+def test_workload_equals_reference(seed, n_filters, n_topics, depth):
+    """The port's array-coded generator makes the reference benchmark's
+    filters and topics from the same seed (small sets repeat filters, so
+    the reference's redraw rounds run too)."""
+    from bench import build_workload as ref_build_workload
+
+    assert build_workload(np.random.default_rng(seed), n_filters, n_topics,
+                          depth) == ref_build_workload(
+        np.random.default_rng(seed), n_filters, n_topics, depth)
+
+
 def test_incremental_builder_equals_reference():
     filters, _ = _workload(1, 1500, 0)
     rng = np.random.default_rng(2)
@@ -240,6 +254,9 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     files = sorted((REPO / "emqx_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    # every subpackage, the rule engine and access control among them
+    scanned = {p.parent.name for p in files}
+    assert {"rule_engine", "auth", "broker", "ops", "native"} <= scanned
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for mod in _imports(tree):
