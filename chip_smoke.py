@@ -39,8 +39,8 @@ phases, one JSON line each; any failure exits non-zero:
    repeated (``ms_warm``, tables' rows L2-resident); the plain version's
    device ms from a CUDA graph replay; the kernel's bytes bound on this
    run's data; the serve stage breakdown (with the ids the split stage
-   turned into filters); serve throughput with p50/p99 over 200 timed
-   ``serve()`` calls of 2048 topics; the card's busy and idle share over
+   turned into filters); serve throughput with p50/p99 over 100 timed
+   ``serve()`` calls of 2048 topics (``TIMED_BATCHES``); the card's busy and idle share over
    20 ``serve()`` calls from a ``torch.profiler`` trace; table bytes and
    the spill share of the main path;
 6. slice_join — the hash service is dropped, and a native-table
@@ -53,9 +53,15 @@ phases, one JSON line each; any failure exits non-zero:
    dispatches, and the hash kernel must not launch on it;
 7. times_join — phase 5's readings for the join kernel and service;
 8. slice_python — phase 4 on the Python ``IncrementalNfa`` table (the
-   reference's debug twin) at 100k filters, and its serve stages; then
-   ``split_per_id``: the split stage's µs per id of the 1M native table
-   (phase 5) beside this one's;
+   reference's debug twin) at 100k filters (its serve stages and
+   ``split_per_id`` were cut to fit the later phases); then
+   python_segments: a
+   ``state`` segment of that table written, loaded and restored (the
+   seconds against the table's build, the arrays equal), and the
+   restored table, in region mode on a ``DeviceNfa`` of its own, grown
+   through a cuckoo rehash: ``grow_applies`` ≥ 1, no whole upload, the
+   node, edge and seed tensors bit-equal to a whole upload of the same
+   host table, and a walk on each equal;
 9. slice_10m_build — BASELINE config 3: 10M filters (seed 0, depth-8
    Zipfian; generated in a spawned child process while the slice_node,
    acl_batch and MQTT phases run) started with ``load`` on
@@ -70,7 +76,9 @@ phases, one JSON line each; any failure exits non-zero:
 11. times_10m — phase 5's readings at 10M, once for each kernel (a
    fifth of the timed ``serve()`` calls).
 
-Between phases 8 and 9 it drives the broker's own publish path:
+Between phases 8 and 9 it drives the broker's own publish path
+(after ``slice_node``, the table lifecycle and the deadline plane:
+``segments_1m``, ``slice_node_deadline``, ``deadline_faults``, below):
 
 * slice_node_build — BASELINE config 2 through ``Broker.subscribe``:
   the 1M filters (seed 0) shared out to 10,000 clients, a
@@ -94,6 +102,43 @@ Between phases 8 and 9 it drives the broker's own publish path:
   collector's pauses, the card's busy share over 10 × 2048 more
   publishes (``torch.profiler``), and the same timed publishes on the
   host trie alone (``device_match = None``, no prefetch);
+* segments_1m — the slice_node service stopped; a service with
+  ``segments`` (native table, so a ``filters`` segment, pipelined so
+  that slots are in flight) started with no segment yet, then one
+  ``_compact_once`` under storms of 2048 publishers and a churn of 100
+  subscribes and 100 unsubscribes a second for as long as the build
+  runs, two storms after: the build seconds, the segment's bytes, the
+  swap step's ms on the loop, the loop's largest gap (a heartbeat
+  task), each build step's seconds with the largest gap overlapping
+  it, the collections on the build thread, 0 prefetch timeouts, the
+  slots in flight at the swap and those the table
+  generation discarded, the accept-id high-water mark before and after,
+  the fresh twin holding no freed id, 0 route mismatches, launches
+  equal dispatches; then 1,000 more mutations and a new service that
+  cold-starts from the segment (seconds to ready, ``segment_load_s``,
+  0 mismatches over 2 × 2048 publishes) beside a rebuild from the same
+  router (the next phase's service: seconds to ready);
+* slice_node_deadline — that service with ``deadline=True`` (node
+  defaults: 41 ms budget, dispatch timeout 0.164 s, breaker 5, probe 1
+  s; ``alarms``, a flight recorder writing to
+  ``trace/chip_smoke_flightrec/`` and a supervisor), the
+  slice_node storm (2 × 2048 warm-up, the timed batches, the churn):
+  publishes/s, each prefetch's wait p50/p99 against the budget,
+  ``deadline_dispatch``, the batch sizes, 0 route mismatches, and with
+  no fault 0 breaker trips, dispatch timeouts, failed and host-served
+  batches; slice_node's numbers of the same run beside;
+* deadline_faults — (a) ``match.dispatch`` raising for 5 batches of
+  storms of new topics: the breaker opens once with ``match_degraded`` raised, one
+  ``breaker_trip`` dump, the host serving with 0 mismatches, and the
+  probe closing it within 2 probe intervals (+ the timeout) of the
+  faults' end, the seconds printed; (b) ``torch.cuda._sleep`` of ~0.6 s
+  enqueued on the serving stream, then a batch of 512 new topics: it is
+  answered by the host within the timeout + the budget + 0.15 s, a
+  batch behind it times out too, a heartbeat task keeps beating (the
+  largest gap under 50 ms); once the sleep ends, the next batches are
+  answered by the card with the router's routes, and none of them was
+  handed a buffer of a timed-out batch (kept referenced meanwhile);
+  launches equal dispatches plus the probes' walks;
 * slice_node_auto — the service stopped and freed, a ``backend="auto"``
   one started on the same broker, the same storm with another churn:
   the tuner's picks per shape with each backend's measured µs (each
@@ -203,9 +248,11 @@ import asyncio
 import gc
 import json
 import logging
+import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from typing import Callable, Dict, List
 
@@ -215,7 +262,7 @@ BATCH = 2048
 SERVE_BATCHES = 16          # batches served before the churn
 CHURN = 1000                # filters removed, then added
 AFTER_BATCHES = 4           # batches served after the churn
-TIMED_BATCHES = 200         # serve() calls timed for p50/p99 (phase 5)
+TIMED_BATCHES = 100         # serve() calls timed for p50/p99 (phase 5)
 PYTHON_FILTERS = 100_000    # slice_python: the Python table's size
 LARGE_FILTERS = 10_000_000  # slice_10m: BASELINE config 3
 BATCHES_10M = 20            # 10M batches served on each backend ...
@@ -243,6 +290,13 @@ MQTT_PUBLISHERS = 2048
 #: 2048 (the node's loop runs ~1k publishes/s: fewer than slice_node's,
 #: to fit the call's limit)
 MQTT_WARM = 2
+#: the longest wait for a storm's trailing deliveries, and the bound on
+#: the seconds from its last PUBACK to its last delivery: the fanout
+#: node acks at the offer, and its deliveries have trailed by up to
+#: 28.4 s on a slow host (7-20 s on others); a backlog that keeps
+#: growing fails here
+DRAIN_MAX_S = 40.0
+DELIVERY_TRAIL_MAX_S = 40.0
 MQTT_STORM = 5
 MQTT_BUSY = 2
 MQTT_PROCS = 6              # slice_mqtt: the fleet's child processes
@@ -395,25 +449,37 @@ def timer(torch, device) -> Callable[..., Dict[str, float]]:
 class GcPauses:
     """Collections of Python's cyclic garbage collector while active:
     their count and pause ms per generation (``gc.callbacks``), and
-    ``ms``, the running total of pause ms."""
+    ``ms``, the running total of pause ms; those run on another thread
+    than the one that made this (a compaction's build) are also counted
+    apart, with their largest pause."""
 
     def __init__(self) -> None:
         self.count = [0, 0, 0]
         self.pause_ms = [0.0, 0.0, 0.0]
         self.max_ms = 0.0
         self.ms = 0.0
-        self._t0 = 0.0
+        self.other_thread = {"collections": 0, "max_pause_ms": 0.0}
+        self._t0: Dict[int, float] = {}
+        self._thread = threading.get_ident()
 
     def _cb(self, phase: str, info: Dict) -> None:
+        tid = threading.get_ident()
         if phase == "start":
-            self._t0 = time.perf_counter()
+            self._t0[tid] = time.perf_counter()
             return
-        dt = (time.perf_counter() - self._t0) * 1e3
+        t0 = self._t0.pop(tid, None)
+        if t0 is None:
+            return
+        dt = (time.perf_counter() - t0) * 1e3
         gen = info["generation"]
         self.count[gen] += 1
         self.pause_ms[gen] += dt
         self.max_ms = max(self.max_ms, dt)
         self.ms += dt
+        if tid != self._thread:
+            o = self.other_thread
+            o["collections"] += 1
+            o["max_pause_ms"] = max(o["max_pause_ms"], dt)
 
     def __enter__(self) -> "GcPauses":
         gc.callbacks.append(self._cb)
@@ -679,6 +745,7 @@ def _build_service(torch, device, n_filters: int, n_batches: int,
           "load_seconds": svc.load_seconds, "upload_s": upload_s,
           "oracle_build_s": time.perf_counter() - t3,
           "wall_s": time.perf_counter() - t0})
+    svc.host_build_s = t2 - t1
     return svc, trie, filters, topics
 
 
@@ -768,7 +835,8 @@ def phase_slice(torch, device, n_filters: int, table: str = "native",
             "wall_s": time.perf_counter() - t_start}
     emit(info)
     return {"svc": svc, "topics": topics, "launches": launches,
-            "spill_share": svc.fallback_host / svc.topics}
+            "spill_share": svc.fallback_host / svc.topics,
+            "build_s": svc.host_build_s}
 
 
 def phase_slice_join(torch, device, n_filters: int) -> Dict:
@@ -854,17 +922,109 @@ def phase_slice_join(torch, device, n_filters: int) -> Dict:
 
 def phase_slice_python(torch, device, n_filters: int) -> Dict:
     """The hash serve path on the Python ``IncrementalNfa`` table (the
-    reference's debug twin) at a smaller size: phase 4's checks, then
-    the serve stages of its batches."""
+    reference's debug twin) at a smaller size: phase 4's checks."""
+    return phase_slice(torch, device, n_filters, table="python",
+                       name="slice_python")
+
+
+def phase_python_segments(torch, device, svc, build_s: float,
+                          card: str) -> Dict:
+    """``python_segments`` on the 100k Python table of slice_python: a
+    ``state`` segment written and restored (its seconds against the
+    table's build, the arrays and the walk on the card equal), then the
+    restored table in region mode grown in place through a cuckoo rehash
+    on the card: ``grow_applies`` ≥ 1, no whole upload, and node, edge
+    and seed tensors bit-equal to a whole upload of the same host table
+    (the walks on both equal too)."""
+    import shutil
+
+    from emqx_tpu_torch.ops import DeviceNfa, encode_batch, walk_kernel
+    from emqx_tpu_torch.storage.segments import (load_segment,
+                                                 restore_incremental,
+                                                 save_segment)
+    from emqx_tpu_torch.workload import build_workload
+
     t_start = time.perf_counter()
-    s = phase_slice(torch, device, n_filters, table="python",
-                    name="slice_python")
-    stages = _stage_breakdown(torch, device, s["svc"], s["topics"])
-    emit({"phase": "slice_python_stages", "ok": True,
-          "table_kind": s["svc"].table_kind, "serve_stage_ms": stages,
-          "wall_s": time.perf_counter() - t_start})
-    s["stages"] = stages
-    return s
+    seg_dir = os.path.join(ROOT, "data", "chip_smoke_segments")
+    os.makedirs(seg_dir, exist_ok=True)
+    path = os.path.join(seg_dir, "python.seg.npz")
+    inc = svc.inc
+    t0 = time.perf_counter()
+    save_segment(path, inc, deep=svc._deep, routing_aids={
+        aid for aid, f in enumerate(svc._filter_of) if f is not None})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seg = load_segment(path)
+    inc2 = restore_incremental(seg)
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inc2._hydrate()
+    hydrate_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    shutil.rmtree(seg_dir, ignore_errors=True)
+    same = (np.array_equal(inc.node_tab, inc2.node_tab)
+            and np.array_equal(inc.edge_tab, inc2.edge_tab)
+            and np.array_equal(inc.seeds, inc2.seeds)
+            and inc.vocab == inc2.vocab
+            and list(inc.accept_filters) == list(inc2.accept_filters))
+    _check(same, "the restored table differs from the saved one")
+    kw = dict(active_slots=svc.dev.active_slots,
+              max_matches=svc.dev.max_matches, device=device)
+    inc2.track_regions = True
+    dev = DeviceNfa(inc2, **kw)
+    dev.dirty_regions = True
+    dev.dirty_full_threshold = 0.5
+    uploads0, key0 = dev.uploads, inc2.shape_key()
+    have = set(inc2.filters())
+    added = 0
+    for f in _fresh_filters(have, 20_000, 41):
+        inc2.add(f)
+        added += 1
+        if added % 500 == 0 or inc2.shape_key() != key0:
+            dev.sync()
+            if inc2.shape_key() != key0:
+                break
+    grew = inc2.shape_key() != key0
+    full = DeviceNfa(inc2, **kw)
+    bit_equal = [bool(torch.equal(a, b))
+                 for a, b in zip(dev.arrays(), full.arrays())]
+    _, topics = build_workload(np.random.default_rng(43), 16, BATCH)
+    enc = encode_batch(inc2, topics, batch=BATCH, depth=inc2.depth)
+    # -- the main path: counts zeroed just before, read just after -------
+    walk_kernel.launches = 0
+    got = dev.match(*dev.put_batch(*enc), flat_cap=8 * BATCH)
+    launches = walk_kernel.launches
+    # ---------------------------------------------------------------------
+    want = full.match(*full.put_batch(*enc), flat_cap=8 * BATCH)
+    walks_equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want)
+                      if a is not None)
+    line = {"phase": "python_segments", "ok": True, "card": card,
+            "filters": inc.n_filters, "segment_bytes": size,
+            "build_s": build_s, "save_s": save_s, "restore_s": restore_s,
+            "hydrate_s": hydrate_s, "restore_over_build":
+                (restore_s + hydrate_s) / build_s,
+            "grow": {"filters_added": added, "shape_before": key0,
+                     "shape_after": inc2.shape_key(), "grew": grew,
+                     "grow_applies": dev.grow_applies,
+                     "whole_uploads_after_first": dev.uploads - uploads0,
+                     "dirty_rows_uploaded": dev.dirty_rows_uploaded,
+                     "node_edge_seeds_bit_equal": bit_equal,
+                     "walks_equal": walks_equal},
+            "kernel_launches": launches,
+            "wall_s": time.perf_counter() - t_start}
+    failed = [what for ok, what in (
+        (grew and dev.grow_applies >= 1, "the table never grew in place"),
+        (dev.uploads == uploads0, "the grow uploaded the tables whole"),
+        (all(bit_equal), f"grown tables differ from a whole upload: "
+         f"{bit_equal}"),
+        (walks_equal, "the walk on the grown table differs"))
+        if not ok]
+    if device.type == "cuda":
+        failed += [what for ok, what in (
+            (launches == 1, f"{launches} launches for one walk"),)
+            if not ok]
+    _emit_checked(line, failed)
+    return {"launches": launches}
 
 
 def phase_10m_build(torch, device, n_filters: int) -> Dict:
@@ -1150,7 +1310,8 @@ class _LogCount(logging.Handler):
 
 
 async def _storm(ms, broker, topics, lo: int, hi: int,
-                 lat: List[float], payloads=None) -> Dict[str, float]:
+                 lat: List[float], payloads=None,
+                 waits: List[float] = None) -> Dict[str, float]:
     """``STORM_TASKS`` publisher tasks, each taking the next topic of
     ``topics[lo:hi]``: ``await ms.prefetch(topic)`` (none when ``ms`` is
     None, the host trie), then ``broker.publish``, then one yield to the
@@ -1158,7 +1319,8 @@ async def _storm(ms, broker, topics, lo: int, hi: int,
     Appends each publish's seconds (prefetch and publish) to ``lat``.
     With ``payloads`` the i-th publish carries ``payloads[i]`` from
     sender ``pub<i % STORM_TASKS>`` (what a rule sees of it depends on
-    the message alone), else ``b"x"`` from its task's sender."""
+    the message alone), else ``b"x"`` from its task's sender.  With
+    ``waits`` each prefetch's own seconds are appended there too."""
     from emqx_tpu_torch.broker.message import make_message
 
     nxt = [lo]
@@ -1177,6 +1339,8 @@ async def _storm(ms, broker, topics, lo: int, hi: int,
             t0 = time.perf_counter()
             if ms is not None:
                 await ms.prefetch(topic, qos=0)
+                if waits is not None:
+                    waits.append(time.perf_counter() - t0)
             # the result is not held across the yield, as a connection
             # does not hold it: 2048 of them would outlive the young
             # collections and load the full ones
@@ -1299,17 +1463,21 @@ async def _busy_storm(torch, device, ms, broker, topics, lo, hi,
 
 def _count_batches(ms) -> None:
     """Count and time the serve loop's batches (``ms._batch_ms``, one
-    entry a batch: dispatch to hints minted) by wrapping its batch
-    stage."""
-    inner = ms._serve_batch
+    entry a batch: dispatch to hints minted; ``ms._batch_sizes``, its
+    waiters) by wrapping its batch stage (the deadline loop's own with
+    ``deadline``)."""
+    name = "_serve_batch_deadline" if ms.deadline else "_serve_batch"
+    inner = getattr(ms, name)
     ms._batch_ms = []
+    ms._batch_sizes = []
     ms._batch_ms_at = 0
 
     async def counted(pending):
         t0 = time.perf_counter()
         await inner(pending)
         ms._batch_ms.append((time.perf_counter() - t0) * 1e3)
-    ms._serve_batch = counted
+        ms._batch_sizes.append(len(pending))
+    setattr(ms, name, counted)
 
 
 async def _start_node_service(torch, device, broker, metrics, backend,
@@ -1323,7 +1491,11 @@ async def _start_node_service(torch, device, broker, metrics, backend,
     # 0.5 s prefetch timeout allows a queue of batches
     if device.type != "cuda":
         kw["prefetch_timeout_s"] = 60.0
+        if kw.get("deadline"):
+            kw["dispatch_timeout_s"] = 60.0
+    sup = kw.pop("supervisor", None)
     ms = MatchService(broker, metrics, device=device, backend=backend, **kw)
+    ms.supervisor = sup
     t0 = time.perf_counter()
     await ms.start()
     while not (ms.ready and ms._synced_epoch == broker.router.epoch):
@@ -1338,7 +1510,7 @@ async def _start_node_service(torch, device, broker, metrics, backend,
 async def _node_storms(torch, device, ms, broker, metrics, topics, card,
                        churn, storm_batches: int, name: str,
                        payloads=None, warm: bool = True,
-                       before_timed=None):
+                       before_timed=None, waits=None, warm_batches=None):
     """Warm-up (unless ``warm`` is false) and the timed storm (with
     ``churn`` running beside it) through ``ms``, with ``payloads`` (see
     :func:`_storm`); ``before_timed()`` runs just before the timed
@@ -1351,7 +1523,7 @@ async def _node_storms(torch, device, ms, broker, metrics, topics, card,
 
     check = _RouteLog(ms, broker.router)
     broker.device_match = check
-    warm_hi = WARM_STORM * BATCH
+    warm_hi = (WARM_STORM if warm_batches is None else warm_batches) * BATCH
     hi = warm_hi + storm_batches * BATCH
     if warm:
         await _storm(ms, broker, topics, 0, warm_hi, [], payloads)
@@ -1368,7 +1540,7 @@ async def _node_storms(torch, device, ms, broker, metrics, topics, card,
     gc.collect()
     with GcPauses() as pauses:
         storm = asyncio.ensure_future(
-            _storm(ms, broker, topics, warm_hi, hi, lat, payloads))
+            _storm(ms, broker, topics, warm_hi, hi, lat, payloads, waits))
         churned = await _broker_churn(ms, broker, *churn) if churn else None
         res = await storm
     m1 = metrics.all()
@@ -1883,6 +2055,18 @@ async def _slice_node(torch, device, n_filters, card, storm_batches):
         _emit_checked(line, failed)
         node_launches = (line["kernel_launches"],
                          line["join_kernel_launches"])
+        await ms.stop()
+        ms = check = None
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        # the table lifecycle, then the deadline plane, on the same broker
+        logs.reset()
+        ms, ready_s, lifecycle = await _segments_1m(
+            torch, device, broker, metrics, filters, topics, card, logs)
+        lifecycle.update(await _deadline_phases(
+            torch, device, ms, ready_s, broker, metrics, filters, topics,
+            card, storm_batches, logs, line))
         # auto: the service stopped and freed, a fresh one on the broker
         await ms.stop()
         ms = line = check = None
@@ -1916,7 +2100,8 @@ async def _slice_node(torch, device, n_filters, card, storm_batches):
         _emit_checked(auto, failed)
         out = {"launches": node_launches,
                "auto_launches": (auto["kernel_launches"],
-                                 auto["join_kernel_launches"])}
+                                 auto["join_kernel_launches"]),
+               **lifecycle}
         # the batched fanout, on the card and on the host trie alone
         ms = auto = None
         fan_log = logging.getLogger(FANOUT_LOGGER)
@@ -1946,6 +2131,567 @@ async def _slice_node(torch, device, n_filters, card, storm_batches):
     finally:
         svc_log.removeHandler(logs)
         gc.unfreeze()       # the services froze the started heap
+
+
+# -- the deadline serve plane and the table lifecycle on the 1M broker ---------
+
+#: the checkout's root: chip_smoke writes only under it (the git-ignored
+#: data/ for segments and trace/ for the flight recorder)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DEADLINE_WARM = 2            # slice_node_deadline: warm-up batches
+HANG_CYCLES = 1_200_000_000  # deadline_faults: ~0.6 s of torch.cuda._sleep
+HANG_SLACK_S = 0.15          # a hung batch is answered within its dispatch
+                             # timeout + its budget + this
+HANG_BATCH = 512             # the hung batch's topics (the host answers
+                             # them on the loop: ~5 us each)
+SEG_CHURN = 1000             # segments_1m: mutations between the segment
+                             # and the cold start
+SEG_SEED = 27                # segments_1m: the churn's filters
+
+
+class _Ladder:
+    """What the failure ladder did, counted by wrapping the service's
+    steps: the batches the host tables answered (and their waiters), the
+    dispatch failures (of them timeouts), the breaker's trips and closes
+    with their clock, the alarm at the trip, the probes."""
+
+    def __init__(self, ms) -> None:
+        self.reset()
+        cpu, fail = ms._cpu_serve, ms._breaker_note_failure
+        trip, close, probe = (ms._trip_breaker, ms._close_breaker,
+                              ms._probe_dispatch)
+
+        def cpu_serve(pending):
+            if pending:
+                self.host_batches += 1
+                self.host_waiters += len(pending)
+            cpu(pending)
+
+        def note_failure():
+            self.failures += 1
+            self.timeouts += isinstance(sys.exc_info()[1], TimeoutError)
+            fail()
+
+        def trip_breaker():
+            self.trips += 1
+            self.trip_t = time.perf_counter()
+            trip()
+            self.alarm_at_trip = (ms.alarms is not None and
+                                  ms.alarms.is_active("match_degraded"))
+
+        def close_breaker():
+            self.closes += 1
+            self.close_t = time.perf_counter()
+            close()
+
+        async def probe_dispatch():
+            self.probes += 1
+            await probe()
+            self.probes_through += 1
+
+        ms._cpu_serve, ms._breaker_note_failure = cpu_serve, note_failure
+        ms._trip_breaker, ms._close_breaker = trip_breaker, close_breaker
+        ms._probe_dispatch = probe_dispatch
+
+    def reset(self) -> None:
+        self.host_batches = self.host_waiters = self.failures = 0
+        self.timeouts = self.trips = self.closes = 0
+        self.probes = self.probes_through = 0
+        self.trip_t = self.close_t = None
+        self.alarm_at_trip = None
+
+    def counts(self) -> Dict:
+        return {"host_served_batches": self.host_batches,
+                "host_served_waiters": self.host_waiters,
+                "dispatch_failures": self.failures,
+                "dispatch_timeouts": self.timeouts,
+                "breaker_trips": self.trips, "breaker_closes": self.closes,
+                "probes": self.probes, "probes_through": self.probes_through}
+
+
+class _Heartbeat:
+    """A task on the loop that wakes every millisecond: the largest gap
+    between two wakes, and their count; ``ends`` holds each gap's end on
+    the loop's clock (``time.monotonic``)."""
+
+    def __init__(self) -> None:
+        self.gaps: List[float] = []
+        self.ends: List[float] = []
+        self._stop = False
+        self._task = asyncio.ensure_future(self._run())
+
+    async def _run(self) -> None:
+        loop = asyncio.get_running_loop()
+        last = loop.time()
+        while not self._stop:
+            await asyncio.sleep(0.001)
+            now = loop.time()
+            self.gaps.append(now - last)
+            self.ends.append(now)
+            last = now
+
+    def largest_within(self, start: float, end: float) -> float:
+        """The largest gap (ms) that overlaps ``[start, end]``."""
+        return max((g for g, e in zip(self.gaps, self.ends)
+                    if e > start and e - g < end), default=0.0) * 1e3
+
+    async def stop(self) -> Dict:
+        self._stop = True
+        await self._task
+        return {"beats": len(self.gaps),
+                "max_gap_ms": max(self.gaps, default=0.0) * 1e3,
+                "p99_gap_ms": _pct(self.gaps or [0.0], 99) * 1e3}
+
+
+def _pin_bound(ms, on: bool) -> None:
+    """Hold the service's rate window shut with the rate high and the
+    short share at one half (each ``prefetch_many`` below is one batch,
+    forced out by its budget), or let the window run again."""
+    if on:
+        ms._pinned = ms._short_frac
+        ms._rate_ewma, ms._win_start = 1e9, float("inf")
+        ms._short_frac = 0.5
+    else:
+        ms._rate_ewma, ms._win_start = None, time.monotonic()
+        ms._short_frac = ms._pinned
+
+
+def _hint_checks(ms, router, topics) -> Dict[str, int]:
+    """Each topic's hint: answered by the card or by the host tables,
+    missing, and how many route lists differ from the router's (no
+    churn runs meanwhile: the router's answer is the one of now)."""
+    out = {"card": 0, "host": 0, "missing": 0, "mismatches": 0}
+    for t in dict.fromkeys(topics):
+        hint = ms._hints.get(t)
+        if hint is None:
+            out["missing"] += 1
+            continue
+        out["host" if hint[4] else "card"] += 1
+        routes = ms.hint_routes(t)
+        out["mismatches"] += (routes is None or _routes_key(routes)
+                              != _routes_key(router.match_routes(t)))
+    return out
+
+
+def _slot_ptrs(slot) -> set:
+    """Addresses of what a slot owns: its pinned slab or buffers and
+    its walks' outputs on the card."""
+    ptrs = set()
+    for host in slot.slab or ():
+        ptrs.update(t.data_ptr() for t in host)
+    for t in slot.bufs or ():
+        ptrs.add(t.data_ptr())
+    for res, _n in slot.handles:
+        ptrs.update(t.data_ptr() for t in res[:4])
+    return ptrs
+
+
+async def _segments_1m(torch, device, broker, metrics, filters, topics,
+                       card, logs):
+    """``segments_1m`` (module docstring).  Returns the deadline service
+    (started last, as the rebuild from the router) and its ready
+    seconds."""
+    import shutil
+
+    from emqx_tpu_torch.ops import walk_kernel
+
+    t_start = time.perf_counter()
+    seg_dir = os.path.join(ROOT, "data", "chip_smoke_segments")
+    shutil.rmtree(seg_dir, ignore_errors=True)
+    failed: List[str] = []
+    # A: no segment yet, so a rebuild from the router; pipelined, so
+    # that slots are in flight when the swap lands
+    ms, ready_a = await _start_node_service(
+        torch, device, broker, metrics, "hash", segments=True,
+        segments_dir=seg_dir, compact_interval_s=1e9, pipeline=True)
+    _check(not ms._segment_loaded, "a segment was there before the first")
+    add, drop, _hit = _node_churn(broker, filters, SEG_SEED, ())
+    logs.reset()
+    check = _RouteLog(ms, broker.router)
+    broker.device_match = check
+    swap = {}
+    inner_swap = ms._swap_in
+
+    def timed_swap(built):
+        t0 = time.perf_counter()
+        swap["accepts_before"] = ms.inc.n_accepts
+        swap["inflight_at_swap"] = ms._inflight_n
+        inner_swap(built)
+        swap["swap_ms"] = (time.perf_counter() - t0) * 1e3
+        swap["held_ids_after"] = ms.dev._id_holds
+    ms._swap_in = timed_swap
+    # -- the main path: counts zeroed just before, read just after -------
+    walk_kernel.launches = 0
+    walk_kernel.join_launches = 0
+    d0 = ms.dispatches
+    beat = _Heartbeat()
+    lat: List[float] = []
+    t0 = time.perf_counter()
+    pauses = GcPauses()
+    gc.callbacks.append(pauses._cb)
+    compact = asyncio.ensure_future(ms._compact_once())
+    done = lo = after = churned = 0
+    while after < 2:
+        # the churn at NODE_CHURN_RATE of each, as long as the build runs
+        due = min(len(add), int((time.perf_counter() - t0)
+                                * NODE_CHURN_RATE) + 1)
+        if not compact.done():
+            for (ca, fa), (cd, fd) in zip(add[done:due], drop[done:due]):
+                broker.subscribe(ca, fa)
+                _check(broker.unsubscribe(cd, fd), f"unsubscribe {fd!r}")
+            churned += max(0, due - done)
+            done = max(done, due)
+        else:
+            after += 1
+        hi = lo + BATCH
+        if hi > len(topics):
+            lo, hi = 0, BATCH
+        await _storm(ms, broker, topics, lo, hi, lat)
+        lo = hi
+    compacted = await compact
+    compact_s = time.perf_counter() - t0
+    while ms._synced_epoch < broker.router.epoch:
+        await asyncio.sleep(0.001)
+    gc.callbacks.remove(pauses._cb)
+    gaps = await beat.stop()
+    # each step of the build with the largest loop gap that overlaps it
+    build_steps = [{"step": name, "s": end - start,
+                    "largest_loop_gap_ms": beat.largest_within(start, end)}
+                   for name, start, end in ms.compact_steps]
+    if ms.compact_steps:
+        b0, b1 = ms.compact_steps[0][1], ms.compact_steps[-1][2]
+        gaps["outside_build_max_gap_ms"] = max(
+            (g for g, e in zip(beat.gaps, beat.ends)
+             if e - g >= b1 or e <= b0), default=0.0) * 1e3
+    launches = walk_kernel.launches
+    join_launches = walk_kernel.join_launches
+    dispatches = ms.dispatches - d0
+    # ---------------------------------------------------------------------
+    mismatches = _verify_routes(broker.router, check)
+    line = {"phase": "segments_1m", "ok": True, "card": card,
+            "table_kind": ms.table_kind, "segment_kind": "filters",
+            "pipeline": ms.pipeline,
+            "rebuild_from_router_s_before_segment": ready_a,
+            "compaction": {
+                "ok": compacted, "seconds": compact_s,
+                "segment_bytes": os.path.getsize(ms._segment_path),
+                "churn_during": 2 * churned, "swap_ms": swap.get("swap_ms"),
+                "loop_gap_ms": gaps, "build_steps": build_steps,
+                "gc": {**pauses.summary(),
+                       "build_thread": pauses.other_thread},
+                "slots_in_flight_at_swap": swap.get("inflight_at_swap"),
+                "slots_discarded_by_gen_guard": logs.stale_races,
+                "accept_ids_before": swap.get("accepts_before"),
+                "accept_ids_after": ms.inc.n_accepts,
+                "fresh_table_held_ids": swap.get("held_ids_after"),
+                "abandoned": ms._compact_abandoned,
+                "table_gen": ms._table_gen},
+            "publishes": len(lat), "publish_p99_ms": _pct(lat, 99) * 1e3,
+            "prefetch_timeouts": logs.timeouts,
+            "hint_served": len(check.topics),
+            "mismatches_after_swap": mismatches,
+            "walk_dispatches": dispatches, "kernel_launches": launches,
+            "join_kernel_launches": join_launches}
+    failed += [what for ok, what in (
+        (compacted, "the compaction was abandoned"),
+        (mismatches == 0, f"{mismatches} routes differ after the swap"),
+        (swap.get("accepts_before") is not None, "no swap landed"),
+        (swap.get("held_ids_after") == 0,
+         "the swapped-in table holds freed ids"))
+        if not ok]
+    failed += _log_checks(logs)
+    if device.type == "cuda":
+        failed += [what for ok, what in (
+            (launches == dispatches > 0,
+             f"launches {launches} != dispatches {dispatches}"),
+            (join_launches == 0, "the join walk ran"),
+            (len(check.topics) >= len(lat) / 2,
+             f"hints served {len(check.topics)} of {len(lat)}"))
+            if not ok]
+    await ms.stop()
+    broker.device_match = None
+    ms = check = None
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # SEG_CHURN further mutations, then B: the cold start from the segment
+    half = SEG_CHURN // 2
+    more_add, more_drop, _hit = _node_churn(broker, filters, SEG_SEED + 1, ())
+    for (ca, fa), (cd, fd) in zip(more_add[:half], more_drop[:half]):
+        broker.subscribe(ca, fa)
+        _check(broker.unsubscribe(cd, fd), f"unsubscribe {fd!r}")
+    ms, ready_b = await _start_node_service(
+        torch, device, broker, metrics, "hash", segments=True,
+        segments_dir=seg_dir, compact_interval_s=1e9)
+    walk_kernel.launches = 0
+    walk_kernel.join_launches = 0
+    d0 = ms.dispatches
+    check = _RouteLog(ms, broker.router)
+    broker.device_match = check
+    lat = []
+    await _storm(ms, broker, topics, 0, 2 * BATCH, lat)
+    cold_launches = walk_kernel.launches
+    cold_join_launches = walk_kernel.join_launches
+    cold_dispatches = ms.dispatches - d0
+    cold_bad = _verify_routes(broker.router, check)
+    line["cold_start"] = {
+        "segment_loaded": ms._segment_loaded,
+        "mutations_since_segment": SEG_CHURN,
+        "from_segment_to_ready_s": ready_b,
+        "segment_load_s": metrics.get("tpu.table.segment_load_s"),
+        "check_publishes": len(lat), "hint_served": len(check.topics),
+        "mismatches": cold_bad, "walk_dispatches": cold_dispatches,
+        "kernel_launches": cold_launches,
+        "join_kernel_launches": cold_join_launches}
+    failed += [what for ok, what in (
+        (ms._segment_loaded, "the cold start did not load the segment"),
+        (cold_bad == 0, f"{cold_bad} routes differ after the cold start"))
+        if not ok]
+    if device.type == "cuda":
+        failed += [what for ok, what in (
+            (cold_launches == cold_dispatches > 0,
+             f"cold-start launches {cold_launches} != dispatches "
+             f"{cold_dispatches}"),
+            (join_launches + cold_join_launches == 0,
+             f"the join walk ran {join_launches} + {cold_join_launches} "
+             "times")) if not ok]
+    await ms.stop()
+    broker.device_match = None
+    ms = check = None
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(seg_dir, ignore_errors=True)
+    # C: the deadline service, a rebuild from the same router
+    from emqx_tpu_torch.observe.alarm import Alarms
+    from emqx_tpu_torch.observe.flightrec import FlightRecorder
+    from emqx_tpu_torch.supervise import Supervisor
+
+    fr_dir = os.path.join(ROOT, "trace", "chip_smoke_flightrec")
+    shutil.rmtree(fr_dir, ignore_errors=True)
+    alarms = Alarms()
+    ms, ready_c = await _start_node_service(
+        torch, device, broker, metrics, "hash", deadline=True,
+        alarms=alarms, flightrec=FlightRecorder(fr_dir),
+        supervisor=Supervisor(metrics=metrics, alarms=alarms))
+    line["cold_start"]["rebuild_from_router_s"] = ready_c
+    line["cold_start"]["segment_over_rebuild"] = ready_b / ready_c
+    line["wall_s"] = time.perf_counter() - t_start
+    _emit_checked(line, failed)
+    return ms, ready_c, {"segments_1m": (launches + cold_launches,
+                                         join_launches + cold_join_launches)}
+
+
+async def _deadline_phases(torch, device, ms, ready_s, broker, metrics,
+                           filters, topics, card, storm_batches, logs,
+                           node_line):
+    """``slice_node_deadline`` and ``deadline_faults`` on the deadline
+    service ``ms`` (module docstring)."""
+    from emqx_tpu_torch import faultinject as fi
+    from emqx_tpu_torch.ops import walk_kernel
+    from emqx_tpu_torch.workload import build_workload
+
+    t_start = time.perf_counter()
+    out = {}
+    ladder = _Ladder(ms)
+    add, drop, _hit = _node_churn(broker, filters, 13, ())
+    waits: List[float] = []
+    snap: Dict[str, int] = {}
+
+    def before_timed() -> None:
+        snap.update(metrics.all())
+        ladder.reset()
+    logs.reset()
+    line, failed = await _node_storms(
+        torch, device, ms, broker, metrics, topics, card, (add, drop),
+        storm_batches, "slice_node_deadline", waits=waits,
+        warm_batches=DEADLINE_WARM, before_timed=before_timed)
+    sizes = ms._batch_sizes[ms._batch_ms_at:] or [0]
+    budget = ms.deadline_s
+    line.update({
+        "deadline_s": budget, "dispatch_timeout_s": ms.dispatch_timeout_s,
+        "start_to_ready_s": ready_s,
+        "prefetch_wait_ms": {
+            "waiters": len(waits), "p50": _pct(waits, 50) * 1e3,
+            "p99": _pct(waits, 99) * 1e3, "max": max(waits) * 1e3,
+            "budget_ms": budget * 1e3,
+            "within_budget_share": sum(w <= budget for w in waits)
+            / len(waits)},
+        "deadline_dispatch": metrics.get("broker.match.deadline_dispatch")
+        - snap["broker.match.deadline_dispatch"],
+        "deadline_miss": metrics.get("broker.match.deadline_miss")
+        - snap["broker.match.deadline_miss"],
+        "batch_sizes": {"batches": len(sizes),
+                        "p10": _pct(sizes, 10), "p50": _pct(sizes, 50),
+                        "p90": _pct(sizes, 90), "max": max(sizes),
+                        "mean": float(np.mean(sizes))},
+        **ladder.counts(),
+        "slice_node": {k: node_line[k] for k in (
+            "publishes_per_s", "p50_ms", "p99_ms", "batch_ms",
+            "mean_batch_topics")},
+        "stale_race_batches": logs.stale_races})
+    failed += [what for ok, what in (
+        (ladder.trips == 0, f"{ladder.trips} breaker trips"),
+        (ladder.timeouts == 0, f"{ladder.timeouts} dispatch timeouts"),
+        (ladder.failures == 0, f"{ladder.failures} failed batches"),
+        (ladder.host_batches == 0,
+         f"{ladder.host_batches} batches answered by the host"))
+        if not ok]
+    failed += _log_checks(logs)
+    line["wall_s"] = time.perf_counter() - t_start
+    _emit_checked(line, failed)
+    out["node_deadline"] = (line["kernel_launches"],
+                            line["join_kernel_launches"])
+    # -- deadline_faults: (a) match.dispatch faults, (b) a real hang ------
+    t1 = time.perf_counter()
+    _, fault_topics = build_workload(np.random.default_rng(29), 16,
+                                     6 * BATCH)
+    failed = []
+    check = _RouteLog(ms, broker.router)
+    broker.device_match = check
+    fr = ms.flightrec
+    # -- the main path: counts zeroed just before, read just after -------
+    walk_kernel.launches = 0
+    walk_kernel.join_launches = 0
+    d0 = ms.dispatches
+    ladder.reset()
+    dumps0 = fr.dumps
+    fi.install(fi.FaultInjector([{"point": "match.dispatch",
+                                  "action": "raise",
+                                  "times": ms.breaker_threshold}]))
+    try:
+        lat: List[float] = []
+        # storms of new topics (each prefetch a waiter) until the breaker
+        # opens: how many batches a storm makes depends on the walk's speed
+        faulty = [f"{t}/fault{i}" for i, t in enumerate(fault_topics)]
+        lo = 0
+        while not (ms._breaker_open or ladder.trips) and lo < len(faulty):
+            await _storm(ms, broker, faulty, lo, lo + BATCH, lat)
+            lo += BATCH
+        opened = ms._breaker_open or ladder.trips > 0
+        fired = fi.get().fired.get("match.dispatch", 0)
+    finally:
+        fi.uninstall()      # exhausted at the trip: cleared from there
+    t0 = time.perf_counter()
+    while ms._breaker_open and time.perf_counter() - t0 < 30:
+        await asyncio.sleep(0.005)
+    recovery_s = (ladder.close_t - ladder.trip_t
+                  if ladder.close_t and ladder.trip_t else None)
+    dumps = sorted(f for f in (os.listdir(fr.out_dir)
+                               if os.path.isdir(fr.out_dir) else ())
+                   if f.startswith("flightrec-breaker_trip-"))
+    await _storm(ms, broker, fault_topics, 2 * BATCH, 3 * BATCH, lat)
+    fault_bad = _verify_routes(broker.router, check)
+    interval = ms.breaker_probe_interval_s
+    a = {"faults_injected": fired, "breaker_opened": opened,
+         "alarm_at_trip": ladder.alarm_at_trip,
+         "alarm_after_close": ms.alarms.is_active("match_degraded"),
+         "breaker_trip_dumps": len(dumps), "dumps": fr.dumps - dumps0,
+         "probe_interval_s": interval, "recovery_s": recovery_s,
+         "publishes": len(lat), "mismatches": fault_bad,
+         "hint_served_after_close": len(check.topics), **ladder.counts()}
+    failed += [what for ok, what in (
+        (opened and ladder.trips == 1, f"{ladder.trips} trips, want 1"),
+        (ladder.alarm_at_trip, "no match_degraded alarm at the trip"),
+        (not a["alarm_after_close"], "the alarm outlived the breaker"),
+        (len(dumps) == 1, f"{len(dumps)} breaker_trip dumps, want 1"),
+        (recovery_s is not None and recovery_s <= 2 * interval
+         + ms.dispatch_timeout_s,
+         f"the probe closed the breaker after {recovery_s} s"),
+        (fault_bad == 0, f"{fault_bad} routes differ under the faults"))
+        if not ok]
+    # (b) a real hang: the walk queued behind a sleep on the card
+    ladder.reset()
+    _pin_bound(ms, True)
+    beat = _Heartbeat()
+    hang = {}
+    loop = asyncio.get_running_loop()
+    held = []
+    if device.type == "cuda":
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        torch.cuda._sleep(HANG_CYCLES)
+        ev1.record()
+    # topics no hint holds yet: each of their prefetches is a waiter
+    fresh = [f"{t}/hang{i}" for i, t in enumerate(fault_topics)]
+    t0 = loop.time()
+    hung = fresh[3 * BATCH:3 * BATCH + HANG_BATCH]
+    await ms.prefetch_many(hung)
+    hang["first_batch_answered_s"] = loop.time() - t0
+    behind = fresh[4 * BATCH:4 * BATCH + HANG_BATCH // 2]
+    t0 = loop.time()
+    await ms.prefetch_many(behind)
+    hang["batch_behind_answered_s"] = loop.time() - t0
+    # the harness keeps the timed-out batches' buffers referenced, so
+    # that a later batch can only get them if the service handed them
+    held = [slot for _ev, slot in ms._timed_out]
+    hang["timed_out_batches"] = len(held)
+    held_ptrs = set()
+    for slot in held:
+        held_ptrs |= _slot_ptrs(slot)
+    overlaps = 0
+    if device.type == "cuda":
+        while not ev1.query():
+            await asyncio.sleep(0.001)
+        hang["sleep_ms"] = ev0.elapsed_time(ev1)
+    hang["loop_during_hang"] = await beat.stop()
+    hang["hung_hints"] = _hint_checks(ms, broker.router, hung + behind)
+    new_slots = []
+    inner_make = ms._make_slot
+
+    def make_slot(*a, **kw):
+        slot = inner_make(*a, **kw)
+        new_slots.append(slot)
+        return slot
+    ms._make_slot = make_slot
+    after = fresh[5 * BATCH:6 * BATCH]
+    await ms.prefetch_many(after[:BATCH // 2])
+    await ms.prefetch_many(after[BATCH // 2:])
+    ms._make_slot = inner_make
+    overlaps = sum(bool(_slot_ptrs(s) & held_ptrs) for s in new_slots)
+    hang["after_hints"] = _hint_checks(ms, broker.router, after)
+    hang["batches_after"] = len(new_slots)
+    hang["buffer_overlaps_with_timed_out"] = overlaps
+    held = None
+    _pin_bound(ms, False)
+    hang.update(ladder.counts())
+    launches = walk_kernel.launches
+    join_launches = walk_kernel.join_launches
+    dispatches = ms.dispatches - d0
+    # ---------------------------------------------------------------------
+    limit = ms.dispatch_timeout_s + ms.deadline_s + HANG_SLACK_S
+    hh, ah = hang["hung_hints"], hang["after_hints"]
+    if device.type == "cuda":
+        failed += [what for ok, what in (
+            (hang["first_batch_answered_s"] <= limit,
+             f"the hung batch was answered after "
+             f"{hang['first_batch_answered_s']} s (limit {limit} s)"),
+            (hang["timed_out_batches"] >= 1 and ladder.timeouts >= 1,
+             "no batch timed out behind the sleep"),
+            (hh["card"] == 0 and hh["missing"] == 0 and hh["mismatches"] == 0,
+             f"the hung batches' hints: {hh}"),
+            (ah["host"] == 0 and ah["missing"] == 0 and ah["mismatches"] == 0,
+             f"the batches after the hang: {ah}"),
+            (overlaps == 0, f"{overlaps} batches after the hang used a "
+             "timed-out batch's buffers"),
+            (hang["loop_during_hang"]["max_gap_ms"] < 50,
+             f"the loop stalled {hang['loop_during_hang']['max_gap_ms']} ms "
+             "during the hang"),
+            (not ms._breaker_open, "the hang opened the breaker"),
+            (launches == dispatches + a["probes_through"],
+             f"launches {launches} != dispatches {dispatches} + probes "
+             f"{a['probes_through']}"))
+            if not ok]
+    line = {"phase": "deadline_faults", "ok": True, "card": card,
+            "dispatch_faults": a, "hang": hang, "hang_limit_s": limit,
+            "walk_dispatches": dispatches, "kernel_launches": launches,
+            "join_kernel_launches": join_launches,
+            "wall_s": time.perf_counter() - t1}
+    _emit_checked(line, failed)
+    out["deadline_faults"] = (launches, join_launches)
+    broker.device_match = None
+    return out
 
 
 # -- the rule engine on the card: BASELINE config 3's co-batched rules ---------
@@ -2733,7 +3479,23 @@ async def _mqtt_storm(fleet, node, topics, lo: int, hi: int, card: str,
                                           only=[len(fleet.conns) - 1]))[0]
         broker_cpu = time.process_time() - t_cpu
         # the fanout's deliveries (and its drops) may trail the PUBACKs
+        # by seconds, with pauses longer than one quiet drain: drain
+        # again while deliveries owed are neither delivered nor dropped
+        # (at most DRAIN_MAX_S); a missing one still fails the storm
         drained = await fleet.all("drain", 0.5)
+        want = _expected_keys(broker, topics, lo, hi, fleet.client_idx,
+                              len(topics))
+        t_drain = time.perf_counter()
+        while (sum(len(d["msg"]) for d in drained)
+               + len(tap.keys(fleet.client_idx, len(topics))) < len(want)
+               and time.perf_counter() - t_drain < DRAIN_MAX_S):
+            more = await fleet.all("drain", 0.5)
+            drained = [{"client": np.concatenate([d["client"], m["client"]]),
+                        "msg": np.concatenate([d["msg"], m["msg"]]),
+                        "lat_us": np.concatenate([d["lat_us"], m["lat_us"]]),
+                        "last_ns": max(d["last_ns"], m["last_ns"]),
+                        "cpu_s": d["cpu_s"] + m["cpu_s"]}
+                       for d, m in zip(drained, more)]
     m1 = metrics.all()
     delta = {k: m1[k] - m0[k] for k in m1 if m1[k] != m0[k]}
     n = sum(d["published"] for d in done)
@@ -2746,6 +3508,7 @@ async def _mqtt_storm(fleet, node, topics, lo: int, hi: int, card: str,
                                 - t0_ns) / 1e9)
     line = {"card": card, "publishes": n, "publishes_per_s": n / wall,
             "wall_s": wall, "delivered_wall_s": delivered_wall,
+            "delivery_trail_s": delivered_wall - wall,
             "delivered_publishes_per_s": n / delivered_wall,
             "puback_ms": {"p50": _pct(puback, 50) / 1e3,
                           "p99": _pct(puback, 99) / 1e3,
@@ -2770,7 +3533,6 @@ async def _mqtt_storm(fleet, node, topics, lo: int, hi: int, card: str,
     if busy is not None:
         line["device_busy"] = busy
     n_msgs = len(topics)
-    want = _expected_keys(broker, topics, lo, hi, fleet.client_idx, n_msgs)
     got = np.concatenate([d["client"] * n_msgs + d["msg"] for d in drained])
     dropped = tap.keys(fleet.client_idx, n_msgs)
     line["checked"] = int(len(want))
@@ -2800,7 +3562,11 @@ def _storm_checks(line: Dict, device_path: bool, on_card: bool) -> List[str]:
          and c.get("broker.outbox.dropped", 0) == 0,
          f"{dropped} messages dropped (beside no_subscribers and "
          f"queue_full), {c.get('delivery.dropped', 0)} deliveries "
-         f"dropped, {c.get('broker.outbox.dropped', 0)} outbox drops"))
+         f"dropped, {c.get('broker.outbox.dropped', 0)} outbox drops"),
+        (line["delivery_trail_s"] <= DELIVERY_TRAIL_MAX_S,
+         f"the last delivery trailed the last PUBACK by "
+         f"{line['delivery_trail_s']:.2f} s (bound "
+         f"{DELIVERY_TRAIL_MAX_S} s)"))
         if not ok]
     if device_path:
         failed += [what for ok, what in (
@@ -3381,7 +4147,7 @@ def main(argv=None) -> int:
         phase = "slice"
         s = phase_slice(torch, device, args.filters)
         phase = "times"
-        shapes, native_stages = phase_times(torch, device, s, card,
+        shapes, _stages = phase_times(torch, device, s, card,
                                             timed=args.timed_batches)
         launches["hash"]["1m"] = s["launches"]
         # one table in host memory at a time
@@ -3398,14 +4164,10 @@ def main(argv=None) -> int:
         phase = "slice_python"
         s = phase_slice_python(torch, device, args.python_filters)
         launches["hash"]["python"] = s["launches"]
-        py_us, nat_us = (s["stages"]["split_us_per_id"],
-                         native_stages["split_us_per_id"])
-        emit({"phase": "split_per_id", "ok": True,
-              "native_1m_us_per_id": nat_us,
-              "native_1m_ids": native_stages["split_ids"],
-              "python_us_per_id": py_us,
-              "python_ids": s["stages"]["split_ids"],
-              "native_over_python": nat_us / py_us})
+        phase = "python_segments"
+        launches["hash"]["python_segments"] = phase_python_segments(
+            torch, device, s["svc"], s["build_s"], card)["launches"]
+        launches["join"]["python_segments"] = 0
         s = None
         gc.collect()
         phase = "slice_node"
@@ -3417,7 +4179,8 @@ def main(argv=None) -> int:
         for name in ("slice_node_fanout", "slice_node_pipeline"):
             path = name[len("slice_"):]
             launches["hash"][path], launches["join"][path] = node[name]
-        for path in ("node_rules", "node_rules_host"):
+        for path in ("node_rules", "node_rules_host", "segments_1m",
+                     "node_deadline", "deadline_faults"):
             launches["hash"][path], launches["join"][path] = node[path]
         rules = node["rules"]
         node = None

@@ -114,17 +114,73 @@ the port raises.  Nothing here stands in for a failing kernel: a failed
 batch resolves its waiters without a hint (publish walks the host trie
 and the failure is logged), a failed ``_warm`` keeps ``ready`` false.
 
+**The deadline serve plane** (``deadline=True``, the reference's
+``match.deadline.enable``; off, the fixed-window loop serves as above):
+
+* every waiter carries a budget of ``deadline_s``; ``_deadline_loop``
+  dispatches when the adaptive bound fills, or as a partial batch
+  (``broker.match.deadline_dispatch``) when the oldest waiter's budget
+  no longer covers the estimated dispatch time; the bound follows an
+  EWMA of the arrival rate, and per-lane caps from the short-topic
+  fraction keep a deep-topic flood from starving the short lane;
+* every dispatch runs under ``dispatch_timeout_s``; a batch that fails
+  or times out is answered from the host tables at once
+  (``_cpu_serve``) and counts toward the breaker, which opens after
+  ``breaker_threshold`` consecutive failures (the ``match_degraded``
+  alarm, one ``breaker_trip`` flight-recorder dump; the host serves
+  every prefetch) until the supervised ``match.probe`` child gets a
+  probe batch through, every ``breaker_probe_interval_s``;
+* the ``olp`` brownout ladder: stage 1 halves the bound, stage 2 also
+  sheds QoS0 prefetches to the host, stage 3 serves everything there;
+  each escalation dumps the flight recorder once.
+
+Where the reference dispatches on a worker thread, so that its timeout
+fires whatever the walk does, the port dispatches on the loop, and a
+timeout can only fire at an await: on the deadline path the readback
+waits on the batch's CUDA event by polling it between rounds of the
+loop (the fixed-window path's ``chunked`` slab is copied into pinned
+buffers behind the walks and read once the event completes), never in
+a synchronous copy.  A kernel cannot be cancelled: a batch that timed
+out keeps its output and pinned buffers (``_timed_out``) until its
+event completes, so that no later batch is handed them; later batches
+queue behind it on the stream and time out too, which is the way to
+the breaker; the probe refuses to enqueue behind a batch that still
+runs.  A CUDA kernel takes every shape, so the reference's
+``CompileMiss`` (a shape not compiled yet, served by the host with no
+breaker strike) has no counterpart; ``_StaleRace`` earns no strike.
+
+**Segments and compaction** (``segments=True`` with a ``segments_dir``,
+the reference's ``match.segments.*``): the first bootstrap loads the
+table from ``<segments_dir>/match_table.seg.npz``
+(``storage/segments.py``; the ``table.load`` seam; a ``state`` segment
+for the Python table, a ``filters`` one for the native table) and
+replays only the difference against the live router, where a missing
+or rejected segment leaves the full rebuild; a restored Python table
+links its trie in the background (``table.hydrate``).  The supervised
+``table.compact`` child builds, every ``compact_interval_s`` once
+``compact_min_mutations`` mutations piled up, a compacted table and its
+device twin on a worker thread (the upload on a CUDA stream of its own,
+whose event the serving stream waits on before it reads the new
+tensors), writes the next segment, and swaps both in on the loop
+(``_swap_in``: the ``table.swap`` seam first, then the filters changed
+during the build are fixed up and written to the new device table,
+the rule ids remapped and the table generation bumped, so that a slot
+in flight across the swap is answered by the host).  A build during
+which more than 4,096 filters changed is abandoned.  On the Python
+table the device twin grows in place on a resize (``DeviceNfa.
+dirty_regions``, over ``dirty_threshold``: a whole upload).  The
+reference's ``prewarm`` and ``match.segments.xla_cache`` pre-pay XLA
+compiles of the next table shapes; a CUDA kernel is built once for
+every shape, so both are accepted and do nothing.
+
 The node's seams are the reference's: ``hists`` (a ``HistSet``: the
 ``obs.stage.match_wait`` / ``match_encode`` / ``match_dispatch`` /
 ``match_readback`` histograms), ``flightrec`` (the ``match.serve``,
-``match.encode`` and ``match.readback`` rings), ``alarms`` and ``olp``
-(kept; only the deadline loop reads them), and a ``supervisor``
-attribute set before :meth:`start`, under which the sync, batch and
-readback loops run as restartable children.  The reference's deadline
-loop (with its per-dispatch timeout, which also bounds a pipelined
-readback there), breaker, brownout, segments and multichip plane are not
-ported: their parameters raise NotImplementedError when set to anything
-but their defaults.
+``match.encode`` and ``match.readback`` rings, and the dumps), ``alarms``
+and ``olp``, and a ``supervisor`` attribute set before :meth:`start`,
+under which the loops run as restartable children.  The reference's
+multichip plane is not ported: its parameters raise
+NotImplementedError when set to anything but their defaults.
 """
 
 from __future__ import annotations
@@ -132,6 +188,7 @@ from __future__ import annotations
 import asyncio
 import gc
 import logging
+import os
 import time
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Sequence, Set, Tuple, Union
@@ -141,9 +198,11 @@ import torch
 
 from .. import faultinject as _fi
 from .. import topic as T
+from ..gil import PIECE, yield_lock, yielding
 from ..native.nfa import NativeNfa
 from ..observe.flightrec import STAGES as _FR_STAGES
 from ..ops import cuda_build
+from ..ops.compiler import _bucket as _pow2
 from ..ops.device_table import BACKENDS, JOIN_BACKENDS, DeviceNfa, check_backend
 from ..ops.encode import TopicEncoder, encode_batch, table_encoder
 from ..ops.incremental import IncrementalNfa
@@ -151,6 +210,8 @@ from ..ops.join_match import BackendAutotuner
 from ..ops.match_kernel import (SERVE_FLAT_MULT, decode_flat,
                                 decode_row_meta, fetch_flat_prefix,
                                 fetch_flat_ragged, ragged_capacity)
+from ..storage.segments import (SegmentError, load_segment,
+                                restore_incremental, save_segment)
 from .trie import FilterTrie
 
 log = logging.getLogger(__name__)
@@ -174,10 +235,6 @@ _SID_READBACK = _FR_STAGES.index("match_readback")
 #: reference parameters of features this port does not serve, with the
 #: default each must keep
 _UNPORTED = {
-    "deadline": False, "deadline_s": 0.041, "breaker_threshold": 5,
-    "breaker_probe_interval_s": 1.0, "dispatch_timeout_s": None,
-    "segments": False, "segments_dir": "", "compact_interval_s": 30.0,
-    "compact_min_mutations": 1024, "dirty_threshold": 0.5, "prewarm": True,
     "multichip": False, "multichip_tp": 0, "multichip_native": True,
     "multichip_ep": False, "multichip_ep_slack": 2.0,
     "multichip_ep_micro": 8, "multichip_ep_compact": False,
@@ -191,8 +248,13 @@ _UNPORTED = {
 
 class _StaleRace(RuntimeError):
     """A benign serving race (an accept id reused while the batch was in
-    flight): the batch answer cannot be trusted, the device is healthy;
-    the waiters get no hint and the host trie serves them."""
+    flight, or the table swapped): the batch answer cannot be trusted,
+    the device is healthy; no breaker strike."""
+
+#: the segment file in a service's ``segments_dir``
+SEGMENT_FILE = "match_table.seg.npz"
+#: a compaction during which more filters than this changed is abandoned
+COMPACT_DIRTY_MAX = 4096
 
 
 def _validate_all(filters: Sequence[str]) -> None:
@@ -307,29 +369,36 @@ class _RecentAdds:
 
 
 class _Slot:
-    """A pipelined batch past dispatch: its waiters and groups, the walk
-    results, the guards it was dispatched against (the table's
-    ``aid_reuses`` and the service's table generation), the epochs its
-    hints will carry, and its readback state: one pinned host buffer for
-    the groups' ``row_meta`` and one for their ids (both the service's,
-    lent until the rows are decoded), the event after the last copy
-    enqueued (None on the CPU, where copies are done on return), and the
-    device table whose freed accept ids it holds."""
+    """A batch past dispatch: its waiters and groups, the walk results,
+    the guards it was dispatched against (the table's ``aid_reuses`` and
+    the service's table generation), the epochs its hints will carry,
+    and its readback state: one pinned host buffer for the groups'
+    ``row_meta`` and one for their ids (both the service's, lent until
+    the rows are decoded), or the pinned copies of each group's whole
+    slab (``slab``: the ``chunked`` readback on the deadline path), the
+    event after the last copy enqueued (None on the CPU, where copies
+    are done on return), and the device table whose freed accept ids it
+    holds.  ``t0`` is its dispatch time (monotonic) and ``deadline``
+    whether the deadline loop dispatched it (its readback is then timed
+    and feeds the breaker)."""
 
     __slots__ = ("pending", "topics", "groups", "handles", "reuses0",
                  "gen0", "epoch", "rule_gen", "dispatch_s", "bufs",
-                 "metas", "event", "held")
+                 "metas", "slab", "event", "held", "t0", "deadline")
 
     def __init__(self, pending, topics, groups, handles, reuses0, gen0,
                  epoch, rule_gen, dispatch_s=0.0, bufs=None, metas=(),
-                 event=None, held=None) -> None:
+                 event=None, held=None, slab=None) -> None:
         self.pending, self.topics, self.groups = pending, topics, groups
         self.handles, self.reuses0, self.gen0 = handles, reuses0, gen0
         self.epoch, self.rule_gen = epoch, rule_gen
         self.dispatch_s = dispatch_s
         self.bufs, self.metas, self.event = bufs, metas, event
+        self.slab = slab
         # the DeviceNfa whose freed ids the slot holds until released
         self.held = held
+        self.t0 = time.monotonic()
+        self.deadline = False
 
 
 def _record_event(device: torch.device):
@@ -379,6 +448,121 @@ async def _event_done(ev) -> None:
         await asyncio.sleep(0 if polls < 64 else 0.0002)
 
 
+def _yielding_call(fn, *args):
+    """``fn(*args)`` with the yield points of :mod:`emqx_tpu_torch.gil`
+    on: the compaction's build thread hands the interpreter lock to the
+    event loop between its pieces of work."""
+    with yielding():
+        return fn(*args)
+
+
+def _build_compacted(table_kind: str, depth: int, routing: List[str],
+                     ruled: Set[str], deep_filters: List[str],
+                     active_slots: int, max_matches: int,
+                     device: torch.device, stream, serving,
+                     dirty_threshold: float, segment_path: str, join: bool,
+                     steps: Optional[List[Tuple[str, float, float]]] = None):
+    """The worker-thread half of a compaction: a fresh table of the
+    ``routing`` and ``ruled`` filters (aliases for ``deep_filters``),
+    the next segment written, and the fresh device twin uploaded.  The
+    set algebra runs here, not on the loop (at 1M filters a sort there
+    paused the loop for a second); what runs here shares the
+    interpreter lock with the loop, so the per-filter work is left to
+    the native table and numpy, and no list is sorted: a table's answers
+    do not depend on its build order.  On the card the upload runs on
+    ``stream``, and its tensors are marked as used on the ``serving``
+    stream, which must wait for the returned event before it reads
+    them.  Writes only objects made here; ``steps``, when given, gets
+    ``(step, start, end)`` on the ``time.monotonic`` clock for each step.
+    Returns ``(table, device twin, aliases, routing filter of each accept
+    id, event)``."""
+    marks = [time.monotonic()]
+
+    def step(name: str) -> None:
+        marks.append(time.monotonic())
+        if steps is not None:
+            steps.append((name, marks[-2], marks[-1]))
+
+    deep = set(deep_filters)
+    filters = routing
+    if deep:
+        filters = []
+        for i in range(0, len(routing), PIECE):
+            filters += [f for f in routing[i:i + PIECE] if f not in deep]
+            yield_lock()
+    if ruled:
+        routed: Set[str] = set()
+        for i in range(0, len(routing), PIECE):
+            routed.update(routing[i:i + PIECE])
+            yield_lock()
+        filters = filters + [f for f in ruled
+                             if f not in routed and f not in deep]
+    step("filters")
+    if table_kind == "native":
+        s, hb = _table_sizing(len(filters))
+        fresh = NativeNfa(depth=depth, state_bucket=s, edge_bucket=hb)
+        fresh.bulk_add(filters)
+    else:
+        # about half the edge slots in use after the build, so that the
+        # churn after a swap does not grow the table at once
+        fresh = IncrementalNfa(
+            depth=depth, state_bucket=_pow2(max(2 * len(filters), 8), 1024),
+            edge_bucket=_pow2(max(len(filters), 8), 64))
+        for flt in filters:
+            fresh.add(flt)
+        fresh.track_regions = True
+    step("table")
+    new_deep = {flt: fresh.alloc_alias(flt) for flt in deep_filters}
+    if table_kind == "native":
+        aids = fresh.bulk_aid_of(routing)
+    else:
+        aids = np.array([fresh.aid_of(f) for f in routing], np.int32)
+    if new_deep:
+        # a too-deep filter is not in the table: look at those ids alone
+        aids = aids.copy()
+        for i in np.flatnonzero(aids < 0).tolist():
+            aids[i] = new_deep.get(routing[i], -1)
+    step("aids")
+    # one entry per accept id, rule-only filters' too; a piece at a time,
+    # as each numpy call over object arrays holds the interpreter lock
+    fo = np.full(fresh.n_accepts if table_kind == "native"
+                 else len(fresh.accept_filters), None, object)
+    for i in range(0, len(routing), PIECE):
+        part = aids[i:i + PIECE]
+        held = part >= 0
+        fo[part[held]] = np.array(routing[i:i + PIECE], object)[held]
+        yield_lock()
+    filter_of: List[Optional[str]] = []
+    for i in range(0, len(fo), PIECE):
+        filter_of.extend(fo[i:i + PIECE].tolist())
+        yield_lock()
+    step("filter_of")
+    # the segment lands before the swap: a crash after this leaves a
+    # valid segment and the old table serving
+    save_segment(segment_path, fresh, deep=new_deep,
+                 routing_aids=aids[aids >= 0], filters=filters,
+                 join_relation=join)
+    step("segment")
+    newdev = DeviceNfa(fresh, active_slots=active_slots,
+                       max_matches=max_matches, device=device, lazy=True)
+    newdev.dirty_full_threshold = dirty_threshold
+    newdev.dirty_regions = table_kind == "python"
+    if join:
+        newdev.enable_join()
+    event = None
+    if device.type == "cuda":
+        with torch.cuda.stream(stream):
+            newdev.sync(full=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        for t in newdev.arrays() + (newdev._jarrs or ()):
+            t.record_stream(serving)
+    else:
+        newdev.sync(full=True)
+    step("upload")
+    return fresh, newdev, new_deep, filter_of, event
+
+
 class MatchService:
     """Wildcard filters mirrored into a resident device table; topic
     batches matched on the device with host fail-open for spilled rows.
@@ -404,6 +588,14 @@ class MatchService:
                  autotune_reps: int = 3, pipeline: bool = False,
                  pipeline_depth: int = 2, readback_mode: str = "chunked",
                  readback_auto_slack: float = 1.0,
+                 deadline: bool = False, deadline_s: float = 0.041,
+                 breaker_threshold: int = 5,
+                 breaker_probe_interval_s: float = 1.0,
+                 dispatch_timeout_s: Optional[float] = None,
+                 segments: bool = False, segments_dir: str = "",
+                 compact_interval_s: float = 30.0,
+                 compact_min_mutations: int = 1024,
+                 dirty_threshold: float = 0.5, prewarm: bool = True,
                  alarms: Any = None, olp: Any = None, hists: Any = None,
                  flightrec: Any = None,
                  device: Union[None, str, torch.device] = None,
@@ -425,7 +617,7 @@ class MatchService:
         self.broker = broker
         self.router = broker.router if broker is not None else None
         self.metrics = metrics
-        # kept for the deadline loop's brownout and breaker (not ported)
+        # the breaker's alarm and the brownout ladder's level
         self.alarms = alarms
         self.olp = olp
         # set by the node before start(): the loops run as its children
@@ -475,10 +667,54 @@ class MatchService:
         # bumped when the host table is replaced: a batch in flight
         # across the swap named its accept ids in the old table
         self._table_gen = 0
-        # EWMAs of a batch's encode + dispatch and of its readback (the
-        # reference's split estimate; info() reports them)
+        # the deadline serve plane (module docstring)
+        self.deadline = bool(deadline)
+        self.deadline_s = deadline_s
+        self.breaker_threshold = breaker_threshold
+        self.breaker_probe_interval_s = breaker_probe_interval_s
+        # well under the waiter timeout, so that a hung walk costs one
+        # batch answered by the host, not a stalled queue
+        self.dispatch_timeout_s = (
+            dispatch_timeout_s if dispatch_timeout_s is not None
+            else min(max(4.0 * deadline_s, 0.1),
+                     max(prefetch_timeout_s * 0.8, 0.05)))
+        # EWMAs of the arrival rate and of the short-lane share (per
+        # 50 ms window), of a batch's dispatch to hints (the combined
+        # estimate), and of its encode + dispatch and its readback (the
+        # split estimate, which serves once SPLIT_WARM batches fed it)
+        self._rate_ewma: Optional[float] = None
+        self._short_frac: Optional[float] = None
+        self._win_short = 0
+        self._est_dispatch_s = 0.005
         self._est_disp_s = 0.004
         self._est_rb_s = 0.001
+        self._est_split_samples = 0
+        self._breaker_failures = 0
+        self._breaker_open = False
+        self._probe_child: Any = None
+        self._last_brownout = 0
+        self._running = False
+        # batches that timed out on the card, each (event, what it owns:
+        # pinned buffers, outputs), kept until the event completes
+        self._timed_out: List[Tuple[Any, Any]] = []
+        # segments and compaction (module docstring); off, all inert
+        self.segments = bool(segments) and bool(segments_dir)
+        self.segments_dir = segments_dir
+        self.compact_interval_s = compact_interval_s
+        self.compact_min_mutations = compact_min_mutations
+        self.dirty_threshold = dirty_threshold
+        # accepted, and nothing to do: a CUDA kernel serves every shape
+        self.prewarm = bool(prewarm)
+        self._mut_count = 0            # table mutations since the segment
+        self._compact_dirty: Set[str] = set()   # filters changed mid-build
+        self._compact_recording = False
+        self._compact_abandoned = 0
+        #: the last build's ``(step, start, end)`` (``_build_compacted``)
+        self.compact_steps: List[Tuple[str, float, float]] = []
+        self._segment_loaded = False
+        self._segment_tried = False
+        self._seg_join_seed = None     # a state segment's join relation
+        self._build_stream = None      # the compaction's upload stream
         self.table_kind = "python" if table == "python" else "native"
         self.inc = (IncrementalNfa(depth=depth) if self.table_kind == "python"
                     else NativeNfa(depth=depth))
@@ -554,8 +790,14 @@ class MatchService:
                      device) -> DeviceNfa:
         dev = DeviceNfa(inc, active_slots=active_slots,
                         max_matches=max_matches, device=device, lazy=True)
+        if self.segments:
+            dev.dirty_full_threshold = self.dirty_threshold
+            if isinstance(inc, IncrementalNfa):
+                inc.track_regions = True
+                dev.dirty_regions = True
         if self.backend in JOIN_BACKENDS or self.backend == "auto":
-            dev.enable_join()
+            seed, self._seg_join_seed = self._seg_join_seed, None
+            dev.enable_join(segment_seed=seed)
         return dev
 
     @property
@@ -594,6 +836,7 @@ class MatchService:
             fo.extend([None] * (aid + 1 - len(fo)))
         if routing:
             fo[aid] = flt
+        self._note_mutation(flt)
         return aid
 
     def _table_del(self, flt: str, routing: bool) -> None:
@@ -612,6 +855,16 @@ class MatchService:
             self.inc.free_alias(aid)
         else:
             self.inc.remove(flt)
+        self._note_mutation(flt)
+
+    def _note_mutation(self, flt: str) -> None:
+        """Count a table mutation toward the next compaction; while a
+        compaction builds, remember the filter for the swap's fix-up."""
+        if not self.segments:
+            return
+        self._mut_count += 1
+        if self._compact_recording:
+            self._compact_dirty.add(flt)
 
     def _bulk_start(self, filters: List[str]) -> None:
         """Fill an empty native table from ``filters`` in one build: one
@@ -779,10 +1032,14 @@ class MatchService:
     def _readback_rows(res, n: int, k: int):
         """Copy a flat-mode result to the host: ``(per-row id lists,
         spilled row indices)`` for the first ``n`` rows."""
-        matches, counts, aover, mover = (
-            t.cpu().numpy() for t in (res.matches, res.n_matches,
-                                      res.active_overflow,
-                                      res.match_overflow))
+        return MatchService._slab_rows(
+            *(t.cpu().numpy() for t in (res.matches, res.n_matches,
+                                        res.active_overflow,
+                                        res.match_overflow)), n, k)
+
+    @staticmethod
+    def _slab_rows(matches, counts, aover, mover, n: int, k: int):
+        """:meth:`_readback_rows` of a slab already on the host."""
         sp = (aover > 0) | (mover > 0)
         rows = [seg.tolist() for seg in decode_flat(matches, counts, k)[:n]]
         return rows, np.flatnonzero(sp[:n]).tolist()
@@ -984,11 +1241,14 @@ class MatchService:
     # -- the serve loop: lifecycle -------------------------------------------
 
     async def start(self) -> None:
-        """Bootstrap the mirror from the router, freeze the started heap
-        and start the sync and batch loops; ``ready`` turns true after
-        the first sync and ``_warm``."""
+        """Bootstrap the mirror from the router (from a segment first,
+        with ``segments``), freeze the started heap and start the sync
+        loop, the serve loop (``_deadline_loop`` with ``deadline``, else
+        ``_batch_loop``) and, as configured, the readback and compaction
+        loops; ``ready`` turns true after the first sync and ``_warm``."""
         if self.broker is None:
             raise RuntimeError("start() needs MatchService(broker, ...)")
+        self._running = True
         self._bootstrap()
         # what is live now stays live for the node's life: spare the
         # full collections the walk over it (objects made later are
@@ -997,7 +1257,8 @@ class MatchService:
         gc.freeze()
         self._frozen_filters = len(self._ref)
         loops = [("match.sync", self._sync_loop),
-                 ("match.batch", self._batch_loop)]
+                 ("match.batch", self._deadline_loop if self.deadline
+                  else self._batch_loop)]
         if self.pipeline:
             # the queue bounds the slots waiting for the readback task;
             # with the one it holds, at most pipeline_depth batches sit
@@ -1005,22 +1266,45 @@ class MatchService:
             self._inflight_q = asyncio.Queue(
                 maxsize=max(1, self.pipeline_depth - 1))
             loops.append(("match.readback", self._readback_loop))
+        if self.segments:
+            loops.append(("table.compact", self._compact_loop))
+            if self.dev.device.type == "cuda":
+                # the compaction's upload stream, made before serving: a
+                # process's first CUDA stream waits for the work queued
+                # on the card, which would hold a build behind a hang
+                self._build_stream = torch.cuda.Stream(self.dev.device)
         sup = self.supervisor
         # supervised (the node's): a crashed loop restarts instead of
         # freezing hint freshness or the waiters until the node restarts
         self._tasks = [sup.start_child(name, fn) if sup is not None
                        else asyncio.ensure_future(fn())
                        for name, fn in loops]
+        if self._segment_loaded and getattr(
+                self.inc, "_pending_trie", None) is not None:
+            # link the restored trie in the background, so that the
+            # first mutation does not pay for it on the loop
+            self._tasks.append(
+                sup.start_child("table.hydrate", self._hydrate_loop,
+                                restart="temporary") if sup is not None
+                else asyncio.ensure_future(self._hydrate_loop()))
         self._mark_dirty()
+
+    async def _hydrate_loop(self) -> None:
+        await asyncio.to_thread(self.inc._hydrate)
 
     async def stop(self) -> None:
         """Stop the loops (waiters in flight, those of pipelined slots
         too, fail over to the host trie at once) and unhook from the
         router."""
         self.ready = False
-        for t in self._tasks:
+        self._running = False
+        tasks = self._tasks
+        if self._probe_child is not None:
+            tasks = tasks + [self._probe_child]
+            self._probe_child = None
+        for t in tasks:
             t.cancel()
-        await asyncio.gather(*self._tasks, return_exceptions=True)
+        await asyncio.gather(*tasks, return_exceptions=True)
         self._tasks = []
         try:
             self.router.listeners.remove(self._on_router_mutation)
@@ -1059,7 +1343,12 @@ class MatchService:
         Refcounts seed from the router's live destination count, so a
         filter restored with several routes survives the deletion of all
         but one of them.  An empty, never synced native table takes the
-        router's filters in one bulk build."""
+        router's filters in one bulk build.  With ``segments`` the first
+        bootstrap tries the segment (:meth:`_load_segment`) first."""
+        if self.segments and not self._segment_tried:
+            self._segment_tried = True
+            if self._load_segment():
+                return
         wild = self.router.wildcard_filters()
         self._ref = {flt: max(1, len(self.router.routes_of(flt)))
                      for flt in wild}
@@ -1069,6 +1358,229 @@ class MatchService:
             for flt in wild:
                 self._table_add(flt, routing=True)
         self._seen_epoch = self.router.epoch
+
+    # -- segments and compaction (segments=True) ----------------------------
+
+    @property
+    def _segment_path(self) -> str:
+        return os.path.join(self.segments_dir, SEGMENT_FILE)
+
+    def _load_segment(self) -> bool:
+        """Cold start from the segment: restore the table and its id
+        bookkeeping, then :meth:`_reconcile_with_router`.  False (the
+        full rebuild serves, from a fresh table) on any defect: no file,
+        a rejected checksum or version, another depth, an injected
+        ``table.load`` fault."""
+        path = self._segment_path
+        if not os.path.exists(path):
+            return False
+        t0 = time.perf_counter()
+        saved = (self.inc, self.dev, self._deep, self._deep_trie,
+                 self._filter_of)
+        try:
+            if _fi._injector is not None and \
+                    _fi._injector.act("table.load") == "raise":
+                raise SegmentError("injected table.load fault")
+            seg = load_segment(path)
+            if seg.depth != self.depth:
+                raise SegmentError(f"segment depth {seg.depth} != table "
+                                   f"depth {self.depth}")
+            self._deep, self._deep_trie = {}, FilterTrie()
+            state = seg.kind == "state" and self.table_kind == "python"
+            if state:
+                inc = restore_incremental(seg)
+                self._deep = dict(seg.deep)
+                for flt in self._deep:
+                    self._deep_trie.insert(flt)
+                fo = self._filter_of = [None] * len(inc.accept_filters)
+                for aid in seg.routing_aids:
+                    fo[aid] = inc.accept_filters[aid]
+                if seg.join_start is not None:
+                    # seeds the join relation at the first upload, when
+                    # no mutation moved the table since the segment
+                    self._seg_join_seed = (
+                        seg.epoch, (int(seg.node_tab.shape[0]),
+                                    int(seg.edge_tab.shape[0]), seg.depth),
+                        (seg.join_start, seg.join_word, seg.join_next))
+                self._install_table(inc)
+            elif self.table_kind == "native":
+                # the filter blob through one bulk build
+                self._filter_of = []
+                self._bulk_start(seg.filters)
+            else:
+                self._filter_of = []
+                self._install_table(IncrementalNfa(depth=self.depth))
+                for flt in seg.filters:
+                    self._table_add(flt, routing=True)
+            if not state:
+                for flt in seg.deep:
+                    self._table_add(flt, routing=True)
+            self._reconcile_with_router(set(seg.filters) | set(seg.deep))
+        except Exception as exc:
+            (self.inc, self.dev, self._deep, self._deep_trie,
+             self._filter_of) = saved
+            self._seg_join_seed = None
+            if isinstance(exc, SegmentError):
+                log.warning("segment %s rejected; the full rebuild serves",
+                            path, exc_info=True)
+            else:
+                log.exception("segment load failed; the full rebuild "
+                              "serves")
+            return False
+        self._segment_loaded = True
+        self._mut_count = 0
+        took = time.perf_counter() - t0
+        if self.metrics is not None:
+            self.metrics.set("tpu.table.segment_load_s", round(took, 4))
+        log.info("match table cold-started from segment %s (%d filters, "
+                 "%.1f ms)", path, self.inc.n_filters, took * 1e3)
+        return True
+
+    def _install_table(self, inc) -> None:
+        """Serve from host table ``inc`` with a fresh device twin."""
+        self.inc = inc
+        self._table_gen += 1
+        self.dev = self._bind_device(inc, self.dev.active_slots,
+                                     self.dev.max_matches, self.dev.device)
+
+    def _reconcile_with_router(self, table_set: Set[str]) -> None:
+        """Replay the difference between a restored table and the live
+        router: only the filters that changed since the segment pay a
+        table mutation.  The table's routing marks are the segment's
+        (for a filter the router still routes), the router's filters it
+        lacks are added, and the filters it no longer routes go (no rule
+        is registered at a cold start)."""
+        routed = self.router.wildcard_filters()
+        routed_set = set(routed)
+        self._ref = {flt: max(1, len(self.router.routes_of(flt)))
+                     for flt in routed}
+        for flt in routed_set - table_set:
+            self._table_add(flt, routing=True)
+        for flt in table_set - routed_set:
+            self._table_del(flt, routing=True)
+        self._seen_epoch = self.router.epoch
+
+    async def _compact_loop(self) -> None:
+        """The ``table.compact`` child: every ``compact_interval_s``, once
+        ``compact_min_mutations`` mutations piled up (or there is no
+        segment yet), one :meth:`_compact_once`; a failed cycle leaves
+        the live table serving and is tried again next interval."""
+        while True:
+            await asyncio.sleep(self.compact_interval_s)
+            if not self.ready:
+                continue
+            if self._mut_count < self.compact_min_mutations \
+                    and os.path.exists(self._segment_path):
+                continue
+            try:
+                await self._compact_once()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("table compaction failed; tried again next "
+                              "interval")
+
+    def _snapshot_filters(self) -> Tuple[List[str], Set[str], List[str]]:
+        """(routing filters, rule filters, too-deep filters): copies of
+        the service's own maps, cheap enough for the loop."""
+        ruled = {f for refs in self._rule_refs.values() for f in refs}
+        return list(self._ref), ruled, list(self._deep)
+
+    async def _compact_once(self) -> bool:
+        """One compaction: the snapshot, the build and the segment on a
+        worker thread (:func:`_build_compacted`), then :meth:`_swap_in`
+        on the loop.  False when abandoned (more than
+        ``COMPACT_DIRTY_MAX`` filters changed during the build)."""
+        routing, ruled, deep_filters = self._snapshot_filters()
+        self.compact_steps = []
+        self._compact_dirty = set()
+        self._compact_recording = True
+        dev = self.dev
+        serving = (torch.cuda.current_stream(dev.device)
+                   if dev.device.type == "cuda" else None)
+        try:
+            built = await asyncio.to_thread(
+                _yielding_call, _build_compacted, self.table_kind,
+                self.depth, routing, ruled, deep_filters, dev.active_slots,
+                dev.max_matches, dev.device, self._build_stream, serving,
+                self.dirty_threshold, self._segment_path,
+                self.backend in JOIN_BACKENDS or self.backend == "auto",
+                self.compact_steps)
+        finally:
+            self._compact_recording = False
+        if len(self._compact_dirty) > COMPACT_DIRTY_MAX:
+            # the live table is right, only the compaction is stale
+            self._compact_abandoned += 1
+            log.warning("table compaction abandoned: %d filters changed "
+                        "during the build", len(self._compact_dirty))
+            return False
+        self._swap_in(built)
+        return True
+
+    def _swap_in(self, built) -> None:
+        """Swap the compacted table and its device twin in, in one step
+        of the loop.  The ``table.swap`` seam fires before anything
+        changes, so that a kill there leaves the old table serving.
+        Then the filters changed during the build are fixed up in the
+        fresh table and written to its device twin (on the serving
+        stream, after the build's upload event), the rule ids are
+        remapped into the fresh accept ids, and the table generation is
+        bumped: a slot in flight named ids of the old table and is
+        answered by the host (``_StaleRace``).  Hints survive: they hold
+        router epochs and filter strings.  The fresh twin holds no freed
+        id for a slot."""
+        if _fi._injector is not None and \
+                _fi._injector.act("table.swap") == "raise":
+            raise _fi.InjectedFault("table.swap")
+        fresh, newdev, new_deep, filter_of, event = built
+        ruled = {f for refs in self._rule_refs.values() for f in refs}
+        for flt in self._compact_dirty:
+            routed = flt in self._ref
+            aid = new_deep.get(flt, fresh.aid_of(flt))
+            if (routed or flt in ruled) and aid < 0:
+                try:
+                    fresh.add(flt)
+                    aid = fresh.aid_of(flt)
+                except ValueError:      # deeper than the table
+                    aid = new_deep[flt] = fresh.alloc_alias(flt)
+            elif not (routed or flt in ruled):
+                if aid >= 0:
+                    if flt in new_deep:
+                        fresh.free_alias(new_deep.pop(flt))
+                    else:
+                        fresh.remove(flt)
+                    if aid < len(filter_of):
+                        filter_of[aid] = None
+                continue
+            if aid >= len(filter_of):
+                filter_of.extend([None] * (aid + 1 - len(filter_of)))
+            filter_of[aid] = flt if routed else None
+        if event is not None:
+            torch.cuda.current_stream(newdev.device).wait_event(event)
+        if self._compact_dirty:
+            newdev.apply_pending(newdev.drain())
+        new_aid_rules: Dict[int, Set[str]] = {}
+        for rule_id, refs in self._rule_refs.items():
+            for flt in refs:
+                aid = new_deep.get(flt, fresh.aid_of(flt))
+                if aid >= 0:
+                    new_aid_rules.setdefault(aid, set()).add(rule_id)
+        trie = FilterTrie()
+        for flt in new_deep:
+            trie.insert(flt)
+        self.inc, self.dev = fresh, newdev
+        self._deep, self._deep_trie = new_deep, trie
+        self._filter_of = filter_of
+        self._aid_rules = new_aid_rules
+        self._table_gen += 1
+        self._synced_epoch = self._seen_epoch
+        self._synced_rule_gen = self._rule_gen
+        self._mut_count = len(self._compact_dirty)
+        self._compact_dirty = set()
+        self.ready = True
+        self._inc("tpu.table.compact_runs")
+        log.info("compacted table swapped in (gen %d, %d filters)",
+                 self._table_gen, fresh.n_filters)
 
     def _drain_router(self) -> None:
         deltas = self.router.deltas_since(self._seen_epoch)
@@ -1128,6 +1640,9 @@ class MatchService:
                     self._inc("tpu.mirror.recompile")
                 elif pending.delta is not None and not pending.delta.empty:
                     self._inc("tpu.mirror.delta_applied")
+                if self.segments and self.metrics is not None:
+                    self.metrics.set("tpu.table.dirty_rows_uploaded",
+                                     self.dev.dirty_rows_uploaded)
                 self.sync_error = None
                 self._freeze_growth()
             except Exception as exc:
@@ -1266,14 +1781,32 @@ class MatchService:
                 return False
         return True
 
-    def _note_arrival(self) -> None:
+    def _note_arrival(self, topic: Optional[str] = None) -> None:
+        """Count an arrival in the rate window (50 ms); with
+        ``deadline``, a closed window also feeds the EWMAs of the rate
+        and of the share of short topics (``topic`` given)."""
         now = time.monotonic()
         dt = now - self._win_start
         if dt >= 0.05:
             self._last_rate = self._win_count / dt
+            if self.deadline:
+                a = 0.5
+                self._rate_ewma = (
+                    self._last_rate if self._rate_ewma is None
+                    else self._rate_ewma * (1.0 - a) + self._last_rate * a)
+                frac = self._win_short / max(1, self._win_count)
+                self._short_frac = (
+                    frac if self._short_frac is None
+                    else self._short_frac * (1.0 - a) + frac * a)
+                self._win_short = 0
             self._win_start = now
             self._win_count = 0
         self._win_count += 1
+        if topic is not None and self._is_short(topic):
+            self._win_short += 1
+
+    def _is_short(self, topic: str) -> bool:
+        return topic.count("/") < self.short_depth
 
     def _should_bypass(self) -> bool:
         if self.bypass_rate <= 0:
@@ -1284,8 +1817,11 @@ class MatchService:
         """Async stage (connection intercept): micro-batch this topic
         through the walk and park the answer in the hint cache.  Bounded
         by ``prefetch_timeout_s``: a stalled device degrades to the host
-        path, never blocks publishes indefinitely."""
-        self._note_arrival()
+        path, never blocks publishes indefinitely.  With ``deadline`` the
+        waiter carries its budget, and an open breaker or the brownout
+        (stage 3, or stage 2 for ``qos`` 0) leaves the topic to the host
+        trie at once."""
+        self._note_arrival(topic if self.deadline else None)
         if not self._usable():
             return
         hint = self._hints.get(topic)
@@ -1295,8 +1831,15 @@ class MatchService:
         if self._should_bypass():
             self._inc("tpu.match.bypass")
             return
-        fut: asyncio.Future = asyncio.get_running_loop().create_future()
-        self._enqueue(topic, fut)
+        loop = asyncio.get_running_loop()
+        if self.deadline:
+            lvl = self._brownout()
+            if self._breaker_open or lvl >= 3 or (lvl >= 2 and qos == 0):
+                self._inc("broker.match.cpu_fallback")
+                return
+        fut: asyncio.Future = loop.create_future()
+        self._enqueue(topic, fut, loop.time() + self.deadline_s
+                      if self.deadline else None)
         self._batch_wake.set()
         await _await_answers((fut,), self.prefetch_timeout_s,
                              "prefetch for %r timed out", topic)
@@ -1307,22 +1850,37 @@ class MatchService:
         whole set rides one batching window.  Bounded by
         ``prefetch_timeout_s`` like :meth:`prefetch`.  ``topics`` may be
         a ``{topic: max qos}`` mapping, as the fanout passes it, which
-        is then also ``qos_of``: the reference's deadline brownout sheds
-        QoS0 topics by it, and that shed waits for the deadline loop's
-        port; here the mapping is read as the topic set."""
+        is then also ``qos_of``: with ``deadline`` the brownout's stage 2
+        sheds the QoS0 topics to the host trie by it, and an open breaker
+        or stage 3 sheds them all."""
         if not self._usable():
+            return
+        if qos_of is None and isinstance(topics, dict):
+            qos_of = topics
+        deadline = self.deadline
+        lvl = self._brownout() if deadline else 0
+        if deadline and (self._breaker_open or lvl >= 3):
+            self._inc("broker.match.cpu_fallback", len(topics))
             return
         waits: List[asyncio.Future] = []
         loop = asyncio.get_running_loop()
+        due = loop.time() + self.deadline_s if deadline else None
+        shed = 0
         for topic in topics:
-            self._note_arrival()
+            self._note_arrival(topic if deadline else None)
             hint = self._hints.get(topic)
             if hint is not None and self._proven(topic, hint) \
                     and self._rules_fresh(topic, hint[1]):
                 continue
+            if deadline and lvl >= 2 and qos_of is not None \
+                    and qos_of.get(topic, 1) == 0:
+                shed += 1
+                continue
             fut = loop.create_future()
-            self._enqueue(topic, fut)
+            self._enqueue(topic, fut, due)
             waits.append(fut)
+        if shed:
+            self._inc("broker.match.cpu_fallback", shed)
         if not waits:
             return
         self._batch_wake.set()
@@ -1370,15 +1928,18 @@ class MatchService:
 
     # -- the serve loop: batches -----------------------------------------------
 
-    def _enqueue(self, topic: str, fut: asyncio.Future) -> None:
+    def _enqueue(self, topic: str, fut: asyncio.Future,
+                 due: Optional[float] = None) -> None:
+        """Queue a waiter: ``(topic, future)``, then its budget's end
+        (loop time, a float) on the deadline path, then, with histograms
+        on, its match_wait stamp (an int; consumers index from the
+        front)."""
         if not self._pending:
             self._pending_since = time.monotonic()
-        # with histograms on, the match_wait stamp rides as the waiter's
-        # last element (consumers index from the front)
+        entry = (topic, fut) if due is None else (topic, fut, due)
         if self._h_wait is not None:
-            self._pending.append((topic, fut, time.perf_counter_ns()))
-        else:
-            self._pending.append((topic, fut))
+            entry += (time.perf_counter_ns(),)
+        self._pending.append(entry)
 
     async def _batch_loop(self) -> None:
         """The fixed-window serve loop: wake, let the batching window run
@@ -1409,6 +1970,266 @@ class MatchService:
                 self._autotune_queued()
         finally:
             self._fail_over_waiters()
+
+    # -- the deadline serve plane (deadline=True) ------------------------------
+
+    async def _deadline_loop(self) -> None:
+        """Continuous batching under a budget: dispatch when the adaptive
+        bound fills, or when the oldest waiter's remaining budget no
+        longer covers the estimated dispatch time, whichever comes
+        first; with the device out (breaker, brownout stage 3, a stale
+        mirror) the host answers the queue at once.  However the loop
+        ends, the waiters in flight fail over to the host path."""
+        loop = asyncio.get_running_loop()
+        try:
+            if self._pending:
+                self._batch_wake.set()
+            while True:
+                await self._batch_wake.wait()
+                self._batch_wake.clear()
+                while self._pending:
+                    if not self._device_ok():
+                        self._cpu_serve(self._pop_batch(len(self._pending)))
+                        continue
+                    bound = self._deadline_bound()
+                    slack = (self._pending[0][2] - loop.time()
+                             - self._dispatch_est())
+                    if len(self._pending) < bound and slack > 0:
+                        # admit more arrivals, never past the oldest
+                        # budget; a geometric re-check keeps idle wakes
+                        # few while a wake still ends the wait
+                        wait = min(slack, max(self.batch_window_s,
+                                              slack / 4))
+                        try:
+                            await asyncio.wait_for(self._batch_wake.wait(),
+                                                   wait)
+                        except asyncio.TimeoutError:
+                            pass
+                        self._batch_wake.clear()
+                        continue
+                    if len(self._pending) < bound:
+                        # a partial batch the budget forced out
+                        self._inc("broker.match.deadline_dispatch")
+                    await self._serve_batch_deadline(self._pop_batch(bound))
+                    self._autotune_queued()
+        finally:
+            self._fail_over_waiters()
+
+    def _deadline_bound(self) -> int:
+        """The batch bound: the arrivals of the budget left after the
+        estimated dispatch, at least those of one dispatch (else the loop
+        falls behind by construction) and at most ``max_batch``; the
+        brownout's stage 1 halves it, stage 2 and up quarter it."""
+        rate = (self._rate_ewma if self._rate_ewma is not None
+                else self._last_rate)
+        est = self._dispatch_est()
+        headroom = max(self.deadline_s - est, self.deadline_s * 0.25)
+        bound = max(1, min(self.max_batch,
+                           max(int(rate * headroom), int(rate * est * 1.2))))
+        lvl = self._brownout()
+        if lvl:
+            bound = max(1, bound >> min(lvl, 2))
+        return bound
+
+    def _lane_caps(self, bound: int) -> Tuple[int, int]:
+        """(short-topic, long-topic) caps of a batch of ``bound`` from the
+        observed short share, each with 25% slack, so that a deep-topic
+        flood cannot take the whole bound."""
+        if not self.short_depth or self.short_depth >= self.depth:
+            return bound, bound
+        frac = self._short_frac if self._short_frac is not None else 0.5
+        short = min(bound, max(1, int(bound * frac * 1.25) + 1))
+        long_ = min(bound, max(1, int(bound * (1.0 - frac) * 1.25) + 1))
+        return short, long_
+
+    def _pop_batch(self, bound: int) -> List[Any]:
+        """Pop up to ``bound`` waiters from the head of the queue within
+        the lane caps; a waiter whose lane is full stays queued, in order.
+        The scan stops at ``4 * bound`` waiters."""
+        short_cap, long_cap = self._lane_caps(bound)
+        pend = self._pending
+        take: List[Any] = []
+        rest: List[Any] = []
+        limit = min(len(pend), 4 * bound)
+        pos = 0
+        while pos < limit and len(take) < bound:
+            entry = pend[pos]
+            pos += 1
+            if self._is_short(entry[0]):
+                if short_cap > 0:
+                    short_cap -= 1
+                    take.append(entry)
+                else:
+                    rest.append(entry)
+            elif long_cap > 0:
+                long_cap -= 1
+                take.append(entry)
+            else:
+                rest.append(entry)
+        rest.extend(pend[pos:])
+        self._pending = rest
+        return take
+
+    async def _serve_batch_deadline(self, pending: List[Any]) -> None:
+        """One deadline dispatch: the chaos seam, encode, dispatch and
+        readback under ``dispatch_timeout_s``; a failure or a timeout
+        answers the batch from the host tables at once and counts toward
+        the breaker (a ``_StaleRace`` does not)."""
+        if not pending:
+            return
+        self._rec_wait(pending)
+        if self._timed_out:
+            self._reclaim()
+        if self.pipeline:
+            await self._pipeline_dispatch(pending)
+            return
+        topics = [p[0] for p in pending]
+        epoch = self._synced_epoch
+        rule_gen = self._synced_rule_gen
+        t0 = time.monotonic()
+        try:
+            rows = await asyncio.wait_for(self._dispatch_guarded(topics),
+                                          self.dispatch_timeout_s)
+        except asyncio.CancelledError:
+            # the loop is dying: its exit fails these waiters over
+            self._pending = pending + self._pending
+            raise
+        except _StaleRace:
+            self._cpu_serve(pending)
+            return
+        except Exception:
+            log.debug("deadline dispatch failed; the host tables serve "
+                      "the batch", exc_info=True)
+            self._breaker_note_failure()
+            self._cpu_serve(pending)
+            return
+        self._breaker_note_ok()
+        self._est_dispatch_s = (self._est_dispatch_s * 0.7
+                                + (time.monotonic() - t0) * 0.3)
+        self._mint_hints(pending, rows, epoch, rule_gen)
+
+    # -- the breaker and the brownout ------------------------------------------
+
+    def _brownout(self) -> int:
+        """The olp's brownout stage (0 without one); an escalation dumps
+        the flight recorder once."""
+        olp = self.olp
+        lvl = 0 if olp is None else olp.brownout_level()
+        if lvl != self._last_brownout:
+            if lvl > self._last_brownout and self.flightrec is not None:
+                self.flightrec.dump("brownout")
+            self._last_brownout = lvl
+            if self.metrics is not None:
+                self.metrics.set("broker.match.brownout_level", lvl)
+        return lvl
+
+    def _device_ok(self) -> bool:
+        """Whether the next dispatch may go to the device."""
+        if self._breaker_open or not self._usable():
+            return False
+        return self._brownout() < 3
+
+    def _breaker_note_ok(self) -> None:
+        self._breaker_failures = 0
+
+    def _breaker_note_failure(self) -> None:
+        self._breaker_failures += 1
+        if (not self._breaker_open
+                and self._breaker_failures >= self.breaker_threshold):
+            self._trip_breaker()
+
+    def _trip_breaker(self) -> None:
+        """Open the breaker: the host serves, the ``match_degraded`` alarm
+        is raised, the flight recorder dumps, and the ``match.probe``
+        child starts."""
+        self._breaker_open = True
+        self._set_breaker_metric(1)
+        log.error("match-service breaker open after %d consecutive "
+                  "dispatch failures; the host tables serve",
+                  self._breaker_failures)
+        if self.alarms is not None:
+            self.alarms.activate(
+                "match_degraded", {"failures": self._breaker_failures},
+                "device match dispatch failing; serving from CPU trie")
+        if self.flightrec is not None:
+            self.flightrec.dump("breaker_trip")
+        sup = self.supervisor
+        self._probe_child = (
+            sup.start_child("match.probe", self._probe_loop,
+                            restart="transient") if sup is not None
+            else asyncio.ensure_future(self._probe_loop()))
+
+    def _close_breaker(self) -> None:
+        self._breaker_open = False
+        self._breaker_failures = 0
+        self._set_breaker_metric(0)
+        log.warning("match-service breaker closed: device dispatch "
+                    "healthy again")
+        if self.alarms is not None:
+            self.alarms.deactivate("match_degraded")
+
+    def _set_breaker_metric(self, state: int) -> None:
+        if self.metrics is not None:
+            self.metrics.set("broker.match.breaker_state", state)
+
+    async def _probe_loop(self) -> None:
+        """Breaker recovery: every ``breaker_probe_interval_s`` one probe
+        batch through the dispatch seam, under the dispatch timeout; the
+        first that gets through closes the breaker and ends the child."""
+        while self._running and self._breaker_open:
+            await asyncio.sleep(self.breaker_probe_interval_s)
+            if not self._running:
+                return
+            self._set_breaker_metric(2)
+            try:
+                await asyncio.wait_for(self._probe_guarded(),
+                                       self.dispatch_timeout_s)
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.debug("match breaker probe failed; staying open",
+                          exc_info=True)
+                self._set_breaker_metric(1)
+                continue
+            self._close_breaker()
+            return
+
+    async def _probe_guarded(self) -> None:
+        await self._fault_gate()
+        await self._probe_dispatch()
+
+    async def _probe_dispatch(self) -> None:
+        """One topic through the warmed shape, encode to readback, with
+        no serving counter touched.  Refused, without a launch, while a
+        batch that timed out still runs on the card: a probe behind it
+        would time out too, and the probes would pile up on the
+        stream."""
+        self._reclaim()
+        if self._timed_out:
+            raise RuntimeError("a timed-out batch still runs on the card")
+        dev = self.dev
+        res = dev.match(*dev.put_batch(*encode_batch(
+            self.inc, ["probe/health"], batch=64, depth=self.depth)),
+            flat_cap=self.FLAT_MULT * 64)
+        ev = _record_event(dev.device)
+        try:
+            await _event_done(ev)
+        except asyncio.CancelledError:
+            if ev is not None and not ev.query():
+                self._timed_out.append((ev, res))
+            raise
+        self._readback_rows(res, 1, dev.max_matches)
+
+    def _reclaim(self) -> None:
+        """Give back what the timed-out batches whose events completed
+        held: their pinned buffer pairs return to the free list."""
+        keep = []
+        for ev, held in self._timed_out:
+            if not ev.query():
+                keep.append((ev, held))
+            elif isinstance(held, _Slot) and held.bufs is not None:
+                self._rb_free.append(held.bufs)
+        self._timed_out = keep
 
     async def _serve_batch(self, pending: List[Any]) -> None:
         """Device rows → hints; any failure, or the loop's cancellation,
@@ -1490,7 +2311,9 @@ class MatchService:
         the spill re-run and deep merge; one id row per topic.  Only the
         chaos seam between dispatch and readback can let the table
         change while a slab batch is in flight; the reuse guard covers
-        it."""
+        it.  On the deadline path the slab too is read through a slot,
+        whose event is polled between rounds of the loop, so that the
+        dispatch timeout can fire while the walk runs."""
         reuses0, gen0 = self.inc.aid_reuses, self._table_gen
         groups = self._depth_groups(topics)
         self._topic_sample.extend(topics[:8])
@@ -1498,13 +2321,14 @@ class MatchService:
         handles = self._encode_dispatch(topics, groups)
         t1 = time.perf_counter()
         await self._readback_gate()
-        if self.readback_mode == "chunked":
+        if self.readback_mode == "chunked" and not self.deadline:
             t2 = time.perf_counter()
             results, nbytes, trips = self._readback_groups(handles)
             rb_s = time.perf_counter() - t2
         else:
             slot = self._make_slot([], topics, groups, handles, reuses0,
-                                   gen0, 0, 0)
+                                   gen0, 0, 0,
+                                   slab=self.readback_mode == "chunked")
             try:
                 results, nbytes, rb_s, trips = await self._readback_slot(
                     slot)
@@ -1530,6 +2354,8 @@ class MatchService:
             if not fut.done():
                 fut.set_result(None)
         self._evict()
+        if self.deadline:
+            self._count_misses(pending)
 
     def _evict(self) -> None:
         """Evict after insert, least recently served first (dict order
@@ -1577,8 +2403,7 @@ class MatchService:
     def _count_misses(self, pending: List[Any]) -> None:
         """Count the waiters answered past their deadline (a deadline
         waiter carries it third, a float; the fixed-window loop's waiters
-        carry none, at most an int match_wait stamp, so this counts
-        nothing until the deadline loop is ported)."""
+        carry none, at most an int match_wait stamp)."""
         if self.metrics is None:
             return
         try:
@@ -1596,13 +2421,30 @@ class MatchService:
         slot in neither)."""
         self._est_disp_s = self._est_disp_s * 0.7 + disp_s * 0.3
         self._est_rb_s = self._est_rb_s * 0.7 + rb_s * 0.3
+        if self._est_split_samples < 1 << 30:
+            self._est_split_samples += 1
+
+    #: split-estimate samples below which the combined estimate serves
+    SPLIT_WARM = 8
+
+    def _dispatch_est(self) -> float:
+        """The dispatch time the deadline loop subtracts from a budget:
+        the split components' sum once warm (no queue wait in it), else
+        the combined EWMA."""
+        if self._est_split_samples >= self.SPLIT_WARM:
+            return self._est_disp_s + self._est_rb_s
+        return self._est_dispatch_s
 
     # -- the overlapped pipeline (pipeline=True) -------------------------------
 
     def _take_bufs(self, rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """A (meta, ids) host buffer pair for ``rows`` padded batch rows
         (``FLAT_MULT`` ids a row), pinned on the card: a free one, or a
-        new one sized for two depth groups of ``max_batch``."""
+        new one sized for two depth groups of ``max_batch``.  A pair a
+        timed-out batch holds is free again only once its copies are
+        done."""
+        if self._timed_out:
+            self._reclaim()
         free = self._rb_free
         for i, (meta, _ids) in enumerate(free):
             if meta.numel() >= rows:
@@ -1621,7 +2463,9 @@ class MatchService:
         batching.  The slot carries the guards it was dispatched against,
         so that a table change landing while it is in flight discards
         exactly that slot.  A failure answers the batch from the host
-        tables."""
+        tables (and, from the deadline loop, counts toward the breaker;
+        the chaos seam then runs under the dispatch timeout: encode and
+        launch run on the loop and cannot hang)."""
         if not pending:
             return
         topics = [p[0] for p in pending]
@@ -1631,7 +2475,11 @@ class MatchService:
         try:
             if not self._usable():
                 raise RuntimeError("mirror stale")
-            await self._fault_gate()
+            if self.deadline:
+                await asyncio.wait_for(self._fault_gate(),
+                                       self.dispatch_timeout_s)
+            else:
+                await self._fault_gate()
             groups = self._depth_groups(topics)
             self._topic_sample.extend(topics[:8])
             t0 = time.perf_counter()
@@ -1639,6 +2487,7 @@ class MatchService:
             slot = self._make_slot(pending, topics, groups, handles,
                                    reuses0, gen0, epoch, rule_gen)
             slot.dispatch_s = time.perf_counter() - t0
+            slot.deadline = self.deadline
             await self._inflight_q.put(slot)   # backpressure at the depth
             self._inflight_n += 1
             self._set_inflight_metric()
@@ -1649,15 +2498,34 @@ class MatchService:
         except Exception:
             log.debug("device batch failed (pipelined dispatch); the host "
                       "tables serve it", exc_info=True)
+            if self.deadline:
+                self._breaker_note_failure()
             self._cpu_serve(pending)
 
     def _make_slot(self, pending, topics, groups, handles, reuses0: int,
-                   gen0: int, epoch: int, rule_gen: int) -> _Slot:
+                   gen0: int, epoch: int, rule_gen: int,
+                   slab: bool = False) -> _Slot:
         """The slot of dispatched ``handles``: phase 1 of its readback
-        (each group's ``row_meta`` into a borrowed pinned buffer) is
-        enqueued behind the walks, and the event after it recorded.  The
-        slot holds the table's freed accept ids until
+        (each group's ``row_meta`` into a borrowed pinned buffer; with
+        ``slab``, each group's whole slab into pinned buffers of its own)
+        is enqueued behind the walks, and the event after it recorded.
+        The slot holds the table's freed accept ids until
         :meth:`_release_slot`."""
+        if slab:
+            pin = self.dev.device.type == "cuda"
+            copies = []
+            for res, _n in handles:
+                outs = (res.matches, res.n_matches, res.active_overflow,
+                        res.match_overflow)
+                host = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=pin) for t in outs)
+                for h, t in zip(host, outs):
+                    h.copy_(t, non_blocking=True)
+                copies.append(host)
+            self.dev.hold_ids()
+            return _Slot(pending, topics, groups, handles, reuses0, gen0,
+                         epoch, rule_gen, slab=copies,
+                         event=_record_event(self.dev.device), held=self.dev)
         bufs = self._take_bufs(sum(int(res.row_meta.numel())
                                    for res, _n in handles))
         metas = []
@@ -1675,12 +2543,15 @@ class MatchService:
 
     def _release_slot(self, slot: _Slot) -> None:
         """A slot is done with: its buffers go back to the free list
-        once their copies are done (else they are dropped), and its hold
-        on the freed accept ids is lifted."""
-        if slot.bufs is not None and (slot.event is None
-                                      or slot.event.query()):
+        once their copies are done, and its hold on the freed accept ids
+        is lifted.  A slot whose copies still run (its walk timed out,
+        or the loop was cancelled) is kept whole in ``_timed_out`` until
+        its event completes: no later batch is handed its buffers."""
+        if slot.event is not None and not slot.event.query():
+            self._timed_out.append((slot.event, slot))
+        elif slot.bufs is not None:
             self._rb_free.append(slot.bufs)
-        slot.bufs = None
+            slot.bufs = None
         if slot.held is not None:
             slot.held.release_ids()
             slot.held = None
@@ -1707,9 +2578,12 @@ class MatchService:
         released however it ends."""
         try:
             try:
-                await self._readback_gate()
-                results, nbytes, rb_s, trips = await self._readback_slot(
-                    slot)
+                if slot.deadline:
+                    results, nbytes, rb_s, trips = await asyncio.wait_for(
+                        self._gated_readback(slot), self.dispatch_timeout_s)
+                else:
+                    results, nbytes, rb_s, trips = \
+                        await self._gated_readback(slot)
                 self._note_split(slot.dispatch_s, rb_s)
                 self._inc("tpu.match.readback_bytes", nbytes)
                 self._inc("tpu.match.readback_roundtrips", trips)
@@ -1717,11 +2591,23 @@ class MatchService:
                                           slot.reuses0, slot.gen0)
             except asyncio.CancelledError:
                 raise
+            except _StaleRace:
+                # the table changed under this slot: the device is fine
+                log.debug("device batch failed (pipelined readback, stale "
+                          "slot); the host tables serve it", exc_info=True)
+                self._cpu_serve(slot.pending)
+                return
             except Exception:
                 log.debug("device batch failed (pipelined readback); the "
                           "host tables serve it", exc_info=True)
+                if slot.deadline:
+                    self._breaker_note_failure()
                 self._cpu_serve(slot.pending)
                 return
+            if slot.deadline:
+                self._breaker_note_ok()
+                self._est_dispatch_s = (self._est_dispatch_s * 0.7
+                                        + (time.monotonic() - slot.t0) * 0.3)
             self._mint_hints(slot.pending, rows, slot.epoch, slot.rule_gen)
         finally:
             self._release_slot(slot)
@@ -1729,15 +2615,29 @@ class MatchService:
                 if not p[1].done():
                     p[1].set_result(None)
 
+    async def _gated_readback(self, slot: _Slot):
+        await self._readback_gate()
+        return await self._readback_slot(slot)
+
     async def _readback_slot(self, slot: _Slot):
         """The two phases of a slot's readback, each one wait on an
         event polled between rounds of the loop: the ``row_meta`` copies
         that rode behind the walks, then one copy per group of the ids
-        :meth:`_phase2_count` asks for into the slot's ids buffer.
+        :meth:`_phase2_count` asks for into the slot's ids buffer; or,
+        for a ``slab`` slot, one wait for the slabs (the bytes and the
+        one trip a group of the reference's ``chunked`` slab read).
         Returns ``([(rows, spilled)...], bytes, seconds, waits)``."""
         t0 = time.perf_counter_ns()
         await _event_done(slot.event)
         k = self.dev.max_matches
+        if slot.slab is not None:
+            out = [self._slab_rows(*(h.numpy() for h in host), n, k)
+                   for host, (_res, n) in zip(slot.slab, slot.handles)]
+            nbytes = sum(4 * (res.matches.numel() + 3 * res.n_matches.numel())
+                         for res, _n in slot.handles)
+            self._rec_readback(t0, slot.handles)
+            return (out, nbytes, (time.perf_counter_ns() - t0) * 1e-9,
+                    len(slot.handles))
         metas = [m.numpy() for m in slot.metas]
         ids_buf = slot.bufs[1]
         views = []
@@ -1823,11 +2723,27 @@ class MatchService:
             "pipeline_inflight": self._inflight_n,
             "readback_mode": self.readback_mode,
             "readback_auto_slack": self.readback_auto_slack,
+            "deadline": self.deadline,
+            "breaker": "open" if self._breaker_open else "closed",
+            "breaker_failures": self._breaker_failures,
+            "brownout": self._last_brownout,
+            "timed_out_batches": len(self._timed_out),
+            "est_dispatch_ms": round(self._est_dispatch_s * 1e3, 3),
             "est_disp_ms": round(self._est_disp_s * 1e3, 3),
             "est_readback_ms": round(self._est_rb_s * 1e3, 3),
+            "est_split_warm": self._est_split_samples >= self.SPLIT_WARM,
             "dispatches": self.dispatches,
             "join_dispatches": self.join_dispatches,
             "join_rebuilds": self.dev.join_rebuilds,
             "autotune": (self.tuner.info()
                          if self.tuner is not None else None),
+            "segments": ({
+                "dir": self.segments_dir,
+                "loaded": self._segment_loaded,
+                "table_gen": self._table_gen,
+                "mutations": self._mut_count,
+                "abandoned": self._compact_abandoned,
+                "grow_applies": self.dev.grow_applies,
+                "dirty_rows_uploaded": self.dev.dirty_rows_uploaded,
+            } if self.segments else None),
         }

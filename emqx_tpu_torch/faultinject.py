@@ -23,12 +23,20 @@ Named injection points:
                      written twice; raise)
 ``frame.parse``      Parser.feed, per read (raise: a ``FrameError``, the
                      malformed-packet path)
-``match.dispatch``   MatchService device dispatch (raise / delay / hang)
+``match.dispatch``   MatchService device dispatch and the breaker's
+                     recovery probe (raise / delay / hang; in deadline
+                     mode a hang is rescued by the per-dispatch timeout)
 ``match.compile``    MatchService warm step: kernel builds and the first
                      walks before ``ready`` (raise / delay)
 ``match.readback``   MatchService d2h readback boundary (raise / delay /
                      hang; a hang parks until the waiters' prefetch
-                     timeout)
+                     timeout, or in deadline mode the per-dispatch one)
+``table.load``       MatchService segment cold-start load (raise: treated
+                     like a corrupt segment, the full rebuild serves)
+``table.swap``       MatchService compacted-table swap, fired before any
+                     state mutates (raise: the ``table.compact`` child
+                     dies mid-swap as a no-op; the next cycle compacts
+                     again)
 ``fanout.drain``     FanoutPipeline drain loop, before a batch pops
                      (raise: the drain task dies with nothing popped;
                      delay)
@@ -57,8 +65,8 @@ __all__ = [
 ]
 
 POINTS = ("transport.write", "frame.parse", "match.dispatch",
-          "match.compile", "match.readback", "fanout.drain",
-          "inflight.insert", "inflight.retry")
+          "match.compile", "match.readback", "table.load", "table.swap",
+          "fanout.drain", "inflight.insert", "inflight.retry")
 
 _ACTIONS = ("raise", "drop", "delay", "dup", "hang")
 

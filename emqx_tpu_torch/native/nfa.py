@@ -21,10 +21,13 @@ id.
 from __future__ import annotations
 
 import ctypes
+import queue
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..gil import PIECE, yield_lock
 from ..ops.compiler import BUCKET_SLOTS
 from ..ops.incremental import NfaDelta
 from .build import load_library
@@ -37,6 +40,57 @@ __all__ = ["NativeNfa"]
 _ROW = 8
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+#: handles of collected tables, freed by a thread of their own
+_doomed: "queue.SimpleQueue" = queue.SimpleQueue()
+_freer_started = False
+
+
+def _free_later(lib: ctypes.CDLL, h: ctypes.c_void_p) -> None:
+    """Free a collected table's handle on the ``nfa-free`` thread.  A
+    table swapped out by a compaction loses its last reference on the
+    event loop's thread, and freeing a large table (millions of trie
+    nodes and map entries) takes a share of a second that the loop's
+    own thread would spend stalled, lock released or not.  Safe from
+    ``__del__``: ``SimpleQueue.put`` is reentrant, and two racing
+    starts make two freeing threads."""
+    global _freer_started
+    if not _freer_started:
+        _freer_started = True
+        threading.Thread(target=_free_loop, name="nfa-free",
+                         daemon=True).start()
+    _doomed.put((lib, h))
+
+
+def _free_loop() -> None:
+    while True:
+        lib, h = _doomed.get()
+        lib.nfa_free(h)
+
+
+#: a flush of more dirty rows than this consolidates the allocator
+_TRIM_ROWS = 65536
+_libc_trim = None
+
+
+def _trim() -> None:
+    """``malloc_trim(0)`` of the C library (glibc; elsewhere nothing),
+    through ctypes, so with the interpreter lock released.  A large
+    flush clears the table's dirty sets, which leaves the allocator
+    hundreds of thousands of small free chunks; the next large free
+    merges them all, and when that free is a numpy array's it holds the
+    lock the whole time, stalling the event loop beside a compaction's
+    build thread."""
+    global _libc_trim
+    if _libc_trim is None:
+        try:
+            _libc_trim = ctypes.CDLL(None).malloc_trim
+            _libc_trim.argtypes = [ctypes.c_size_t]
+        except (OSError, AttributeError):
+            _libc_trim = False
+    if _libc_trim:
+        _libc_trim(0)
 
 
 def _check_row() -> None:
@@ -91,6 +145,22 @@ def _i32p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 
 
+def _lines(filters: Sequence[str]) -> Tuple[bytes, bool]:
+    """``filters`` as one newline-framed blob, and whether the framing
+    holds (no filter holds '\n', legal in MQTT).  Joined a piece at a
+    time with a yield point after each (:mod:`emqx_tpu_torch.gil`): a
+    compaction's build thread runs this beside the event loop."""
+    parts: List[bytes] = []
+    framed = True
+    for i in range(0, len(filters), PIECE):
+        chunk = filters[i:i + PIECE]
+        part = "\n".join(chunk).encode()
+        framed = framed and part.count(b"\n") + 1 == len(chunk)
+        parts.append(part)
+        yield_lock()
+    return b"\n".join(parts), framed
+
+
 class NativeNfa:
     """Handle-owning wrapper; see the module docstring.  ``state_bucket``
     and ``edge_bucket`` are the initial S and Hb (each grows by doubling);
@@ -115,10 +185,12 @@ class NativeNfa:
             self._h = None
 
     def __del__(self):  # pragma: no cover - interpreter teardown order
-        try:
-            self.close()
-        except Exception:
-            pass
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            try:
+                _free_later(self._lib, h)
+            except Exception:
+                pass
 
     # -- mutation ----------------------------------------------------------
 
@@ -141,9 +213,15 @@ class NativeNfa:
         return counts the filters actually added.  Filters holding
         '\\n' (legal in MQTT) cannot ride the newline-framed blob and are
         added one at a time."""
-        plain = [f for f in filters if "\n" not in f]
-        odd = [f for f in filters if "\n" in f]
-        blob = "\n".join(plain).encode()
+        blob, framed = _lines(filters)
+        odd: List[str] = []
+        if not framed:
+            # the rare case, split in Python: a per-filter pass over a
+            # large list holds the interpreter lock a compaction's build
+            # thread shares with the event loop
+            plain = [f for f in filters if "\n" not in f]
+            odd = [f for f in filters if "\n" in f]
+            blob = "\n".join(plain).encode()
         n = int(self._lib.nfa_bulk_add(self._h, blob, len(blob)))
         for f in odd:
             try:
@@ -263,8 +341,8 @@ class NativeNfa:
         where absent."""
         if not filters:
             return np.zeros(0, np.int32)
-        blob = "\n".join(filters).encode()
-        if blob.count(b"\n") + 1 != len(filters):
+        blob, framed = _lines(filters)
+        if not framed:
             # a filter holds '\n' (legal in MQTT): one call each
             return np.array([self.aid_of(f) for f in filters], np.int32)
         out = np.empty(len(filters), np.int32)
@@ -321,6 +399,8 @@ class NativeNfa:
         bucket_rows = np.empty((nb, _ROW), np.int32)
         self._lib.nfa_delta_fill(self._h, _i32p(state_idx), _i32p(state_rows),
                                  _i32p(bucket_idx), _i32p(bucket_rows))
+        if ns + nb > _TRIM_ROWS:
+            _trim()
         return NfaDelta(epoch=epoch, resized=bool(resized),
                         state_idx=state_idx, state_rows=state_rows,
                         bucket_idx=bucket_idx, bucket_rows=bucket_rows)

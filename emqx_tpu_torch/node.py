@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import time
 from typing import Any, Dict, List, Optional, Union
 
@@ -531,6 +532,13 @@ class BrokerNode:
         from .broker.match_service import MatchService
 
         cfg = self.config
+        # the reference's segments directory; node.data_dir stays at its
+        # default (persistence is not ported).  match.segments.xla_cache
+        # has nothing to cache: the CUDA kernels are built once a process
+        seg_dir = ""
+        if cfg.get("match.segments.enable"):
+            seg_dir = cfg.get("match.segments.dir") or os.path.join(
+                cfg.get("node.data_dir") or "data", "segments")
         ms = MatchService(
             self.broker,
             metrics=self.observed.metrics,
@@ -556,7 +564,7 @@ class BrokerNode:
             alarms=self.observed.alarms,
             olp=self.olp,
             segments=cfg.get("match.segments.enable"),
-            segments_dir=cfg.get("match.segments.dir"),
+            segments_dir=seg_dir,
             compact_interval_s=cfg.get(
                 "match.segments.compact_interval"),
             compact_min_mutations=cfg.get(

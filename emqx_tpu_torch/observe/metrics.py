@@ -15,7 +15,7 @@ from typing import Dict, Iterable, List, Optional
 __all__ = ["Metrics", "METRIC_NAMES", "TPU_METRIC_NAMES",
            "BROKER_METRIC_NAMES", "FANOUT_METRIC_NAMES",
            "CONNPLANE_METRIC_NAMES", "ROBUSTNESS_METRIC_NAMES",
-           "MATCH_SERVE_METRIC_NAMES"]
+           "MATCH_SERVE_METRIC_NAMES", "TABLE_METRIC_NAMES"]
 
 # -- the reference's fixed counter names, grouped as in emqx_metrics.erl [U]
 METRIC_NAMES: List[str] = [
@@ -144,6 +144,19 @@ MATCH_SERVE_METRIC_NAMES: List[str] = [
     "broker.match.deadline_miss", "tpu.match.readback_bytes",
     "tpu.match.readback_roundtrips",
     "tpu.match.backend_join_dispatches", "tpu.match.autotune_picks",
+    # the deadline serve plane: partial batches the budget forced out
+    # (inc), the breaker (set: 0 closed, 1 open, 2 probing) and the
+    # brownout stage (set)
+    "broker.match.deadline_dispatch", "broker.match.breaker_state",
+    "broker.match.brownout_level",
+]
+
+# -- segments and compaction: the last cold start's segment load and
+# reconcile in seconds (set), the compaction swaps (inc), the rows the
+# device table took by row writes and grows in place (set each sync)
+TABLE_METRIC_NAMES: List[str] = [
+    "tpu.table.segment_load_s", "tpu.table.compact_runs",
+    "tpu.table.dirty_rows_uploaded",
 ]
 
 
@@ -161,7 +174,7 @@ class Metrics:
         for names in (METRIC_NAMES, TPU_METRIC_NAMES, BROKER_METRIC_NAMES,
                       FANOUT_METRIC_NAMES, CONNPLANE_METRIC_NAMES,
                       ROBUSTNESS_METRIC_NAMES, MATCH_SERVE_METRIC_NAMES,
-                      extra or ()):
+                      TABLE_METRIC_NAMES, extra or ()):
             self._c.update({n: 0 for n in names})
 
     def inc(self, name: str, n: int = 1) -> None:

@@ -19,6 +19,16 @@ dispatches, so a reader never sees a half-applied (node, edge) pair;
 the sorts and whole uploads run before it, outside the lock, so they
 never stall a dispatch.  :meth:`arrays` returns one consistent
 tuple.
+
+With ``dirty_regions`` (the segments mode, over a Python table in
+``track_regions`` mode) a resize grows the device tables in place: the
+node table is padded on the card with ``[-1, -1, -1, 0]`` rows, the
+edge table and seeds are swapped for the shipped ones when the cuckoo
+table rehashed, and the dirty rows are written with ``index_copy_``,
+all on the current stream, into new tensors (a walk in flight keeps
+the old ones); a delta dirtier than ``dirty_full_threshold`` of the
+rows uploads whole.  The result is bit-equal to a whole upload of the
+same host table.
 """
 
 from __future__ import annotations
@@ -75,6 +85,10 @@ class PendingSync(NamedTuple):
     full: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]  # re-upload
     shape_key: Tuple[int, int, int]
     epoch: int
+    # grow in place: a rehashed edge table ships whole, with the fresh
+    # seeds it was placed with (the old pair would miss every lookup)
+    edge_full: Optional[np.ndarray] = None
+    seeds_full: Optional[np.ndarray] = None
 
 
 class DeviceNfa:
@@ -91,6 +105,13 @@ class DeviceNfa:
         self.epoch = -1
         self.uploads = 0        # whole-table uploads (first sync / growth)
         self.delta_applies = 0  # in-place row-write batches
+        # grow in place (module docstring): off unless the host table
+        # tracks regions; above dirty_full_threshold (dirty rows over all
+        # rows) a resize uploads whole
+        self.dirty_regions = False
+        self.dirty_full_threshold = 0.5
+        self.grow_applies = 0           # resizes grown in place
+        self.dirty_rows_uploaded = 0    # rows written by deltas and grows
         self._shape_key = None
         self._arrs: Optional[Tuple[torch.Tensor, torch.Tensor,
                                    torch.Tensor]] = None
@@ -99,6 +120,9 @@ class DeviceNfa:
         self._join: Optional[JoinRelation] = None    # host relation
         self._jarrs: Optional[Tuple[torch.Tensor, ...]] = None  # on device
         self.join_rebuilds = 0      # whole relation uploads
+        # a segment's relation: (epoch, shape key, arrays), taken at the
+        # next whole upload when the epoch and shape still match
+        self._join_seed = None
         # _lock: a dispatch against the swap of an apply; _apply_lock:
         # one apply at a time (its slow half runs outside _lock)
         self._lock = threading.Lock()
@@ -145,6 +169,12 @@ class DeviceNfa:
         (first sync, growth, ``full``)."""
         delta = self.inc.flush()
         key = self.inc.shape_key()
+        if not full and delta.resized and self._grow_ok(delta):
+            rehash = delta.edges_rehashed or key[1] != self._shape_key[1]
+            return PendingSync(
+                delta=delta, full=None, shape_key=key, epoch=delta.epoch,
+                edge_full=self.inc.edge_tab.copy() if rehash else None,
+                seeds_full=self.inc.seeds.copy() if rehash else None)
         if full or delta.resized or self._shape_key != key:
             if hasattr(self.inc, "tables"):     # native table: one export
                 tabs = self.inc.tables()
@@ -155,6 +185,23 @@ class DeviceNfa:
                                epoch=self.inc.epoch)
         return PendingSync(delta=delta, full=None, shape_key=key,
                            epoch=delta.epoch)
+
+    def _grow_ok(self, delta: NfaDelta) -> bool:
+        """Whether a resized delta may grow the tables in place: the mode
+        on, a synced twin whose node rows are the delta's valid prefix,
+        the same depth, and a dirty share of the rows under
+        ``dirty_full_threshold``."""
+        if not self.dirty_regions or self._shape_key is None \
+                or self._arrs is None:
+            return False
+        if delta.node_grown_from < 0 \
+                or delta.node_grown_from != self._shape_key[0]:
+            return False
+        key = self.inc.shape_key()
+        if key[2] != self._shape_key[2]:
+            return False
+        n_dirty = len(delta.state_idx) + len(delta.bucket_idx)
+        return n_dirty <= self.dirty_full_threshold * (key[0] + key[1])
 
     def apply_pending(self, p: PendingSync) -> bool:
         """Ship a drained sync to the device.  The slow half runs
@@ -187,11 +234,23 @@ class DeviceNfa:
             arrs = tuple(self._put(a) for a in p.full)
             if not self.join_enabled:
                 return arrs, None, None
+            seed, self._join_seed = self._join_seed, None
+            if seed is not None and seed[0] == p.epoch \
+                    and tuple(seed[1]) == tuple(p.shape_key):
+                try:
+                    join = JoinRelation(int(p.full[0].shape[0]), p.full[1],
+                                        arrays=seed[2])
+                    return arrs, join, tuple(self._put(a)
+                                             for a in join.arrays())
+                except ValueError:
+                    pass        # a malformed seed: sorted anew below
             return (arrs,) + self._relation_of(int(p.full[0].shape[0]),
                                                arrs[1], p.full[1])
         d = p.delta
         if d.empty:
             return None
+        if d.resized:
+            return self._stage_grow(p)
         # (position in the tensor tuple, rows, values): node and edge
         # table rows; edge_next entries and overlay rows of the relation
         rows = [(k, self._put(idx, True).long(), self._put(val, True))
@@ -222,6 +281,73 @@ class DeviceNfa:
                  if len(idx)]
         return rows, jrows, None
 
+    def _stage_grow(self, p: PendingSync):
+        """The new tensors of a grow in place (module docstring), made
+        on the current stream from the resident ones, which stay as
+        they are for a walk in flight: ``(tables, relation tensors,
+        whether the relation was rebuilt whole)``."""
+        d = p.delta
+        node, edge, seeds = self._arrs
+        target_s, target_hb, _depth = p.shape_key
+        if int(node.shape[0]) != d.node_grown_from:
+            # a missed sync: the caller drops the mirror, and the next
+            # drain uploads whole
+            raise RuntimeError(
+                f"grow in place: device S={int(node.shape[0])} != host "
+                f"prefix {d.node_grown_from}")
+        grow = target_s - int(node.shape[0])
+        if grow > 0:
+            pad = torch.tensor([-1, -1, -1, 0], dtype=node.dtype,
+                               device=node.device).expand(grow, 4)
+            node = torch.cat([node, pad])
+        else:
+            node = node.clone()
+        if p.edge_full is not None:
+            edge = self._put(p.edge_full, True)
+            seeds = self._put(p.seeds_full, True)
+        elif int(edge.shape[0]) != target_hb:
+            raise RuntimeError(
+                f"grow in place: device Hb={int(edge.shape[0])} != host "
+                f"{target_hb} with no rehashed table shipped")
+        else:
+            edge = edge.clone()
+        for k, idx, val in ((0, d.state_idx, d.state_rows),
+                            (1, d.bucket_idx, d.bucket_rows)):
+            if len(idx):
+                (node, edge)[k].index_copy_(
+                    0, self._put(idx, True).long(), self._put(val, True))
+        jarrs, rebuilt = None, False
+        if self.join_enabled and self._join is not None:
+            if p.edge_full is not None:
+                # a rehash moved the relation's capacity with Hb
+                self._join.rebuild(target_s, p.edge_full)
+                jarrs = tuple(self._put(a, True)
+                              for a in self._join.arrays())
+                rebuilt = True
+            else:
+                self._join.grow_states(target_s)
+                ss, ew, en, ov = self._jarrs
+                extra = target_s + 1 - int(ss.shape[0])
+                if extra > 0:
+                    # new states have no CSR segment: the offsets go on
+                    # with their terminal value, padded on the card
+                    ss = torch.cat([ss, ss[-1:].expand(extra)])
+                en, ov = en.clone(), ov.clone()
+                try:
+                    mpos, mval, opos, orows = self._join.apply_bucket_delta(
+                        d.bucket_idx, d.bucket_rows)
+                    for t, idx, val in ((en, mpos, mval), (ov, opos, orows)):
+                        if len(idx):
+                            t.index_copy_(0, self._put(idx, True).long(),
+                                          self._put(val, True))
+                except OverlayFull:
+                    self._join.rebuild(target_s)
+                    ss, ew, en, ov = (self._put(a, True)
+                                      for a in self._join.arrays())
+                    rebuilt = True
+                jarrs = (ss, ew, en, ov)
+        return (node, edge, seeds), jarrs, rebuilt
+
     def _commit(self, p: PendingSync, staged) -> bool:
         """Under the dispatch lock: swap in or write what :meth:`_stage`
         made, and ack the epoch."""
@@ -238,6 +364,17 @@ class DeviceNfa:
         if staged is None:
             self._ack(max(self.epoch, p.epoch))
             return False
+        d = p.delta
+        if d.resized:
+            self._arrs, jarrs, rebuilt = staged
+            self._shape_key = p.shape_key
+            if jarrs is not None:
+                self._jarrs = jarrs
+            self.join_rebuilds += rebuilt
+            self.grow_applies += 1
+            self.dirty_rows_uploaded += len(d.state_idx) + len(d.bucket_idx)
+            self._ack(d.epoch)
+            return True
         rows, jrows, jarrs = staged
         for k, idx, val in rows:
             self._arrs[k].index_copy_(0, idx, val)
@@ -247,7 +384,10 @@ class DeviceNfa:
         for k, idx, val in jrows or ():
             self._jarrs[k].index_copy_(0, idx, val)
         self.delta_applies += 1
-        self._ack(p.delta.epoch)
+        self.dirty_rows_uploaded += (len(d.state_idx) + len(d.bucket_idx)
+                                     + sum(len(idx) for _k, idx, _v
+                                           in jrows or ()))
+        self._ack(d.epoch)
         return True
 
     def _ack(self, epoch: int) -> None:
@@ -279,15 +419,20 @@ class DeviceNfa:
 
     # -- join relation mirror ----------------------------------------------
 
-    def enable_join(self, seed: Optional[JoinRelation] = None) -> None:
+    def enable_join(self, seed: Optional[JoinRelation] = None,
+                    segment_seed: Optional[tuple] = None) -> None:
         """Mirror the sorted edge relation beside the tables, so that
         ``match`` serves the join backends.  On a synced twin the
         relation is ``seed`` (one built elsewhere on the same table,
         mirrored as it is) or is built now from the device copy of the
         edge table; otherwise it is built at the first upload, and a
-        ``seed`` is refused."""
+        ``seed`` is refused.  ``segment_seed`` (``(epoch, shape key,
+        (state_start, edge_word, edge_next))`` of a segment) is taken
+        at the next whole upload when its epoch and shape still match
+        the table's, instead of a sort."""
         with self._apply_lock:
             self.join_enabled = True
+            self._join_seed = segment_seed
             if self._arrs is None:
                 if seed is not None:
                     raise ValueError("a seed relation needs a synced twin")

@@ -14,10 +14,16 @@ consumes the drained deltas.
 * accept-id free-list — ``accept_filters`` may hold ``None`` holes, and a
   freed id is reused only once the device has applied the epoch that
   cleared it, and each reuse is counted in ``aid_reuses``;
-* ``flush()`` drains the dirty node rows and bucket rows.
-
-The reference's dirty-region growth mode, lazy trie hydration from
-segments and ``compact()`` are not part of this copy.
+* ``flush()`` drains the dirty node rows and bucket rows;
+* ``track_regions`` (the segments mode): growth keeps the dirty sets
+  valid across a resize, and the delta says which region moved
+  (``node_grown_from``, ``edges_rehashed``), so that the device twin can
+  grow its tables in place instead of uploading them whole;
+* a table restored from a segment (``storage/segments.py``) links its
+  trie lazily: ``_pending_trie`` until the first walk or mutation, or
+  the service's background hydrate (:meth:`IncrementalNfa._hydrate`);
+* ``compact()`` rebuilds dense arrays from the live filters and forces
+  the next drain to be a whole upload, even in region mode.
 """
 
 from __future__ import annotations
@@ -54,6 +60,14 @@ class NfaDelta(NamedTuple):
     state_rows: np.ndarray     # (n, 4) int32 current contents
     bucket_idx: np.ndarray     # (m,) int32 dirty edge_tab rows
     bucket_rows: np.ndarray    # (m, BUCKET_SLOTS*4) int32 current contents
+    # region facts of a resized delta (``track_regions`` mode): the node
+    # rows that are still valid on the device (the S before the first
+    # growth since the last flush, S itself when the node table did not
+    # grow, -1 when every row was replaced), and whether the edge table
+    # was rehashed with fresh seeds (its contents ship whole).  The
+    # defaults say "unknown": a consumer uploads the tables whole
+    node_grown_from: int = -1
+    edges_rehashed: bool = True
 
     @property
     def empty(self) -> bool:
@@ -116,9 +130,18 @@ class IncrementalNfa:
         # that it did not move (the rows may name a reused id under its
         # old filter)
         self.aid_reuses = 0
+        self._alias_aids: set = set()
         self._dirty_states = {0}
         self._dirty_buckets: set = set()
         self._resized = False
+        # region mode (off: flush() is the plain drain)
+        self.track_regions = False
+        self._node_grown_from = -1    # S before the first growth, -1: none
+        self._edges_rehashed = False
+        self._node_wholesale = False  # compact(): every node row replaced
+        # a restored table's trie linker (storage/segments.py), None once
+        # linked; every walk and mutation links first
+        self._pending_trie = None
 
     # -- shapes ------------------------------------------------------------
 
@@ -144,6 +167,10 @@ class IncrementalNfa:
             self.node_tab = grown
             self._free_sids = list(range(S * 2 - 1, S - 1, -1))
             self._resized = True
+            if self.track_regions and self._node_grown_from < 0:
+                # the old rows were copied as they are: the dirty set
+                # stays valid, the device only pads rows [S, 2S)
+                self._node_grown_from = S
         return self._free_sids.pop()
 
     def _alloc_aid(self, flt: str) -> int:
@@ -237,6 +264,10 @@ class IncrementalNfa:
                     self._seed_ints = (int(seeds[0]), int(seeds[1]))
                     self._resized = True
                     self._dirty_buckets.clear()
+                    if self.track_regions:
+                        # every edge moved: the table ships whole, and
+                        # bucket dirt restarts against the new table
+                        self._edges_rehashed = True
                     return
 
     def _place_all(self, edges, slots, seeds, mask) -> bool:
@@ -270,9 +301,17 @@ class IncrementalNfa:
 
     # -- filter mutation ---------------------------------------------------
 
+    def _hydrate(self) -> None:
+        """Link a restored table's trie, if it is not linked yet (the
+        linker is idempotent and locked)."""
+        pending = self._pending_trie
+        if pending is not None:
+            pending()
+
     def add(self, flt: str) -> bool:
         """Insert ``flt``; False if it was already present.  Raises
         ValueError when the filter is deeper than the table."""
+        self._hydrate()
         ws = T.words(flt)
         if len(ws) > self.depth:
             raise ValueError(
@@ -322,6 +361,7 @@ class IncrementalNfa:
 
     def remove(self, flt: str) -> bool:
         """Delete ``flt``; False if absent.  Prunes now-empty branches."""
+        self._hydrate()
         ws = T.words(flt)
         if len(ws) > self.depth:
             return False
@@ -369,9 +409,13 @@ class IncrementalNfa:
 
     def flush(self) -> NfaDelta:
         """Drain dirty rows.  After a resize the row sets are meaningless
-        (the whole table moved): the consumer must re-upload."""
+        (the whole table moved): the consumer must re-upload.  In
+        ``track_regions`` mode growth keeps them valid (node rows are
+        copied as they are; an edge rehash clears only the bucket dirt)
+        and the delta carries the region facts."""
         resized = self._resized
-        if resized:
+        track = self.track_regions
+        if resized and not track:
             sidx = np.zeros(0, np.int32)
             bidx = np.zeros(0, np.int32)
         else:
@@ -383,17 +427,35 @@ class IncrementalNfa:
             epoch=self.epoch, resized=resized,
             state_idx=sidx, state_rows=self.node_tab[sidx].copy(),
             bucket_idx=bidx, bucket_rows=self.edge_tab[bidx].copy(),
+            node_grown_from=(
+                -1 if (not track or self._node_wholesale)
+                else (self._node_grown_from
+                      if self._node_grown_from >= 0 else self.S)),
+            edges_rehashed=((self._edges_rehashed or self._node_wholesale)
+                            if track else True),
         )
         self._dirty_states = set()
         self._dirty_buckets = set()
         self._resized = False
+        self._node_grown_from = -1
+        self._edges_rehashed = False
+        self._node_wholesale = False
         return delta
+
+    def filters(self) -> List[str]:
+        """Live table filters (aliases excluded)."""
+        return [f for aid, f in enumerate(self.accept_filters)
+                if f is not None and aid not in self._alias_aids]
+
+    def aliases(self) -> Dict[str, int]:
+        return {self.accept_filters[aid]: aid for aid in self._alias_aids}
 
     def match_host(self, topic: str) -> List[int]:
         """Authoritative host-side match of a concrete topic against the
         live trie (the answer for rows the device spilled): ``+`` one
         level, ``#`` zero or more trailing levels, root wildcards
         suppressed for ``$``-topics.  Returns accept ids."""
+        self._hydrate()
         ws = T.words(topic)
         is_sys = topic.startswith("$")
         out: List[int] = []
@@ -420,6 +482,7 @@ class IncrementalNfa:
 
     def aid_of(self, flt: str) -> int:
         """Accept id of a present filter, -1 if absent."""
+        self._hydrate()
         ws = T.words(flt)
         if len(ws) > self.depth:
             return -1
@@ -435,9 +498,40 @@ class IncrementalNfa:
 
     def alloc_alias(self, flt: str) -> int:
         aid = self._alloc_aid(flt)
+        self._alias_aids.add(aid)
         self.epoch += 1
         return aid
 
     def free_alias(self, aid: int) -> None:
+        self._alias_aids.discard(aid)
         self._free_aid(aid)
         self.epoch += 1
+
+    def compact(self) -> None:
+        """Rebuild dense arrays from the live filters (drops vocab
+        garbage and accept holes, shrinks over-grown shapes); alias ids
+        are reassigned, so holders of alias maps rebuild them from
+        :meth:`aliases`.  The epoch goes on (one more), the device's ack
+        position is kept, every id counts as reused, and the next drain
+        is a whole upload even in region mode: no device row survives."""
+        live = self.filters()
+        alias_filters = sorted(self.aliases())
+        old_epoch = self.epoch
+        old_device_epoch = self.device_epoch
+        fresh = IncrementalNfa(
+            depth=self.depth,
+            state_bucket=_bucket(max(2 * len(live), 8), 1024),
+            seed=int(self._rng.integers(1, 2**31 - 1)))
+        for f in live:
+            fresh.add(f)
+        for f in alias_filters:
+            fresh.alloc_alias(f)
+        old_reuses = self.aid_reuses
+        track = self.track_regions
+        self.__dict__.update(fresh.__dict__)
+        self.epoch = old_epoch + 1
+        self.device_epoch = old_device_epoch
+        self.aid_reuses = old_reuses + 1
+        self._resized = True
+        self.track_regions = track
+        self._node_wholesale = True

@@ -1,7 +1,8 @@
 """The port's CUDA walk kernels (hash and join) against their plain
 PyTorch versions, and the asyncio serve loop on them (the fixed-window
-path and the overlapped pipeline with its two-phase readback), on the
-card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
+path, the overlapped pipeline with its two-phase readback, the deadline
+loop's dispatch timeout over a real hang, grow in place and a
+compaction swap), on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
 module imports neither JAX nor the reference package, so it also runs
 where only the port is installed:
 
@@ -675,6 +676,273 @@ def test_node_on_card_fires_a_cobatched_rule_from_its_hint():
                 ms.dispatches - d0
             await sink.disconnect()
             await pub.disconnect()
+        finally:
+            await node.stop()
+            gc.unfreeze()
+    asyncio.run(main())
+
+
+# -- the deadline plane and the table lifecycle on the card -------------------
+
+async def _until(pred, timeout=30.0):
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + timeout
+    while not pred() and loop.time() < deadline:
+        await asyncio.sleep(0.002)
+    return pred()
+
+
+def _slab_ptrs(slot):
+    return {t.data_ptr() for host in slot.slab for t in host}
+
+
+@pytest.mark.cuda
+def test_dispatch_timeout_over_a_real_sleep_is_answered_by_the_host():
+    """A batch whose walk queues behind ~0.5 s of ``torch.cuda._sleep``:
+    the deadline loop answers it from the host tables within the
+    dispatch timeout (plus the budget and 0.15 s of slack), the loop
+    keeps beating through the hang (gaps under 50 ms), the batch keeps
+    its pinned slab until its event completes and a batch that times
+    out behind it is handed none of those buffers; once the sleep ends
+    the card serves again, with the router's answers."""
+    _skip_without_card()
+    filters, topics = build_workload(np.random.default_rng(8), 2000, 2048)
+    # distinct topics: none of a batch below has a hint before it
+    topics = list(dict.fromkeys(topics))
+    assert len(topics) >= 256
+
+    async def main():
+        b = Broker()
+        b.open_session("c")
+        for f in filters:
+            b.subscribe("c", f)
+        ms = MatchService(b, Metrics(), bypass_rate=0, debounce_s=0.01,
+                          prefetch_timeout_s=30, deadline=True,
+                          dispatch_timeout_s=0.1, breaker_threshold=5)
+        await ms.start()
+        try:
+            assert await _until(lambda: ms.ready, 60)
+            await ms.prefetch_many(topics[:64])
+            # the rate window held shut with the rate high and the short
+            # share at one half: each prefetch_many below is one batch,
+            # forced out by its budget
+            ms._rate_ewma = 1e9
+            ms._win_start = float("inf")
+            ms._short_frac = 0.5
+            loop = asyncio.get_running_loop()
+            gaps = []
+            stop = asyncio.Event()
+
+            async def heartbeat():
+                last = loop.time()
+                while not stop.is_set():
+                    await asyncio.sleep(0.001)
+                    now = loop.time()
+                    gaps.append(now - last)
+                    last = now
+
+            beat = asyncio.ensure_future(heartbeat())
+            await asyncio.sleep(0.01)
+            torch.cuda._sleep(1_000_000_000)    # ~0.5 s at boost clock
+            t0 = loop.time()
+            await ms.prefetch_many(topics[64:96])
+            took = loop.time() - t0
+            assert took < ms.dispatch_timeout_s + ms.deadline_s + 0.15, took
+            assert ms._breaker_failures == 1
+            assert len(ms._timed_out) == 1
+            first = ms._timed_out[0][1]
+            assert not first.event.query()
+            await ms.prefetch_many(topics[96:128])    # times out behind it
+            assert len(ms._timed_out) == 2
+            second = ms._timed_out[1][1]
+            assert not (_slab_ptrs(first) & _slab_ptrs(second))
+            for t in topics[64:128]:
+                hint = ms._hints[t]
+                assert hint[4], "a timed-out batch got a device answer"
+                assert sorted(b.router.match_routes(t), key=repr) == sorted(
+                    ms.hint_routes(t), key=repr)
+            stop.set()
+            await beat
+            assert max(gaps) < 0.05, max(gaps)
+            assert await _until(lambda: first.event.query(), 10)
+            await ms.prefetch_many(topics[128:256])
+            assert ms._breaker_failures == 0 and not ms._breaker_open
+            assert ms._timed_out == []
+            for t in topics[128:256]:
+                hint = ms._hints[t]
+                assert not hint[4], "the card did not serve after the hang"
+                assert sorted(b.router.match_routes(t), key=repr) == sorted(
+                    ms.hint_routes(t), key=repr)
+        finally:
+            await ms.stop()
+            gc.unfreeze()
+    asyncio.run(main())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge_bucket", [1 << 16, 8])
+def test_grow_in_place_on_card_equals_full_upload(edge_bucket):
+    """A Python table in region mode grows past its node table (and, from
+    a tiny edge table, through cuckoo rehashes): the card's tables grow
+    in place, bit-equal to a whole upload of the same host table, and
+    both walks answer as on a fresh upload."""
+    _skip_without_card()
+    filters, topics = build_workload(np.random.default_rng(9), 3000, 512,
+                                     depth=8)
+    inc = IncrementalNfa(depth=8, state_bucket=1024, edge_bucket=edge_bucket)
+    inc.track_regions = True
+    for f in filters[:200]:
+        inc.add(f)
+    dev = DeviceNfa(inc, active_slots=16, max_matches=32)
+    dev.dirty_regions = True
+    dev.dirty_full_threshold = 1.0
+    dev.enable_join()
+    uploads = dev.uploads
+    for f in filters[200:]:
+        inc.add(f)
+    dev.sync()
+    assert dev.uploads == uploads and dev.grow_applies >= 1
+    full = DeviceNfa(inc, active_slots=16, max_matches=32)
+    full.enable_join()
+    for a, b in zip(dev.arrays(), full.arrays()):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    enc = encode_batch(inc, topics, batch=512, depth=8)
+    for be in ("hash", "join"):
+        got = dev.match(*dev.put_batch(*enc), backend=be)
+        want = full.match(*full.put_batch(*enc), backend=be)
+        assert torch.equal(got.matches, want.matches), be
+        assert torch.equal(got.n_matches, want.n_matches), be
+
+
+@pytest.mark.cuda
+def test_compaction_swap_discards_a_pipelined_slot_on_card(tmp_path):
+    """A pipelined slot queued behind a ``torch.cuda._sleep`` while a
+    compaction swaps the table in (its upload on a stream of its own):
+    the table generation discards the slot, whose waiters the host
+    answers; the next batch walks the swapped-in table on the card, and
+    the swap left no freed id held."""
+    _skip_without_card()
+    filters, topics = build_workload(np.random.default_rng(10), 2000, 2048)
+    topics = list(dict.fromkeys(topics))      # no hint before its batch
+    assert len(topics) >= 256
+
+    async def main():
+        b = Broker()
+        b.open_session("c")
+        for f in filters:
+            b.subscribe("c", f)
+        m = Metrics()
+        ms = MatchService(b, m, bypass_rate=0, debounce_s=0.01,
+                          prefetch_timeout_s=30, pipeline=True,
+                          segments=True, segments_dir=str(tmp_path),
+                          compact_interval_s=3600)
+        await ms.start()
+        try:
+            # made at start: a process's first stream waits for the card
+            assert ms._build_stream is not None
+            assert await _until(lambda: ms.ready, 60)
+            await ms.prefetch_many(topics[:64])
+            gen = ms._table_gen
+            torch.cuda._sleep(4_000_000_000)    # ~2 s: the build fits
+            task = asyncio.ensure_future(ms.prefetch_many(topics[64:128]))
+            assert await _until(lambda: ms._inflight_n >= 1, 5)
+            old_dev = ms.dev
+            assert await ms._compact_once()
+            assert ms._table_gen == gen + 1 and ms.dev is not old_dev
+            assert ms.dev._id_holds == 0
+            assert ms._inflight_n >= 1, "the slot finished before the swap"
+            await task
+            assert m.get("broker.match.cpu_fallback") == 64
+            for t in topics[64:128]:
+                assert ms._hints[t][4]
+                assert sorted(b.router.match_routes(t), key=repr) == sorted(
+                    ms.hint_routes(t), key=repr)
+            await ms.prefetch_many(topics[128:256])
+            for t in topics[128:256]:
+                assert not ms._hints[t][4]
+                assert sorted(b.router.match_routes(t), key=repr) == sorted(
+                    ms.hint_routes(t), key=repr)
+            assert old_dev._id_holds == 0
+        finally:
+            await ms.stop()
+            gc.unfreeze()
+    asyncio.run(main())
+
+
+@pytest.mark.cuda
+def test_node_on_card_with_deadline_and_segments(tmp_path):
+    """A ``BrokerNode`` with ``match.deadline.enable`` and
+    ``match.segments.enable`` on ``cuda:0``, driven over TCP: 20 clients
+    subscribe 500 workload filters each at QoS 1, a compaction swaps the
+    table in (its segment written under ``match.segments.dir``), then 32
+    publishers publish 1,024 topics at QoS 1; every client receives each
+    message once per matching filter of its own, through the deadline
+    loop, with no batch answered by the host."""
+    _skip_without_card()
+    from collections import Counter
+
+    from emqx_tpu_torch.client import Client
+    from emqx_tpu_torch.config import Config
+    from emqx_tpu_torch.node import BrokerNode
+
+    filters, topics = build_workload(np.random.default_rng(11), 10_000, 1024)
+
+    async def main():
+        cfg = Config(env={})
+        cfg.put("listeners.tcp.default.bind", "127.0.0.1:0")
+        cfg.put("match.deadline.enable", True)
+        cfg.put("match.segments.enable", True)
+        cfg.put("match.segments.dir", str(tmp_path))
+        cfg.put("match.segments.compact_interval", 0.2)
+        cfg.put("match.segments.compact_min_mutations", 1)
+        node = BrokerNode(cfg)
+        await node.start()
+        try:
+            ms = node.match_service
+            assert ms.dev.device.type == "cuda"
+            assert ms.deadline and ms.segments
+            m = node.observed.metrics
+            port = node.listeners.all()[0].port
+            got = Counter()
+            subs = []
+            for k in range(20):
+                def on_message(msg, cid=f"s{k}"):
+                    got[(cid, int(msg.payload))] += 1
+                c = Client(clientid=f"s{k}", port=port,
+                           on_message=on_message)
+                await c.connect()
+                await c.subscribe([(f, 1) for f in
+                                   filters[k * 500:(k + 1) * 500]])
+                subs.append(c)
+            router = node.broker.router
+            assert await _until(lambda: m.get("tpu.table.compact_runs") >= 1
+                                and ms._synced_epoch == router.epoch, 120)
+            assert ms._table_gen >= 1
+            pubs = []
+            for k in range(32):
+                c = Client(clientid=f"p{k}", port=port)
+                await c.connect()
+                pubs.append(c)
+            fallback0 = m.get("broker.match.cpu_fallback")
+
+            async def publisher(k):
+                for i in range(k, len(topics), 32):
+                    await pubs[k].publish(topics[i], b"%d" % i, qos=1)
+            await asyncio.gather(*[publisher(k) for k in range(32)])
+            want = Counter()
+            for i, t in enumerate(topics):
+                for flt, _dest in router.match_routes(t):
+                    for cid in node.broker.subscribers.get(flt, ()):
+                        want[(cid, i)] += 1
+            assert await _until(lambda: sum(got.values())
+                                >= sum(want.values()), 30)
+            await asyncio.sleep(0.2)
+            assert got == want and sum(want.values()) > len(topics)
+            assert m.get("tpu.match.hint_served") > 0
+            assert m.get("broker.match.cpu_fallback") == fallback0
+            assert not ms._breaker_open and ms._breaker_failures == 0
+            for c in subs + pubs:
+                await c.disconnect()
         finally:
             await node.stop()
             gc.unfreeze()

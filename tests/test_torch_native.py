@@ -451,3 +451,78 @@ def test_filter_set_equals_trie(seed):
     for t in topics:
         assert sorted(fs.match(t)) == sorted(trie.match(t)), t
     assert len(fs) == len(set(filters)) - 500
+
+
+# -- the bulk calls in pieces, and the table freed off the caller ----------
+
+def test_bulk_calls_in_pieces_equal_reference(monkeypatch):
+    """``bulk_add`` and ``bulk_aid_of`` join the filters a piece at a
+    time (``gil.PIECE``, shrunk here so that the workload spans many
+    pieces); a filter holding '\\n' in a later piece still takes the
+    one-at-a-time path.  The table is the reference's, byte for byte,
+    and the ids are its ids."""
+    monkeypatch.setattr(native_nfa, "PIECE", 97)
+    filters, topics = _workload(31, 1500, 200)
+    odd = filters[:700] + ["a/\nb/+"] + filters[700:]
+    for flts in (filters, odd):
+        port, ref = (cls(depth=8, state_bucket=256, edge_bucket=32)
+                     for cls in (NativeNfa, RefNativeNfa))
+        assert port.bulk_add(flts) == ref.bulk_add(flts)
+        _assert_native_equal(port, ref, flts, topics)
+        np.testing.assert_array_equal(
+            port.bulk_aid_of(flts),
+            np.array([ref.aid_of(f) for f in flts], np.int32))
+    assert native_nfa._lines(filters) == (
+        "\n".join(filters).encode(), True)
+    assert native_nfa._lines(odd)[1] is False
+    assert native_nfa._lines([]) == (b"", True)
+
+
+def test_collected_table_is_freed_off_the_callers_thread():
+    """A collected table's handle goes to the ``nfa-free`` thread, which
+    frees it; ``close()`` still frees on the spot."""
+    import gc
+    import threading
+    import time
+
+    freed = []
+    inner = native_nfa._free_loop
+
+    nt = NativeNfa(depth=8)
+    nt.bulk_add(_workload(5, 300, 0)[0])
+    lib = nt._lib
+
+    class Spy:
+        def nfa_free(self, h):
+            freed.append((threading.current_thread().name, h))
+            lib.nfa_free(h)
+    nt._lib = Spy()
+    h = nt._h
+    del nt
+    gc.collect()
+    deadline = time.monotonic() + 10
+    while not freed and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert [(name, h2) for name, h2 in freed] == [("nfa-free", h)]
+    assert native_nfa._free_loop is inner
+    nt = NativeNfa(depth=8)
+    nt.close()
+    assert nt._h is None
+
+
+def test_yield_points_sleep_only_inside_yielding(monkeypatch):
+    """``gil.yield_lock`` sleeps on a thread inside ``gil.yielding`` and
+    nowhere else (the same pieces run on the loop at a bootstrap)."""
+    from emqx_tpu_torch import gil
+
+    slept = []
+    monkeypatch.setattr(gil.time, "sleep", slept.append)
+    gil.yield_lock()
+    assert slept == []
+    with gil.yielding():
+        gil.yield_lock()
+        with gil.yielding():
+            gil.yield_lock()
+        gil.yield_lock()
+    gil.yield_lock()
+    assert slept == [gil.PAUSE_S] * 3

@@ -16,8 +16,10 @@ bit.  Three differences are intended and asserted as such:
   ``chunked`` mode counts 1 + popcount(Σcounts) copies;
 * the port encodes and dispatches on the event loop (in both modes),
   where the reference takes a worker thread;
-* the pipeline does not compose with the deadline loop yet: that loop
-  is not ported, and ``deadline=True`` raises.
+* with the deadline loop, a readback failure counts toward the breaker
+  on both (``test_pipeline_with_deadline_is_not_ported``, once the
+  refusal of the pair, now holds the port's composition to the
+  reference's).
 
 The rest holds the K5 functions to the reference's on seeded flat
 buffers, the pipeline's stream order (a delta written between two slots
@@ -53,8 +55,8 @@ from emqx_tpu_torch.workload import build_workload
 #: the reference's pipelined readback gives up after its per-dispatch
 #: timeout (0.164 s by default) and answers from the host tables; its
 #: first XLA compiles of the readback slices on the CPU take longer, so
-#: it gets 30 s here.  The port has no such timeout yet (it comes with
-#: the deadline loop) and waits for the card.
+#: it gets 30 s here.  The port's timeout applies on the deadline path
+#: only, as the reference's does.
 REF = SimpleNamespace(name="ref", Broker=RefBroker, SubOpts=RefSubOpts,
                       MatchService=RefMatchService, Metrics=RefMetrics,
                       fi=ref_fi, kw={"dispatch_timeout_s": 30.0})
@@ -424,13 +426,32 @@ def test_stop_resolves_inflight_slot_waiters():
     assert both(_stop_in_flight) == (True, 0)
 
 
+async def _pipeline_deadline_breaker(kit):
+    b, ms = await started(kit, [f"room/+/k{i}" for i in range(4)],
+                          pipeline=True, deadline=True, breaker_threshold=3)
+    m = ms.metrics
+    kit.fi.install(kit.fi.FaultInjector([
+        {"point": "match.readback", "action": "raise", "times": 3}]))
+    try:
+        for i in range(3):
+            await ms.prefetch(f"room/{i}/k{i}")
+        tripped = await settle(lambda: ms._breaker_open, timeout=5)
+    finally:
+        kit.fi.uninstall()
+    before = m.get("broker.match.cpu_fallback")
+    await ms.prefetch("room/9/k1")        # open: the host serves at once
+    out = (tripped, m.get("broker.match.cpu_fallback") - before,
+           ms.hint_routes("room/9/k1") is None)
+    await ms.stop()
+    return out
+
+
 def test_pipeline_with_deadline_is_not_ported():
     """The reference composes the pipeline with its deadline loop and
-    breaker (``test_pipeline_composes_with_deadline_breaker``); the
-    deadline loop is not ported, so the port refuses the pair."""
-    with pytest.raises(NotImplementedError, match="deadline"):
-        MatchService(device="cpu", pipeline=True, deadline=True,
-                     breaker_threshold=3)
+    breaker (``test_pipeline_composes_with_deadline_breaker``): failed
+    pipelined readbacks feed the breaker as failed dispatches do.  The
+    port, which once refused the pair, now composes it the same way."""
+    assert both(_pipeline_deadline_breaker) == (True, 1, True)
 
 
 # -- ragged readback (the reference's one-round-trip cases) ----------------

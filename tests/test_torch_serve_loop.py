@@ -1065,13 +1065,34 @@ def test_encoder_serialises_concurrent_encodes(table):
 # -- (g) parameters that are not ported, and the repair ---------------------
 
 @pytest.mark.parametrize("name,value", [
-    ("deadline", True), ("breaker_threshold", 3),
-    ("dispatch_timeout_s", 1.0), ("segments", True), ("multichip", True), ("multichip_ep", True),
-    ("segments_dir", "seg"), ("compact_interval_s", 1.0),
-    ("prewarm", False), ("multichip_tp", 2)])
+    ("multichip", True), ("multichip_tp", 2), ("multichip_native", False),
+    ("multichip_ep", True), ("multichip_ep_slack", 3.0),
+    ("multichip_ep_micro", 4), ("multichip_degraded", True),
+    ("multichip_ep_autotune", True), ("multichip_balance_budget", 8),
+    ("multichip_ep_compact", True)])
 def test_unported_parameters_raise(name, value):
+    """Only the multichip plane's parameters are left unported."""
+    assert set(match_service._UNPORTED) == {
+        k for k in match_service._UNPORTED if k.startswith("multichip")}
     with pytest.raises(NotImplementedError, match=name):
         MatchService(device="cpu", **{name: value})
+
+
+@pytest.mark.parametrize("name,value", [
+    ("deadline", True), ("breaker_threshold", 3),
+    ("dispatch_timeout_s", 1.0), ("segments", True),
+    ("segments_dir", "seg"), ("compact_interval_s", 1.0),
+    ("compact_min_mutations", 7), ("dirty_threshold", 0.25),
+    ("prewarm", False), ("deadline_s", 0.02),
+    ("breaker_probe_interval_s", 0.5)])
+def test_ported_parameters_are_taken(name, value):
+    """The deadline plane's and the segments' parameters, once refused,
+    are taken as the reference takes them (segments need a directory)."""
+    kw = {name: value}
+    if name == "segments":
+        kw["segments_dir"] = "seg"
+    ms = MatchService(device="cpu", **kw)
+    assert getattr(ms, name) == value
 
 
 @pytest.mark.parametrize("name", ["hists", "flightrec", "alarms", "olp"])
