@@ -23,7 +23,13 @@ phases, one JSON line each; any failure exits non-zero:
    is first churned through a ``DeviceNfa`` with its mirror on, so it
    holds tombstones and overlay rows.  Then ``nfa_match`` and
    ``join_match`` in flat mode on the card against the same calls on the
-   CPU, all five ``MatchResult`` fields equal;
+   CPU, all five ``MatchResult`` fields equal; then dense_kernel: the
+   dense walk (``dense_walk.cu``, K6) against ``dense_match_plain``,
+   every field bit for bit, on ``bench_dense``'s table (B = 4096, D = 8,
+   K = 64; timed rotating over four batches, L2 flushed and warm, the
+   plain twin from a CUDA graph replay, with its bound), random 0/1
+   tables at S = 128, 512 and 4096 (several parents a column) and a
+   batch of ``$`` topics with rows past K;
 4. slice   — the serve core (``MatchService``, ``table="native"``: the
    C++ host table started with one ``load``) over 1M wildcard filters
    of the BASELINE config-2 workload: 16 batches of 2048 topics through
@@ -199,6 +205,24 @@ rules in the 10M table before its churn, and ``slice_10m_rules`` holds
 the rule ids of 4 × 2048 topics (``serve_split``) to the host trie of
 the rule filters.
 
+After ``acl_batch``, the hot tier and the retained replay (PR 10):
+
+* tiered — ``bench_tiered``'s workload at its defaults (seed 5: 200,000
+  cold draws + 320 hot filters, 5,000 cold and 40 hot roots, B = 8192,
+  D = 8, hot_mass 0.8): ``TieredMatcher(hot_engine="auto")`` on the card
+  (one dense and one hash launch a batch) against a host
+  ``FilterTrie``, 0 mismatches; the rows the host served; the hot
+  tier's roots, states, S and filters; the whole table's hash walk
+  timed beside the tiered pair; ``fused_tiered_match`` equal, field for
+  field, to the two calls made apart, with ``torch.cuda``'s sync debug
+  mode set to raise inside it; the dense kernel timed at the matcher's
+  hot shape (four batches of the same stream), as dense_kernel;
+* retained_replay — BASELINE config 5 cut to 100,000 retained names
+  (the first distinct topics of the workload generator, seed 0) and
+  100,000 new filters: ``Retainer.replay_batch`` on the card, one walk,
+  no filter served by the host walk, each filter's topics equal to the
+  inverse of a host ``FilterTrie``'s per-name matches.
+
 Then it drives the port's MQTT front door over TCP:
 
 * slice_mqtt_fleet — 10,000 MQTT clients (the port's client) in
@@ -232,12 +256,15 @@ Then it drives the port's MQTT front door over TCP:
 Each phase's line carries its wall seconds.
 The line before the last names every kernel with its numbers (and its
 launch shape, ``ptxas`` register count, launches on each path and its
-10M readings); the last line is ``{"ok": true, "device": {...}}``.
+10M readings; the dense walk's at the tiered hot shape, with
+``bench_dense``'s beside); the last line is ``{"ok": true, "device":
+{...}}``.
 With no CUDA device the script prints no result and exits 2.
-``--rehearse-cpu`` runs phases 4-11, the slice_node and the slice_mqtt
-phases on the CPU with the plain versions (give it small ``--filters``,
-``--python-filters``, ``--large-filters``, ``--timed-batches``,
-``--storm-batches`` and ``--mqtt-clients``) and prints no result either
+``--rehearse-cpu`` runs phases 4-11, the slice_node, tiered,
+retained_replay and slice_mqtt phases on the CPU with the plain versions
+(give it small ``--filters``, ``--python-filters``, ``--large-filters``,
+``--timed-batches``, ``--storm-batches``, ``--mqtt-clients``,
+``--tiered-filters`` and ``--replay-size``) and prints no result either
 (a dry run of the control flow).
 """
 
@@ -345,6 +372,21 @@ KERNELS = {
     "join": ("nfa_join_walk", "emqx_tpu_torch/ops/csrc/nfa_join_walk.cu",
              "emqx_tpu/ops/pallas_match.py:146"),
 }
+#: the dense walk (K6): its source and the reference function it replaces
+DENSE_KERNEL = ("dense_walk", "emqx_tpu_torch/ops/csrc/dense_walk.cu",
+                "emqx_tpu/ops/dense_match.py:116")
+DENSE_K = 64                # bench_dense's and the tiered matcher's K
+DENSE_BATCHES = 4           # distinct batches a dense timing rotates over
+#: (S, parents a column) of the random 0/1 tables of dense_kernel
+DENSE_RANDOM = ((128, 3), (512, 1), (4096, 2))
+#: scalar 32-bit operations a second of one H100 outside the tensor
+#: cores (67 TFLOP/s of float32 counts a fused multiply-add as two; one
+#: compare is one operation here, so this bounds from below)
+SCALAR_OPS_PER_S = 67e12
+TIERED_FILTERS = 200_000    # tiered: bench_tiered's defaults
+TIERED_BATCH = 8192
+REPLAY_SIZE = 100_000       # retained_replay: retained names and filters
+REPLAY_SEED = 0
 #: a fan of 64 filters, each level of w/a/b/c/d/e/f literal or '+': the
 #: topic w/a/b/c/d/e/f has 2**k live states after k levels, so its walk
 #: spills at every A of the kernel cases
@@ -3064,6 +3106,399 @@ def phase_acl_batch(torch, device, card: str) -> Dict:
     return {"launches": total_launches, "join_launches": total_join}
 
 
+# -- the dense walk (K6), the two-tier table (K7), the retained replay --------
+
+def _dense_mod():
+    """The module ``emqx_tpu_torch.ops.dense_match`` (the package's
+    attribute of that name is the function), for its launch count."""
+    import importlib
+
+    return importlib.import_module("emqx_tpu_torch.ops.dense_match")
+
+
+def _dense_err(torch, got, want) -> int:
+    """Largest |difference| over the four fields of two results."""
+    err = 0
+    for f in ("matches", "n_matches", "active_overflow", "match_overflow"):
+        a, b = getattr(got, f), getattr(want, f)
+        _check(a.shape == b.shape, f"dense field {f}: shapes differ")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return err
+
+
+def _dense_bound(batch, dense, steps: int, K: int) -> Dict[str, object]:
+    """The least time of one dense walk on these inputs: the bytes it
+    must move (the batch, the table in the kernel's column-list form,
+    the accept ids, the four outputs; each once) over 3.35 TB/s, and
+    its operations (one label compare a column for each row step that
+    computes a next frontier) over ``SCALAR_OPS_PER_S``; the larger."""
+    dm = _dense_mod()
+    words, lens, _ = batch
+    B, D = words.shape
+    S = int(dense[2].shape[0])
+    lptr, lrow, pptr, prow = dm.dense_columns(dense[0], dense[1])
+    nbytes = (B * D * 4 + B * 4 + B + 4 * S * 3 + 4 * 2 * (S + 1)
+              + 4 * (int(lrow.shape[0]) + int(prow.shape[0]))
+              + B * K * 4 + 3 * B * 4)
+    ops = steps * S
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": nbytes, "bound_ops": ops, "row_steps": steps}
+
+
+def _time_dense(torch, device, batches, dense, K: int, flush) -> Dict:
+    """The kernel against ``dense_match_plain`` on every batch (every
+    field bit for bit), then its device ms three ways as the walks are
+    timed (``timer``): rotating over the distinct ``batches``, the same
+    with the L2 flushed before each launch, one batch repeated; the plain
+    version's ms from a CUDA graph replay; the bound on these inputs."""
+    dm = _dense_mod()
+    time_ms = timer(torch, device)
+    err, steps = 0, []
+    for b in batches:
+        traffic: Dict[str, int] = {}
+        want = dm.dense_match_plain(*b, *dense, max_matches=K,
+                                    traffic=traffic)
+        err = max(err, _dense_err(torch, dm.dense_match(
+            *b, *dense, max_matches=K), want))
+        steps.append(traffic["steps"])
+    _check(err == 0, f"dense_walk != plain (max |diff| {err})")
+    turn = [0]
+
+    def rotate():
+        turn[0] += 1
+        dm.dense_match(*batches[turn[0] % len(batches)], *dense,
+                       max_matches=K)
+
+    card = device.type == "cuda"
+    n = 1 if card else 0        # the CPU rehearsal times one call each
+    warm = time_ms(lambda: dm.dense_match(*batches[0], *dense,
+                                          max_matches=K), 200 * n or 1)
+    rot = time_ms(rotate, 20 * len(batches) * n or 1)
+    cold = time_ms(rotate, 4 * len(batches) * n or 1, before=flush)
+    _check(not card or all(x["covered"] for x in (warm, rot, cold)),
+           "a dense_walk time was not covered by the sleep")
+
+    def plain_call():
+        dm.dense_match_plain(*batches[0], *dense, max_matches=K)
+
+    call_ms = time_ms(plain_call, 2 if card else 1)["call_ms"]
+    pt = (time_ms(graph_replay(torch, plain_call), 20) if card
+          else {"ms": call_ms, "covered": False})
+    words = batches[0][0]
+    bound = _dense_bound(batches[0], dense, int(np.mean(steps)), K)
+    return {"B": int(words.shape[0]), "D": int(words.shape[1]),
+            "S": int(dense[2].shape[0]), "K": K,
+            "distinct_batches": len(batches), "ms": rot["ms"],
+            "ms_cold": cold["ms"], "ms_warm": warm["ms"],
+            "call_ms": warm["call_ms"], "plain_ms": pt["ms"],
+            "plain_call_ms": call_ms, "plain_covered": pt["covered"],
+            "plain_timing": "cuda graph replay" if card else "host loop",
+            **bound,
+            "max_abs_err": err}
+
+
+def phase_dense_kernel(torch, device, card: str) -> Dict:
+    """``dense_kernel``: the dense walk (``dense_walk.cu``) against
+    ``dense_match_plain`` on the card, every ``MatchResult`` field bit
+    for bit, on ``bench_dense``'s table (420 filters, B = 4096, D = 8,
+    K = 64: its own batch and three more of its topic stream, timed),
+    random 0/1 tables at S = 128, 512 and 4096 (several parents a column
+    at 128 and 4096; each timed warm), and a batch of ``$`` topics, root
+    wildcards and the 64-filter fan with K = 8 (rows past K)."""
+    from emqx_tpu_torch.ops import compile_filters, encode_topics
+
+    dm = _dense_mod()
+    t_start = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device).zero_
+    B = 4096
+
+    def put(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in arrays]
+
+    filters, table, dense_np, topics = dm.bench_dense_workload(
+        batch=DENSE_BATCHES * B)
+    dense = put(dense_np.device_arrays())
+    batches = [put(encode_topics(table, topics[i * B:(i + 1) * B], batch=B))
+               for i in range(DENSE_BATCHES)]
+    bench = _time_dense(torch, device, batches, dense, DENSE_K, flush)
+    bench.update(filters=len(filters), states=table.n_states)
+    time_ms = timer(torch, device)
+    cases = []
+    for S, parents in DENSE_RANDOM:
+        rdense = put(dm.random_dense(S * 10 + parents, S, parents))
+        rbatch = put(dm.random_dense_batch(S + parents, B, 8))
+        want = dm.dense_match_plain(*rbatch, *rdense, max_matches=DENSE_K)
+        err = _dense_err(torch, dm.dense_match(*rbatch, *rdense,
+                                               max_matches=DENSE_K), want)
+        _check(err == 0, f"dense_walk != plain on the random S={S} table")
+        multi = int((rdense[0].sum(dim=0) > 1).sum())
+        cases.append({
+            "S": S, "parents_max": parents, "multi_parent_columns": multi,
+            "B": B, "K": DENSE_K, "equal": True, "max_abs_err": err,
+            "accepts": int(want.n_matches.sum()),
+            "rows_past_k": int(want.match_overflow.sum()),
+            "ms_warm": time_ms(lambda: dm.dense_match(
+                *rbatch, *rdense, max_matches=DENSE_K), 50)["ms"]})
+    _check(any(c["multi_parent_columns"] for c in cases),
+           "no random table has several parents a column")
+    sys_filters = EDGE_FILTERS + ["+/status", "$SYS/broker/+"]
+    sys_topics = EDGE_TOPICS + ["$SYS/status", "node/status",
+                                "$SYS/broker/uptime", "a/x/c/d"]
+    sys_tab = compile_filters(sys_filters, depth=16)
+    sb = put(encode_topics(sys_tab, sys_topics, batch=64))
+    sd = put(dm.build_dense(sys_tab).device_arrays())
+    want = dm.dense_match_plain(*sb, *sd, max_matches=8)
+    err = _dense_err(torch, dm.dense_match(*sb, *sd, max_matches=8), want)
+    _check(err == 0, "dense_walk != plain on the $-topic batch")
+    _check(bool(sb[2].any()) and int(want.match_overflow.sum()) > 0,
+           "the $-topic batch has no $ topic or no row past K")
+    worst = max([bench["max_abs_err"], err]
+                + [c["max_abs_err"] for c in cases])
+    emit({"phase": "dense_kernel", "ok": True, "card": card,
+          "kernel": "dense_walk", "tolerance": "exact", "bench_dense": bench,
+          "random_tables": cases,
+          "sys_batch": {"topics": len(sys_topics), "B": 64, "K": 8,
+                        "S": int(sd[2].shape[0]), "equal": True,
+                        "sys_rows": int(sb[2].sum()),
+                        "rows_past_k": int(want.match_overflow.sum())},
+          "max_abs_err": worst, "wall_s": time.perf_counter() - t_start})
+    return {"max_abs_err": worst, "bench_dense": bench}
+
+
+class _HostRows:
+    """Counts the rows a ``TieredMatcher`` serves from the host matcher
+    (its ``_decode`` fail-open: a spilled walk or a dense row past K)."""
+
+    def __init__(self, tm) -> None:
+        self.rows = 0
+        inner = tm._decode
+
+        def decode(acc, flags, tab, topics):
+            self.rows += int(np.count_nonzero(flags[: len(topics)]))
+            return inner(acc, flags, tab, topics)
+
+        tm._decode = decode
+
+
+def phase_tiered(torch, device, card: str, n_filters: int) -> Dict:
+    """``tiered``: ``bench_tiered``'s workload at its defaults (200,000 +
+    320 filters, 5,000 cold roots, 40 hot roots, hot_mass 0.8, seed 5;
+    B = 8192, D = 8) through ``TieredMatcher(hot_engine="auto")`` on the
+    card, every topic against a host ``FilterTrie`` (0 mismatches), the
+    rows the host served, the hot tier's states, S and filters; the
+    whole table's hash walk timed beside the tiered pair; the fused pair
+    equal field for field to the two calls made apart, with no host
+    synchronisation inside it; the dense kernel timed at the matcher's
+    hot shape (the batch and three more of the same stream)."""
+    from emqx_tpu_torch.broker.trie import FilterTrie
+    from emqx_tpu_torch.ops import compile_filters, encode_topics, walk_kernel
+    from emqx_tpu_torch.ops.match_kernel import epilogue, nfa_match
+    from emqx_tpu_torch.ops.walk_kernel import accept_cols, nfa_walk_plain
+    from emqx_tpu_torch.ops.tiered import (TieredMatcher, _pow2,
+                                           bench_tiered_workload,
+                                           fused_tiered_match, route)
+
+    dm = _dense_mod()
+    t_start = time.perf_counter()
+    B = TIERED_BATCH
+    filters, tiered, topics = bench_tiered_workload(
+        n_filters, batch=DENSE_BATCHES * B)
+    build_s = time.perf_counter() - t_start
+    main = topics[:B]            # bench_tiered's own batch
+    dense_np = dm.build_dense(tiered.hot)
+    line = {"phase": "tiered", "ok": True, "card": card,
+            "n_filters": len(filters), **tiered.stats(),
+            "hot_states": tiered.hot.n_states, "dense_S": dense_np.S,
+            "build_s": build_s}
+    tm = TieredMatcher(tiered, depth=8, hot_engine="auto", device=device)
+    tm.match(main[:256])         # ships the tables and the column lists
+    host = _HostRows(tm)
+    gc.collect()
+    # -- the main path: counts zeroed just before, read just after -------
+    dm.launches = 0
+    walk_kernel.launches = 0
+    t0 = time.perf_counter()
+    got = tm.match(main)
+    match_s = time.perf_counter() - t0
+    launches = {"dense": dm.launches, "hash": walk_kernel.launches}
+    # ---------------------------------------------------------------------
+    _check(tm.hot_engine == "dense", f"auto resolved to {tm.hot_engine}")
+    _check(device.type != "cuda" or launches == {"dense": 1, "hash": 1},
+           f"one batch launched {launches}")
+    t0 = time.perf_counter()
+    trie = FilterTrie()
+    for f in filters:
+        trie.insert(f)
+    mism = sum(sorted(g) != sorted(trie.match(t))
+               for t, g in zip(main, got))
+    oracle_s = time.perf_counter() - t0
+    _check(mism == 0, f"{mism} of {B} tiered topics differ from the trie")
+    hot_idx, cold_idx = route(main, tiered.hot_roots)
+
+    def put(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in arrays]
+
+    dense = put(dense_np.device_arrays())
+    cold_tab = put(tiered.cold.device_arrays())
+    hargs = put(encode_topics(tiered.hot, [main[i] for i in hot_idx],
+                              batch=_pow2(len(hot_idx)))) + dense
+    cargs = put(encode_topics(tiered.cold, [main[i] for i in cold_idx],
+                              batch=_pow2(len(cold_idx)))) + cold_tab
+    dm.dense_match(*hargs, max_matches=DENSE_K)   # column lists built
+    dm.launches = 0
+    walk_kernel.launches = 0
+    card_run = device.type == "cuda"
+    if card_run:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")   # a host sync raises
+    try:
+        d, c = fused_tiered_match(hargs, cargs)
+    finally:
+        if card_run:
+            torch.cuda.set_sync_debug_mode("default")
+    fused_launches = {"dense": dm.launches, "hash": walk_kernel.launches}
+    d2 = dm.dense_match(*hargs, max_matches=DENSE_K)
+    c2 = nfa_match(*cargs, active_slots=8, compact_output=False)
+    for f in ("matches", "n_matches", "active_overflow", "match_overflow"):
+        for a, b in ((d, d2), (c, c2)):
+            _check(torch.equal(getattr(a, f), getattr(b, f)),
+                   f"fused_tiered_match field {f} differs from the call")
+    time_ms = timer(torch, device)
+    full = compile_filters(filters, depth=8)
+    full_args = put(encode_topics(full, main, batch=B)) + put(
+        full.device_arrays())
+    reps = 50 if card_run else 1
+    whole = time_ms(lambda: nfa_match(*full_args, active_slots=8,
+                                      compact_output=False), reps)
+    pair = time_ms(lambda: fused_tiered_match(hargs, cargs), reps)
+    cold_ms = time_ms(lambda: nfa_match(*cargs, active_slots=8,
+                                        compact_output=False), reps)
+
+    def plain_pair():       # the pair's plain versions, raw epilogue
+        dm.dense_match_plain(*hargs, max_matches=DENSE_K)
+        epilogue(*nfa_walk_plain(*cargs, active_slots=8), DENSE_K, False, 0)
+
+    pair_plain = time_ms(graph_replay(torch, plain_pair) if card_run
+                         else plain_pair, 20 if card_run else 1)
+    # the pair's bound: the dense walk's on the hot batch plus the bytes
+    # the cold walk must move (its gathered rows and its row I/O)
+    dense_traffic: Dict[str, int] = {}
+    dm.dense_match_plain(*hargs, max_matches=DENSE_K, traffic=dense_traffic)
+    walk_traffic: Dict[str, int] = {}
+    nfa_walk_plain(*cargs, active_slots=8, traffic=walk_traffic)
+    Bc, Dc = cargs[0].shape
+    cold_bytes = (walk_traffic["node_rows"] * 16
+                  + walk_traffic["bucket_rows"] * 32 + 8 + Bc * Dc * 4
+                  + 5 * Bc + Bc * accept_cols(Dc, 8) * 4 + 4 * Bc)
+    pair_bound = (_dense_bound(hargs[:3], hargs[3:], dense_traffic["steps"],
+                               DENSE_K)["bound_ms"]
+                  + cold_bytes / HBM_BYTES_PER_S * 1e3)
+    t0 = time.perf_counter()
+    whole_rows = nfa_match(*full_args, active_slots=8, compact_output=False)
+    whole_acc = whole_rows.matches.cpu().numpy()
+    whole_rows_s = time.perf_counter() - t0
+    flush = (torch.empty(64 << 20, dtype=torch.int32, device=device).zero_
+             if card_run else None)
+    hot_batches = []
+    for i in range(DENSE_BATCHES):
+        part = topics[i * B:(i + 1) * B]
+        hi, _ = route(part, tiered.hot_roots)
+        hot_batches.append(put(encode_topics(
+            tiered.hot, [part[j] for j in hi], batch=_pow2(len(hi)))))
+    shape = _time_dense(torch, device, hot_batches, dense, DENSE_K, flush)
+    line.update(
+        topics=B, hot_topics=len(hot_idx), cold_topics=len(cold_idx),
+        hot_engine=tm.hot_engine, launches=launches,
+        fused_launches=fused_launches, fused_equal=True,
+        fused_host_syncs=0, host_rows=host.rows, mismatches=mism,
+        matcher_match_s=match_s, oracle_s=oracle_s,
+        whole_table={"states": full.n_states, "table_bytes": int(
+            full.node_tab.nbytes + full.edge_tab.nbytes),
+            "walk_ms": whole["ms"],
+            "spilled_rows": int((whole_rows.active_overflow > 0).sum()),
+            "walk_and_readback_s": whole_rows_s,
+            "accept_slots": int((whole_acc >= 0).sum())},
+        tiered_pair_ms=pair["ms"], tiered_pair_plain_ms=pair_plain["ms"],
+        tiered_pair_bound_ms=pair_bound, cold_walk_ms=cold_ms["ms"],
+        dense_ms=shape["ms_warm"], hot_shape=shape,
+        wall_s=time.perf_counter() - t_start)
+    emit(line)
+    return {"launches": launches, "fused_launches": fused_launches,
+            "shape": shape}
+
+
+def phase_retained_replay(torch, device, card: str, size: int) -> Dict:
+    """``retained_replay``: BASELINE config 5 on one card, cut to
+    ``size`` (100,000) retained names and as many new filters (the
+    workload generator, seed 0; the names its first ``size`` distinct
+    topics): ``Retainer.replay_batch`` compiles the filters and walks
+    every stored name in one hash walk on the card; each filter's topics
+    must equal the inverse of a host ``FilterTrie``'s per-name matches,
+    and no filter may be served by the host walk."""
+    from emqx_tpu_torch.broker.message import make_message
+    from emqx_tpu_torch.broker.trie import FilterTrie
+    from emqx_tpu_torch.ops import walk_kernel
+    from emqx_tpu_torch.services.retainer import Retainer
+    from emqx_tpu_torch.workload import build_workload
+
+    t_start = time.perf_counter()
+    filters, stream = build_workload(np.random.default_rng(REPLAY_SEED),
+                                     size, 3 * size)
+    names = list(dict.fromkeys(stream))[:size]
+    _check(len(names) == size, f"only {len(names)} distinct names")
+    r = Retainer()
+    for t in names:
+        r.insert(make_message("retainer", t, b"v", retain=True))
+    host_calls = [0]
+    inner = r.match
+
+    def counted(flt, now=None):
+        host_calls[0] += 1
+        return inner(flt, now)
+
+    r.match = counted
+    setup_s = time.perf_counter() - t_start
+    gc.collect()
+    # -- the main path: counts zeroed just before, read just after -------
+    walk_kernel.launches = 0
+    t0 = time.perf_counter()
+    out = r.replay_batch(filters, device=device)
+    replay_s = time.perf_counter() - t0
+    launches = walk_kernel.launches
+    # ---------------------------------------------------------------------
+    _check(device.type != "cuda" or launches == 1,
+           f"the replay launched the walk {launches} times")
+    _check(host_calls[0] == 0, f"{host_calls[0]} filters served by the host")
+    t0 = time.perf_counter()
+    trie = FilterTrie()
+    for f in filters:
+        trie.insert(f)
+    want: Dict[str, List[str]] = {f: [] for f in filters}
+    for t in names:
+        for f in trie.match(t):
+            want[f].append(t)
+    oracle_s = time.perf_counter() - t0
+    mism = sum([m.topic for m in out[f]] != sorted(want[f])
+               for f in filters)
+    _check(mism == 0, f"{mism} filters replayed other topics than the trie")
+    pairs = sum(map(len, want.values()))
+    emit({"phase": "retained_replay", "ok": True, "card": card,
+          "retained": len(names), "filters": len(filters), "depth": 16,
+          "replay_s": replay_s, "launches": launches,
+          "host_served_filters": host_calls[0], "mismatches": mism,
+          "matched_pairs": pairs,
+          "filters_with_a_match": sum(1 for v in want.values() if v),
+          "setup_s": setup_s, "oracle_s": oracle_s,
+          "wall_s": time.perf_counter() - t_start})
+    return {"launches": launches}
+
+
 # -- the MQTT front door: BrokerNode over TCP ---------------------------------
 #
 # The fleet lives in child processes (spawned: forking after CUDA is
@@ -4068,6 +4503,25 @@ def _kernel_entry(backend: str, launches: Dict[str, int], max_err: int,
         "shapes": shapes, "shapes_10m": shapes_10m}
 
 
+def _dense_entry(launches: Dict[str, int], check: Dict, shape: Dict) -> Dict:
+    """The dense walk's entry of the kernels line: its launches on the
+    tiered main path (and the fused pair's), the times and bound at the
+    tiered matcher's hot shape, ``bench_dense``'s shape beside."""
+    name, source, replaces = DENSE_KERNEL
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches["tiered"],
+        "launches_by_path": launches,
+        "threads_per_block": 128, "lanes_per_row": 32,
+        "registers": _registers(name),
+        "max_abs_err": max(check["max_abs_err"], shape["max_abs_err"]),
+        **{k: shape[k] for k in ("ms", "ms_cold", "ms_warm", "plain_ms",
+                                 "plain_covered", "plain_timing",
+                                 "bound_ms", "bound_by")},
+        "library_ms": None, "shape": shape,
+        "bench_dense": check["bench_dense"]}
+
+
 def _native_build() -> Dict[str, float]:
     """``g++`` of the native table, the encoder and the rule runtime's
     JSON extractor (seconds each; 0.0 when already built)."""
@@ -4094,6 +4548,10 @@ def main(argv=None) -> int:
                     help="slice_node: timed publishes, in batches of 2048")
     ap.add_argument("--mqtt-clients", type=int, default=SESSIONS,
                     help="slice_mqtt: the fleet's MQTT clients")
+    ap.add_argument("--tiered-filters", type=int, default=TIERED_FILTERS,
+                    help="tiered: bench_tiered's cold filters")
+    ap.add_argument("--replay-size", type=int, default=REPLAY_SIZE,
+                    help="retained_replay: retained names and new filters")
     ap.add_argument("--rehearse-cpu", action="store_true",
                     help="dry run of the serve phases on the CPU; prints "
                     "no result")
@@ -4117,6 +4575,7 @@ def main(argv=None) -> int:
         card = "not measured (CPU rehearsal)"
         kind = "cpu"
         max_err = {"hash": 0, "join": 0}
+        dense_check = None
         if device.type == "cuda":
             card = nvidia_smi()
             kind = torch.cuda.get_device_name(0)
@@ -4143,6 +4602,8 @@ def main(argv=None) -> int:
             max_err = phase_kernel(torch, device)
             emit({"phase": "kernel_wall", "ok": True,
                   "wall_s": time.perf_counter() - t0})
+            phase = "dense_kernel"
+            dense_check = phase_dense_kernel(torch, device, card)
         launches = {"hash": {}, "join": {}}
         phase = "slice"
         s = phase_slice(torch, device, args.filters)
@@ -4189,6 +4650,15 @@ def main(argv=None) -> int:
         acl = phase_acl_batch(torch, device, card)
         launches["hash"]["acl_batch"] = acl["launches"]
         launches["join"]["acl_batch"] = acl["join_launches"]
+        phase = "tiered"
+        tiered = phase_tiered(torch, device, card, args.tiered_filters)
+        launches["dense"] = {"tiered": tiered["launches"]["dense"],
+                             "tiered_fused": tiered["fused_launches"]["dense"]}
+        launches["hash"]["tiered"] = tiered["launches"]["hash"]
+        launches["hash"]["tiered_fused"] = tiered["fused_launches"]["hash"]
+        phase = "retained_replay"
+        launches["hash"]["retained_replay"] = phase_retained_replay(
+            torch, device, card, args.replay_size)["launches"]
         phase = "slice_mqtt"
         mqtt = phase_slice_mqtt(torch, device, args.filters, card,
                                 MQTT_STORM, args.mqtt_clients)
@@ -4227,7 +4697,8 @@ def main(argv=None) -> int:
         _kernel_entry("hash", launches["hash"], max_err["hash"], shapes,
                       shapes_10m),
         _kernel_entry("join", launches["join"], max_err["join"], join_shapes,
-                      join_shapes_10m)]})
+                      join_shapes_10m),
+        _dense_entry(launches["dense"], dense_check, tiered["shape"])]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -18,8 +18,14 @@ Semantics kept:
 Lookup is the transposed match problem — one *filter* against many
 stored *topic names*: a literal word-trie over stored topics walked with
 the filter (``+`` fans out one level, ``#`` takes the whole subtree).
-The reference's batched device replay (``replay_batch``), which the node
-never calls, is not part of this copy.
+
+``replay_batch`` is the batched device replay (BASELINE config 5): many
+new filters compiled into one NFA table, the unexpired stored names
+walked through it in one hash walk on the card (``match_topics``), the
+per-name matches inverted to per-filter lists.  A walk that overflows,
+or filters the compiler refuses, fall open to the host walk per filter,
+as in the reference; the ``try`` covers those two calls only, so a
+kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -180,6 +186,42 @@ class Retainer:
             if skip_dollar and cw.startswith("$"):
                 continue
             self._collect(child, hits, False)
+
+    # ------------------------------------------------------------------
+    # lookup — device batch (many filters at once; BASELINE config 5)
+    # ------------------------------------------------------------------
+
+    def replay_batch(
+        self, filters: Sequence[str], depth: int = 16,
+        now: Optional[float] = None, *, device=None,
+    ) -> Dict[str, List[Message]]:
+        """Match many new filters against the whole store in one walk on
+        ``device`` (the card unless the caller names another): compile
+        ``filters`` into an NFA table, walk the stored topic names as the
+        query batch, invert the accepts.  Falls back to the host walk per
+        filter if the walk overflows or the compiler refuses a filter."""
+        from ..ops import compile_filters, match_topics
+
+        now = now if now is not None else time.time()
+        names = [
+            t for t, m in self._store.items() if not m.is_expired(now)
+        ]
+        out: Dict[str, List[Message]] = {f: [] for f in filters}
+        if not names or not filters:
+            return out
+        try:
+            table = compile_filters(set(filters), depth=depth)
+            per_topic = match_topics(table, names, device=device)
+        except (OverflowError, ValueError):
+            for f in out:
+                out[f] = self.match(f, now)
+            return out
+        for name, matched in zip(names, per_topic):
+            for f in matched:
+                out[f].append(self._store[name])
+        for f in out:
+            out[f].sort(key=lambda m: m.topic)
+        return out
 
     # ------------------------------------------------------------------
     # broker wiring

@@ -11,7 +11,8 @@
 // lane has read.  It checks the kernels' logic (lane layout, shuffles,
 // ranks, searches), not their speed or memory model.  A launch
 // `k<<<grid, block, 0, stream>>>(args)` is rewritten to
-// `emu_launch(k, grid, block, args)` by the test.
+// `emu_launch(k, grid, block, args)` by the test (with dynamic shared
+// memory, `emu_launch_smem(k, grid, block, smem, args)`).
 #pragma once
 #include <ucontext.h>
 
@@ -26,7 +27,10 @@ struct int4 {
 struct emu_dim {
   unsigned x;
 };
-inline emu_dim threadIdx, blockIdx;  // set before each resume
+inline emu_dim threadIdx, blockIdx, gridDim;  // set before each resume
+// A kernel's `extern __shared__` array, rewritten by the test to a pointer
+// into this buffer (one block runs at a time).
+inline std::vector<unsigned> emu_dyn_smem;
 
 #define __global__
 #define __device__
@@ -36,8 +40,36 @@ inline emu_dim threadIdx, blockIdx;  // set before each resume
 #define __shared__ static  // one block runs at a time
 
 typedef void* cudaStream_t;
-enum { cudaErrorInvalidValue = 1 };
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
+
+// The device queries of a launcher: a card of EMU_SMS multiprocessors, one
+// resident block each, with the H100's shared memory a block may opt in to.
+#define EMU_SMS 3
+enum cudaDeviceAttr {
+  cudaDevAttrMaxSharedMemoryPerBlockOptin,
+  cudaDevAttrMultiProcessorCount
+};
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMultiProcessorCount ? EMU_SMS : 232448;
+  return cudaSuccess;
+}
+template <class Kernel>
+inline cudaError_t cudaFuncSetAttribute(Kernel, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+template <class Kernel>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, Kernel, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 
 template <class T>
 inline T __ldg(const T* p) {
@@ -89,6 +121,7 @@ inline unsigned __ballot_sync(unsigned, bool p) {
 }
 
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_yield(); }
+inline void __syncthreads() { emu_yield(); }
 
 inline int __syncthreads_count(bool p) {
   return emu_exchange(p, [](const int* posted, unsigned) {
@@ -106,6 +139,7 @@ inline void emu_entry() {
 template <class Kernel, class... Args>
 void emu_launch(Kernel kernel, int grid, int block, Args... args) {
   emu_body = [=] { kernel(args...); };
+  gridDim.x = grid;
   emu_threads = std::vector<EmuThread>(block);
   emu_posted.assign(block, 0);
   for (int b = 0; b < grid; ++b) {
@@ -128,4 +162,13 @@ void emu_launch(Kernel kernel, int grid, int block, Args... args) {
       }
     }
   }
+}
+
+// `k<<<grid, block, smem, stream>>>(args)` with dynamic shared memory.
+template <class Kernel, class... Args>
+void emu_launch_smem(Kernel kernel, int grid, int block, size_t smem,
+                     Args... args) {
+  emu_dyn_smem.assign((smem + sizeof(unsigned) - 1) / sizeof(unsigned),
+                      0xdeadbeefu);
+  emu_launch(kernel, grid, block, args...);
 }

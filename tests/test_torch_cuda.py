@@ -2,7 +2,8 @@
 PyTorch versions, and the asyncio serve loop on them (the fixed-window
 path, the overlapped pipeline with its two-phase readback, the deadline
 loop's dispatch timeout over a real hang, grow in place and a
-compaction swap), on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
+compaction swap); the dense walk against its plain version, the
+two-tier matcher and the retained replay; on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
 module imports neither JAX nor the reference package, so it also runs
 where only the port is installed:
 
@@ -947,3 +948,156 @@ def test_node_on_card_with_deadline_and_segments(tmp_path):
             await node.stop()
             gc.unfreeze()
     asyncio.run(main())
+
+
+# -- the dense walk (K6), the two-tier matcher (K7), the retained replay -------
+
+def _dense_mod():
+    import importlib
+
+    return importlib.import_module("emqx_tpu_torch.ops.dense_match")
+
+
+def _random_dense(seed, S, parents):
+    return [torch.from_numpy(a).cuda()
+            for a in _dense_mod().random_dense(seed, S, parents)]
+
+
+def _random_batch(seed, B, D):
+    return [torch.from_numpy(a).cuda()
+            for a in _dense_mod().random_dense_batch(seed, B, D)]
+
+
+def _dense_fields_equal(got, want):
+    for f in ("matches", "n_matches", "active_overflow", "match_overflow"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,parents,B,K", [(128, 3, 4096, 64),
+                                           (512, 1, 1000, 64),
+                                           (512, 4, 4096, 2),
+                                           (4096, 2, 2048, 64),
+                                           (1024, 150, 333, 16)])
+def test_dense_kernel_equals_plain(S, parents, B, K):
+    """``dense_walk.cu`` against ``dense_match_plain``, every field bit for
+    bit: several parents a column, rows past K, a partly filled last
+    block, and a table (S = 1024, up to 150 parents a column) too large
+    to stage in shared memory."""
+    _skip_without_card()
+    dm = _dense_mod()
+    dense = _random_dense(S * 10 + parents, S, parents)
+    batch = _random_batch(S + B, B, 8)
+    dm.launches = 0
+    got = dm.dense_match(*batch, *dense, max_matches=K)
+    assert dm.launches == 1
+    want = dm.dense_match_plain(*batch, *dense, max_matches=K)
+    _dense_fields_equal(got, want)
+    assert int(want.n_matches.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_dense_kernel_on_bench_table_and_sys_topics():
+    _skip_without_card()
+    from emqx_tpu_torch.ops import compile_filters, encode_topics
+
+    dm = _dense_mod()
+    filters, table, dense, topics = dm.bench_dense_workload()
+    b = [torch.from_numpy(a).cuda() for a in encode_topics(table, topics,
+                                                           batch=4096)]
+    d = [torch.from_numpy(a).cuda() for a in dense.device_arrays()]
+    _dense_fields_equal(dm.dense_match(*b, *d, max_matches=64),
+                        dm.dense_match_plain(*b, *d, max_matches=64))
+    tab = compile_filters(EDGE_FILTERS + ["+/status"], depth=16)
+    b = [torch.from_numpy(a).cuda() for a in encode_topics(
+        tab, EDGE_TOPICS + ["$SYS/status", "node/status"], batch=64)]
+    d = [torch.from_numpy(a).cuda()
+         for a in dm.build_dense(tab).device_arrays()]
+    want = dm.dense_match_plain(*b, *d, max_matches=8)
+    _dense_fields_equal(dm.dense_match(*b, *d, max_matches=8), want)
+    assert int(want.match_overflow.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_dense_kernel_rejects_cpu_cuda_mix():
+    _skip_without_card()
+    dm = _dense_mod()
+    dense = _random_dense(1, 128, 2)
+    batch = _random_batch(2, 64, 6)
+    dense[0] = dense[0].cpu()
+    with pytest.raises(ValueError, match="lmat"):
+        dm.dense_match(*batch, *dense)
+
+
+def _tiered_case():
+    from emqx_tpu_torch.ops.tiered import bench_tiered_workload
+
+    return bench_tiered_workload(n_filters=20000, batch=4096)
+
+
+@pytest.mark.cuda
+def test_tiered_matcher_on_card_equals_cpu():
+    """``TieredMatcher(hot_engine="auto")`` on the card: one dense launch
+    and one hash-walk launch for a batch, the same lists as on the CPU."""
+    _skip_without_card()
+    from emqx_tpu_torch.ops.tiered import TieredMatcher
+
+    dm = _dense_mod()
+    filters, tiered, topics = _tiered_case()
+    tm = TieredMatcher(tiered, depth=8, device="cuda")
+    dm.launches = 0
+    walk_kernel.launches = 0
+    got = tm.match(topics)
+    assert tm.hot_engine == "dense"
+    assert (dm.launches, walk_kernel.launches) == (1, 1)
+    assert got == TieredMatcher(tiered, depth=8, device="cpu").match(topics)
+
+
+@pytest.mark.cuda
+def test_fused_tiered_match_has_no_host_sync_and_equals_the_calls():
+    _skip_without_card()
+    from emqx_tpu_torch.ops import encode_topics
+    from emqx_tpu_torch.ops.tiered import _pow2, fused_tiered_match, route
+
+    dm = _dense_mod()
+    filters, tiered, topics = _tiered_case()
+    hot, cold = route(topics, tiered.hot_roots)
+
+    def put(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                for a in arrays]
+
+    hargs = put(encode_topics(tiered.hot, [topics[i] for i in hot],
+                              batch=_pow2(len(hot)))) + put(
+        dm.build_dense(tiered.hot).device_arrays())
+    cargs = put(encode_topics(tiered.cold, [topics[i] for i in cold],
+                              batch=_pow2(len(cold)))) + put(
+        tiered.cold.device_arrays())
+    dm.dense_match(*hargs)          # builds the column lists
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d, c = fused_tiered_match(hargs, cargs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _dense_fields_equal(d, dm.dense_match(*hargs, max_matches=64))
+    _dense_fields_equal(c, nfa_match(*cargs, active_slots=8,
+                                     compact_output=False))
+
+
+@pytest.mark.cuda
+def test_retained_replay_on_card_equals_cpu():
+    _skip_without_card()
+    from emqx_tpu_torch.broker.message import make_message
+    from emqx_tpu_torch.services.retainer import Retainer
+
+    filters, names = build_workload(np.random.default_rng(5), 5000, 8000)
+    r = Retainer()
+    for t in dict.fromkeys(names):
+        r.insert(make_message("p", t, b"v", retain=True))
+    walk_kernel.launches = 0
+    got = r.replay_batch(filters, device="cuda")
+    assert walk_kernel.launches == 1
+    want = r.replay_batch(filters, device="cpu")
+    assert {f: [m.topic for m in v] for f, v in got.items()} == \
+        {f: [m.topic for m in v] for f, v in want.items()}

@@ -1,4 +1,4 @@
-"""The CUDA sources of both walk kernels, built with g++ against a CPU
+"""The CUDA sources of the walk kernels, built with g++ against a CPU
 stand-in for CUDA (``tests/cuda_emu/cuda_runtime.h``: the threads of a
 block are coroutines on one host thread, and a shuffle or ballot is
 exchanged between rounds of them), against their plain PyTorch
@@ -10,11 +10,17 @@ lane layout (one lane per frontier slot, L = the smallest power of two
 partly filled block, the join's CSR search with its one round of tail
 loads and its live-row overlay search.  Besides a compiled filter
 table, a random table whose states repeat within a frontier holds the
-ranks' tie-break to top_k, with an overlay of 0, 1 and 40 rows.  It says nothing of speed, and
+ranks' tie-break to top_k, with an overlay of 0, 1 and 40 rows.  The
+dense walk (``dense_walk.cu``) is held to ``dense_match_plain`` on
+``bench_dense``'s table, a table of ``$``-topic and wildcard-root
+filters with rows past K, random tables with several parents a column
+(one too large to stage in shared memory), and batches that leave the
+last block partly filled.  It says nothing of speed, and
 ``tests/test_torch_cuda.py`` remains the test on the card.  Skips where
 g++ is missing."""
 
 import ctypes
+import importlib
 import re
 import shutil
 import subprocess
@@ -24,7 +30,12 @@ import pytest
 import torch
 
 from emqx_tpu_torch.ops import DeviceNfa, IncrementalNfa, encode_batch
-from emqx_tpu_torch.ops import cuda_build
+from emqx_tpu_torch.ops import compile_filters, cuda_build, encode_topics
+# the module (``emqx_tpu_torch.ops.dense_match`` is the function)
+dense_mod = importlib.import_module("emqx_tpu_torch.ops.dense_match")
+from emqx_tpu_torch.ops.dense_match import (
+    bench_dense_workload, build_dense, dense_columns, dense_match_plain,
+    random_dense, random_dense_batch)
 from emqx_tpu_torch.ops.walk_kernel import (
     _ENTRY, OVERLAY_CAP, _hash_plain, accept_cols, join_walk_plain,
     launch_shape, nfa_walk_plain)
@@ -33,6 +44,10 @@ from emqx_tpu_torch.workload import build_workload
 SHIM = cuda_build.CSRC.parents[2] / "tests" / "cuda_emu"
 LAUNCH = re.compile(r"(\w+)<<<\s*(.*?),\s*NFA_THREADS,\s*0,\s*"
                     r"\(cudaStream_t\)stream>>>\(", re.S)
+LAUNCH_SMEM = re.compile(r"(\w+)<<<\s*(.*?),\s*DENSE_THREADS,\s*(\w+),\s*"
+                         r"\(cudaStream_t\)stream>>>\(", re.S)
+DYN_SMEM = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
+ENTRIES = {**_ENTRY, "dense_walk": dense_mod._ENTRY}
 #: each level of w/a/b/c/d/e/f literal or '+': that topic's frontier
 #: doubles each level, so its walk spills at every A below 64
 FAN_FILTERS = ["w/" + "/".join("+" if m >> k & 1 else c
@@ -49,16 +64,20 @@ CASES = [(8, 1), (8, 2), (8, 3), (16, 12), (4, 16), (16, 16), (8, 32)]
 
 @pytest.fixture(scope="module")
 def emu_kernels(tmp_path_factory):
-    """Both kernel sources, launches rewritten for the stand-in, built
-    into shared libraries (one g++ each, started together); returns the
-    bound C entry points by kernel name."""
+    """Every kernel source, launches and dynamic shared memory rewritten
+    for the stand-in, built into shared libraries (one g++ each, started
+    together); returns the bound C entry points by kernel name."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
     src = tmp_path_factory.mktemp("csrc")
     for f in cuda_build.CSRC.iterdir():
-        (src / f.name).write_text(LAUNCH.sub(r"emu_launch(\1, \2, NFA_THREADS, ",
-                                             f.read_text()))
+        text = LAUNCH.sub(r"emu_launch(\1, \2, NFA_THREADS, ", f.read_text())
+        text = LAUNCH_SMEM.sub(r"emu_launch_smem(\1, \2, DENSE_THREADS, \3, ",
+                               text)
+        text = DYN_SMEM.sub(
+            r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem.data());", text)
+        (src / f.name).write_text(text)
     procs = {}
     for name, source in cuda_build.SOURCES.items():
         out = src / f"lib{name}.so"
@@ -70,7 +89,7 @@ def emu_kernels(tmp_path_factory):
     for name, (out, proc) in procs.items():
         log, _ = proc.communicate()
         assert proc.returncode == 0, log
-        sym, argtypes = _ENTRY[name]
+        sym, argtypes = ENTRIES[name]
         fn = getattr(ctypes.CDLL(str(out)), sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -239,3 +258,85 @@ def test_launch_shape_is_the_kernels_layout():
         threads, L = launch_shape(A)
         assert L == lanes
         assert threads % 32 == 0 and threads % L == 0
+
+
+# -- the dense walk (K6) -------------------------------------------------------
+
+def _dense_emu(fn, batch, dense, K):
+    """``dense_walk.cu`` through the stand-in on ``batch`` (words, lens,
+    is_sys) and the dense operands ``dense`` (lmat, pmat, label, hacc,
+    eacc): the four ``MatchResult`` fields."""
+    words, lens, is_sys = batch
+    lmat, pmat, label, hacc, eacc = dense
+    lptr, lrow, pptr, prow = dense_columns(lmat, pmat)
+    B, D = words.shape
+    matches = torch.full((B, K), -7, dtype=torch.int32)
+    n, aover, mover = (torch.full((B,), -7, dtype=torch.int32)
+                       for _ in range(3))
+    rc = fn(*(t.data_ptr() for t in (words, lens, is_sys, label, hacc, eacc,
+                                      lptr, lrow, pptr, prow)),
+            B, D, label.shape[0], lrow.shape[0], prow.shape[0], K,
+            matches.data_ptr(), n.data_ptr(), aover.data_ptr(),
+            mover.data_ptr(), None)
+    assert rc == 0
+    return matches, n, aover, mover
+
+
+def _dense_equal(fn, batch, dense, K):
+    got = _dense_emu(fn, batch, dense, K)
+    want = dense_match_plain(*batch, *dense, max_matches=K)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return want
+
+
+def _compiled_dense(filters, topics, depth, B):
+    tab = compile_filters(filters, depth=depth)
+    dense = [torch.from_numpy(a) for a in build_dense(tab).device_arrays()]
+    batch = [torch.from_numpy(a) for a in encode_topics(tab, topics[:B],
+                                                        batch=B)]
+    return batch, dense
+
+
+@pytest.mark.parametrize("B,K", [(B, 64), (5, 64), (B, 0)])
+def test_dense_kernel_source_equals_plain_on_bench_table(emu_kernels, B, K):
+    """``bench_dense``'s 420-filter table (S = 2048) and its topics; B = 5
+    leaves the second of two blocks with one row, K = 0 puts every row
+    with a match past K."""
+    filters, _tab, _dense, topics = bench_dense_workload(batch=B)
+    batch, dense = _compiled_dense(filters, topics, 8, B)
+    assert dense[2].shape[0] == 2048
+    want = _dense_equal(emu_kernels["dense_walk"], batch, dense, K)
+    assert int(want.n_matches.sum()) > 0
+    if K == 0:
+        assert int(want.match_overflow.sum()) > 0
+
+
+def test_dense_kernel_source_equals_plain_on_sys_topics(emu_kernels):
+    """Root wildcards and ``$SYS`` filters (no root fire and no root '+'
+    for a ``$`` topic), a padding row, the fan topic past K."""
+    filters = EDGE_FILTERS[:9] + ["+/status", "$SYS/broker/+"] + FAN_FILTERS
+    topics = EDGE_TOPICS + ["$SYS/status", "node/status",
+                            "$SYS/broker/uptime", "a/x/c", "a/x/c/d/e"]
+    batch, dense = _compiled_dense(filters, topics, 8, len(topics) + 1)
+    want = _dense_equal(emu_kernels["dense_walk"], batch, dense, 8)
+    assert bool(batch[2].any()) and int(want.match_overflow.sum()) > 0
+
+
+@pytest.mark.parametrize("S,parents,rows", [(200, 3, B), (256, 1, 37),
+                                            (1024, 150, 9)])
+def test_dense_kernel_source_equals_plain_on_random_tables(emu_kernels, S,
+                                                           parents, rows):
+    """Random 0/1 tables with several parents a column (S = 200 fills its
+    last 32-column chunk partly; S = 1024 with up to 150 parents a column
+    holds more than shared memory, so the kernel reads the tables from
+    device memory)."""
+    dense = [torch.from_numpy(a) for a in random_dense(S + parents, S,
+                                                       parents)]
+    lptr, lrow, pptr, prow = dense_columns(dense[0], dense[1])
+    staged = 4 * (3 * S + 2 + lrow.shape[0] + prow.shape[0]) \
+        + 16 * 4 * (-(-S // 32))
+    assert (staged > 232448) == (S == 1024)
+    batch = [torch.from_numpy(a) for a in random_dense_batch(S, rows, 6)]
+    want = _dense_equal(emu_kernels["dense_walk"], batch, dense, 16)
+    assert int(want.n_matches.sum()) > 0

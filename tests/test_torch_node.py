@@ -28,10 +28,13 @@ of an unported subsystem set away from its default raises at
 construction; ``stop()`` leaves no task and no open socket.
 """
 
+import array
 import asyncio
 import dataclasses
+import fcntl
 import json
 import random
+import termios
 
 import pytest
 import torch
@@ -65,6 +68,18 @@ async def settle(pred, timeout=30.0, interval=0.02):
     return pred()
 
 
+#: the fanout on, with its load-dependent gates pinned off on both nodes:
+#: the shape gate (a sender with nothing in custody goes the per-message
+#: way unless a probe is due, 0.25 s apart) and the loop-lag probe of
+#: overload protection (a lag past 0.5 s sheds QoS0 and defers retained
+#: publishes).  Under a loaded machine either changes which path a
+#: publish takes, so the PUBACK codes and the delivery order followed
+#: the machine's load rather than the node
+FANOUT_PINNED = {"broker.fanout.enable": True,
+                 "broker.fanout.shape_routes": 0.0,
+                 "overload_protection.lag_probe_interval": 0.0}
+
+
 def make_node(side, tpu=True, auth=None, **extra):
     """A node of ``side`` as the reference cases make theirs; ``auth``
     is an ``(auth_chain, authz)`` pair of the side's package."""
@@ -85,6 +100,73 @@ def sub(b, cid, flt):
     if cid not in b.sessions:
         b.open_session(cid)
     b.subscribe(cid, flt)
+
+
+def _unread(transport) -> int:
+    """Bytes that arrived on ``transport``'s socket and were not read."""
+    sock = transport.get_extra_info("socket") if transport else None
+    if sock is None or sock.fileno() < 0:
+        return 0
+    n = array.array("i", [0])
+    fcntl.ioctl(sock.fileno(), termios.FIONREAD, n)
+    return n[0]
+
+
+def _transport(obj):
+    """The asyncio transport under a connection, a stream writer or a
+    protocol, or None."""
+    for attr in ("transport", "stream", "_writer", "writer"):
+        t = getattr(obj, attr, None)
+        t = getattr(t, "transport", t)
+        if t is not None and hasattr(t, "get_write_buffer_size"):
+            return t
+    return None
+
+
+def _flushed(obj) -> bool:
+    """Nothing of ``obj`` (a node's connection or a client) waits to be
+    written or read: its output queues and write buffers are empty and
+    its socket holds no unread byte."""
+    q = getattr(obj, "_outq", None)
+    if q is not None and not q.empty():
+        return False
+    if getattr(obj, "_pending_out", None) or getattr(obj, "_wbuf", None):
+        return False
+    t = _transport(obj)
+    if t is None or t.is_closing():
+        return True
+    return not t.get_write_buffer_size() and not _unread(t)
+
+
+def _node_idle(node):
+    """Nothing of the node's in flight: no fanout offer queued, deferred
+    or mid-batch, no prefetch waiting for a batch, no delivery to a
+    connected client awaiting its ack."""
+    fp, ms = node.fanout_pipeline, node.match_service
+    if fp is not None and (fp._q or fp._deferred or fp._busy):
+        return False
+    if ms is not None and ms._pending:
+        return False
+    return all(not len(s.inflight) for s in node.broker.sessions.values()
+               if s.connected)
+
+
+async def drained(node, clients, timeout=10.0):
+    """Wait until the node and ``clients`` are at rest: the node idle
+    (:func:`_node_idle`), every connection of the node and every client
+    with nothing queued, buffered or unread, on three checks in a row a
+    loop turn apart (bytes between two sockets show as unread on one of
+    them).  A bounded wait: the condition, not a settle time."""
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + timeout
+    calm = 0
+    while calm < 3:
+        await asyncio.sleep(0.001)
+        at_rest = _node_idle(node) and all(
+            _flushed(c) for c in list(node.connections.values())
+            + list(clients))
+        calm = calm + 1 if at_rest else 0
+        assert loop.time() < deadline, "the node did not come to rest"
 
 
 def ms_synced(node):
@@ -165,7 +247,7 @@ async def publish_storm(side):
         want = sum(1 for t in topics for f in filters if T.match(t, f))
         assert await settle(
             lambda: sum(s.messages.qsize() for s in subs) >= want)
-        await asyncio.sleep(0.05)   # nothing more arrives
+        await drained(node, subs + [pub])   # nothing more arrives
         m = node.observed.metrics
         out = [received(s) for s in subs] + [
             m.get("tpu.match.batches") >= 1,
@@ -553,7 +635,7 @@ async def rules_and_access_control(side, fanout_on=False):
     """A rule created through ``node.rule_engine`` republishing to a
     subscriber; a bad password refused at CONNECT; an ACL denying a
     publish and a subscription; the rule's metrics and outputs."""
-    extra = {"broker.fanout.enable": True} if fanout_on else {}
+    extra = FANOUT_PINNED if fanout_on else {}
     node = make_node(side, auth=access(side), **extra)
     await node.start()
     port = node.listeners.all()[0].port
@@ -595,7 +677,7 @@ async def rules_and_access_control(side, fanout_on=False):
             out.append(await cl.publish(
                 topic, json.dumps({"temp": temp}).encode(), qos=1))
         assert await settle(lambda: sink.messages.qsize() >= 2)
-        await asyncio.sleep(0.05)   # nothing more arrives
+        await drained(node, [sink, pub, root])   # nothing more arrives
         out.append(received(sink))
         out.append(hits)
         out.append({rid: dict(r.metrics)
@@ -770,35 +852,9 @@ def _recorder(cls):
     return Recording
 
 
-def _node_idle(node):
-    """Nothing of the node's in flight: no fanout offer queued, deferred
-    or mid-batch, no prefetch waiting for a batch, no delivery to a
-    connected client awaiting its ack."""
-    fp, ms = node.fanout_pipeline, node.match_service
-    if fp is not None and (fp._q or fp._deferred or fp._busy):
-        return False
-    if ms is not None and ms._pending:
-        return False
-    return all(not len(s.inflight) for s in node.broker.sessions.values()
-               if s.connected)
-
-
-async def _quiet(clients, node, settle_s=0.05):
-    """Wait until the node is idle and no client received anything for
-    ``settle_s`` (on a loaded machine a fanout batch or a match batch
-    can take longer than that)."""
-    last = -1
-    while True:
-        n = sum(len(c.inbound) for c in clients)
-        if n == last and _node_idle(node):
-            return
-        last = n
-        await asyncio.sleep(settle_s)
-
-
 async def seeded_script(side, seed, fanout_on=False, client_cls=Client):
     rng = random.Random(seed)
-    extra = {"broker.fanout.enable": fanout_on} if fanout_on else {}
+    extra = FANOUT_PINNED if fanout_on else {}
     node = make_node(side, **extra)
     await node.start()
     port = node.listeners.all()[0].port
@@ -818,14 +874,14 @@ async def seeded_script(side, seed, fanout_on=False, client_cls=Client):
         for i in range(3):      # retained, QoS 1, one a second retain
             await b.publish(f"r/k{i}", f"ret{i}".encode(), qos=1,
                             retain=True)
-        await _quiet(clients, node)
+        await drained(node, clients)
         for i in range(12):     # a seeded QoS mix, topics and payloads
             qos = rng.randint(0, 2)
             topic = f"s/{rng.randint(0, 3)}/t"
             await a.publish(topic, bytes(rng.randrange(256)
                                          for _ in range(rng.randint(0, 8))),
                             qos=qos)
-        await _quiet(clients, node)
+        await drained(node, clients)
         await b.publish("$delayed/1/d/x", b"later", qos=1)
         assert await settle(lambda: any(p[1].get("topic") == "d/x"
                                          for p in b.inbound), timeout=10)
@@ -833,7 +889,7 @@ async def seeded_script(side, seed, fanout_on=False, client_cls=Client):
         await settle(lambda: "C" not in node.connections)
         for i in range(3):      # queued for the offline C
             await a.publish("s/1/t", f"off{i}".encode(), qos=1)
-        await _quiet(clients, node)
+        await drained(node, clients)
         c2 = C(clientid="C", port=port, proto_ver=5, clean_start=False,
                properties={"Session-Expiry-Interval": 300})
         await c2.connect()      # the resume: session present, the queue
@@ -841,11 +897,11 @@ async def seeded_script(side, seed, fanout_on=False, client_cls=Client):
         await d.connect()
         await d.subscribe("r/#", qos=2)     # the retained replay
         clients += [c2, d]
-        await _quiet(clients, node)
+        await drained(node, clients)
         await a.unsubscribe("s/+/t")
         await b.publish("s/2/t", b"after-unsub", qos=1)
         await b.publish("r/k1", b"", qos=0, retain=True)   # clears it
-        await _quiet(clients, node)
+        await drained(node, clients)
         for cl in (a, b, c2, d):
             await cl.disconnect()
         return {cl.clientid + ("2" if cl is c2 else ""): cl.inbound
