@@ -57,7 +57,40 @@ phases, one JSON line each; any failure exits non-zero:
    (one relation rebuild, no table re-upload without growth) and 4
    batches.  Join-kernel launches over this path must equal its join
    dispatches, and the hash kernel must not launch on it;
-7. times_join — phase 5's readings for the join kernel and service;
+7. times_join — phase 5's readings for the join kernel and service
+   (phases 4 and 6 and exhook_sidecar share one 1M workload and its
+   trie oracle, built once: each phase undoes its churn in the oracle);
+
+then the exhook boundary, each sidecar in a spawned child
+process that calls ``serve()``, as in a deployment, its counters and
+walk launches read over a pipe:
+
+* exhook_sidecar — BASELINE config 2's 1M filters through the sidecar's
+  defaults (depth 8, A = 16, K = ``tpu.max_matches``, ``annotate``):
+  ``OnProviderLoaded``, ``InstallSnapshot`` in chunks of 1,024 (the
+  seconds to the ack and to a synced mirror; filters, aliases, states,
+  table bytes); 20 ``MatchBatch`` calls of 2048 topics (topics/s, the
+  RPC's p50/p99, the sidecar's batch p50/p99, every row against the
+  oracle, the rows re-run on spill); 16,384 ``OnMessagePublish`` calls
+  at 256 in flight, each ``matched_filters`` header against the
+  oracle's count (calls/s, the mean micro-batch); ``ApplyDeltas`` of
+  1,000 removes and 1,000 adds (seconds until a ``MatchBatch`` answers
+  with them, 0 mismatches, no whole upload without growth).  No row
+  served by the host beside spills, no failed sync, and walk launches
+  equal to the device batches plus the warm-up;
+* exhook_node — the port's ``BrokerNode`` (``tpu.enable=false``,
+  ``exhook.servers`` naming a sidecar that is not up yet); 100 MQTT
+  clients (one fleet process) subscribe 100 filters each at QoS 1;
+  then the sidecar starts, the reconnect loop loads it and pushes the
+  snapshot, and its mirror must equal the node's filter set; 100
+  subscribes and 100 unsubscribes follow through the hooks; 5 × 2048
+  QoS 1 publishes, each riding an ``OnMessagePublish`` round trip: every
+  delivery owed arrives once, the sidecar matched every publish with
+  no host row; PUBACKed publishes/s and publish → PUBACK p50/p99;
+* exhook_checkpoint — a sidecar with ``checkpoint_path`` installs the
+  Python table's 100k filters and writes its checkpoint; a new sidecar
+  process restores it at start: the seconds to the first
+  ``MatchBatch`` served by the card after each, 0 mismatches;
 8. slice_python — phase 4 on the Python ``IncrementalNfa`` table (the
    reference's debug twin) at 100k filters (its serve stages and
    ``split_per_id`` were cut to fit the later phases); then
@@ -69,8 +102,8 @@ phases, one JSON line each; any failure exits non-zero:
    node, edge and seed tensors bit-equal to a whole upload of the same
    host table, and a walk on each equal;
 9. slice_10m_build — BASELINE config 3: 10M filters (seed 0, depth-8
-   Zipfian; generated in a spawned child process while the slice_node,
-   acl_batch and MQTT phases run) started with ``load`` on
+   Zipfian; generated in a spawned child process started before phase
+   4, while the earlier phases run) started with ``load`` on
    ``table="auto"`` (native), the join mirror enabled on the same
    ``DeviceNfa``, and the ``FilterSet`` oracle built after the table;
    seconds of each step and the sizes;
@@ -255,8 +288,8 @@ Then it drives the port's MQTT front door over TCP:
 
 Each phase's line carries its wall seconds.
 The line before the last names every kernel with its numbers (and its
-launch shape, ``ptxas`` register count, launches on each path and its
-10M readings; the dense walk's at the tiered hot shape, with
+launch shape, ``ptxas`` register count, launches on each path, the
+exhook paths' among them, and its 10M readings; the dense walk's at the tiered hot shape, with
 ``bench_dense``'s beside); the last line is ``{"ok": true, "device":
 {...}}``.
 With no CUDA device the script prints no result and exits 2.
@@ -296,6 +329,7 @@ BATCHES_10M = 20            # 10M batches served on each backend ...
 AFTER_BATCHES_10M = 4       # ... the last of them after the churn
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 SMALL_CHURN = (100, 40)     # join path: removes, adds within the overlay
+JOIN_SMALL_BATCHES = 2      # join path: batches served after SMALL_CHURN
 SESSIONS = 10_000           # slice_node: clients, each with an equal share
 STORM_TASKS = 2048          # slice_node: concurrent publishers (one batch)
 WARM_STORM = 10             # slice_node: warm-up publishes, in batches ...
@@ -760,12 +794,11 @@ def _table_info(svc) -> Dict:
     return info
 
 
-def _build_service(torch, device, n_filters: int, n_batches: int,
-                   backend: str, table: str, phase: str):
-    """A ``MatchService`` on ``backend`` and host ``table`` over the
-    BASELINE config-2 filters (seed 0), started with ``load``, and its
-    trie oracle; emits the build line ``phase``."""
-    from emqx_tpu_torch.broker.match_service import MatchService
+def shared_workload(n_filters: int, n_batches: int) -> Dict:
+    """BASELINE config 2's filters (seed 0) with ``n_batches`` batches of
+    topics and the trie oracle, built once for the phases that share
+    them (slice, slice_join, exhook_sidecar); each phase undoes its
+    churn in the oracle."""
     from emqx_tpu_torch.broker.trie import FilterTrie
     from emqx_tpu_torch.workload import build_workload
 
@@ -773,22 +806,50 @@ def _build_service(torch, device, n_filters: int, n_batches: int,
     filters, topics = build_workload(np.random.default_rng(0), n_filters,
                                      n_batches * BATCH)
     t1 = time.perf_counter()
+    trie = FilterTrie()
+    for f in filters:
+        trie.insert(f)
+    return {"filters": filters, "topics": topics, "trie": trie,
+            "workload_s": t1 - t0, "oracle_build_s": time.perf_counter() - t1}
+
+
+def _undo_churn(trie, gone, fresh) -> None:
+    """Put the oracle back as it was before :func:`_churn`."""
+    for f in fresh:
+        trie.delete(f)
+    for f in gone:
+        trie.insert(f)
+
+
+def _build_service(torch, device, n_filters: int, n_batches: int,
+                   backend: str, table: str, phase: str, shared=None):
+    """A ``MatchService`` on ``backend`` and host ``table`` over the
+    BASELINE config-2 filters (seed 0), started with ``load``, and its
+    trie oracle (``shared``'s when given: :func:`shared_workload`, whose
+    build has a line of its own); emits the build line ``phase``."""
+    from emqx_tpu_torch.broker.match_service import MatchService
+
+    t0 = time.perf_counter()
+    own = {}
+    if shared is None:
+        shared = shared_workload(n_filters, n_batches)
+        own = {"workload_s": shared["workload_s"],
+               "oracle_build_s": shared["oracle_build_s"]}
+    filters, topics, trie = (shared["filters"], shared["topics"],
+                             shared["trie"])
+    t1 = time.perf_counter()
     svc = MatchService(device=device, backend=backend, table=table)
     _check(svc.load(filters) == len(filters), "load() lost filters")
     t2 = time.perf_counter()
     upload_s = _sync(torch, device, svc)
-    t3 = time.perf_counter()
-    trie = FilterTrie()
-    for f in filters:
-        trie.insert(f)
     emit({"phase": phase, "ok": True, "backend": backend,
-          "filters": len(filters), **_table_info(svc),
-          "workload_s": t1 - t0, "host_build_s": t2 - t1,
+          "filters": len(filters), **_table_info(svc), **own,
+          "host_build_s": t2 - t1,
           "load_seconds": svc.load_seconds, "upload_s": upload_s,
-          "oracle_build_s": time.perf_counter() - t3,
+          "shared_workload": not own,
           "wall_s": time.perf_counter() - t0})
     svc.host_build_s = t2 - t1
-    return svc, trie, filters, topics
+    return svc, trie, filters, topics[:n_batches * BATCH]
 
 
 def _fresh_filters(have, n: int, seed: int) -> List[str]:
@@ -822,7 +883,7 @@ def _serve_batches(svc, trie, topics, first: int, count: int) -> int:
 
 
 def phase_slice(torch, device, n_filters: int, table: str = "native",
-                name: str = "slice") -> Dict:
+                name: str = "slice", shared=None) -> Dict:
     """The hash backend's serve path on host ``table``: served batches
     against the oracle, a churn written in place, more batches."""
     from emqx_tpu_torch.ops import walk_kernel
@@ -830,7 +891,7 @@ def phase_slice(torch, device, n_filters: int, table: str = "native",
     t_start = time.perf_counter()
     svc, trie, filters, topics = _build_service(
         torch, device, n_filters, SERVE_BATCHES + AFTER_BATCHES, "hash",
-        table, name + "_build")
+        table, name + "_build", shared)
     encoded0 = svc.encoder.native_batches
 
     # -- the main path: counts zeroed just before, read just after -------
@@ -852,6 +913,7 @@ def phase_slice(torch, device, n_filters: int, table: str = "native",
     join_launches = walk_kernel.join_launches
     dispatches = svc.dispatches - d0
     # ---------------------------------------------------------------------
+    _undo_churn(trie, gone, fresh)
     _check(bad == 0, f"{bad} served answers differ from the trie oracle")
     _check(svc.table_kind == ("python" if table == "python" else "native"),
            f"table {table!r} built a {svc.table_kind} table")
@@ -881,16 +943,16 @@ def phase_slice(torch, device, n_filters: int, table: str = "native",
             "build_s": svc.host_build_s}
 
 
-def phase_slice_join(torch, device, n_filters: int) -> Dict:
+def phase_slice_join(torch, device, n_filters: int, shared=None) -> Dict:
     """The join backend's serve path at 1M filters, through a churn that
     fits the overlay and one that overflows it."""
     from emqx_tpu_torch.ops import walk_kernel
 
-    n_small = 2
+    n_small = JOIN_SMALL_BATCHES
     t_start = time.perf_counter()
     svc, trie, filters, topics = _build_service(
         torch, device, n_filters, SERVE_BATCHES + n_small + AFTER_BATCHES,
-        "join", "native", "slice_join_build")
+        "join", "native", "slice_join_build", shared)
     dev = svc.dev
     encoded0 = svc.encoder.native_batches
 
@@ -931,6 +993,7 @@ def phase_slice_join(torch, device, n_filters: int) -> Dict:
     dispatches = svc.dispatches - d0
     join_dispatches = svc.join_dispatches - j0
     # ---------------------------------------------------------------------
+    _undo_churn(trie, gone_small + gone_big, fresh)
     _check(bad == 0, f"{bad} served answers differ from the trie oracle")
     _check(join_dispatches == dispatches, "a dispatch left the join backend")
     _check(svc.table_kind == "native", "the join slice is not native")
@@ -1069,18 +1132,68 @@ def phase_python_segments(torch, device, svc, build_s: float,
     return {"launches": launches}
 
 
-def phase_10m_build(torch, device, n_filters: int) -> Dict:
+def _workload_proc(conn, n_filters: int, n_topics: int) -> None:
+    """A spawned child: the workload generator's ``(filters, topics)``
+    (seed 0) and its seconds, sent back over ``conn``."""
+    from emqx_tpu_torch.workload import build_workload
+
+    t0 = time.perf_counter()
+    out = build_workload(np.random.default_rng(0), n_filters, n_topics)
+    conn.send((time.perf_counter() - t0, out))
+    conn.close()
+
+
+class _BackgroundWorkload:
+    """BASELINE config 3's workload generated in a spawned child process
+    while the earlier phases run (it took 90 s inline on the H100's
+    host)."""
+
+    def __init__(self, n_filters: int, n_topics: int) -> None:
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_workload_proc,
+                                args=(child, n_filters, n_topics),
+                                daemon=True)
+        self.proc.start()
+        child.close()
+
+    def result(self):
+        """``(seconds in the child, filters, topics)``."""
+        try:
+            gen_s, (filters, topics) = self.conn.recv()
+        except EOFError:
+            raise PhaseError("the workload process died") from None
+        self.proc.join(30)
+        self.close()
+        return gen_s, filters, topics
+
+    def close(self) -> None:
+        """Stop the child (at once, if its result was not taken)."""
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(5)
+        self.conn.close()
+
+
+def phase_10m_build(torch, device, n_filters: int, pending=None) -> Dict:
     """BASELINE config 3's table: ``n_filters`` workload filters (seed 0,
-    depth-8 Zipfian) started with ``load`` on the native table, the join
-    mirror enabled on the same ``DeviceNfa``, and the filter-set oracle
-    built after the table."""
+    depth-8 Zipfian; ``pending``'s, a :class:`_BackgroundWorkload`, when
+    given) started with ``load`` on the native table, the join mirror
+    enabled on the same ``DeviceNfa``, and the filter-set oracle built
+    after the table."""
     from emqx_tpu_torch.broker.match_service import MatchService
     from emqx_tpu_torch.broker.trie import FilterSet
     from emqx_tpu_torch.workload import build_workload
 
     t0 = time.perf_counter()
-    filters, topics = build_workload(np.random.default_rng(0), n_filters,
-                                     BATCHES_10M * BATCH)
+    if pending is not None:
+        gen_s, filters, topics = pending.result()
+    else:
+        filters, topics = build_workload(np.random.default_rng(0), n_filters,
+                                         BATCHES_10M * BATCH)
+        gen_s = time.perf_counter() - t0
     t1 = time.perf_counter()
     svc = MatchService(device=device, table="auto")
     _check(svc.table_kind == "native", "table 'auto' is not native")
@@ -1095,7 +1208,9 @@ def phase_10m_build(torch, device, n_filters: int) -> Dict:
     oracle = FilterSet(filters)
     t5 = time.perf_counter()
     emit({"phase": "slice_10m_build", "ok": True, "filters": len(filters),
-          **_table_info(svc), "workload_s": t1 - t0,
+          **_table_info(svc), "workload_s": gen_s,
+          "workload_in_background": pending is not None,
+          "workload_wait_s": t1 - t0,
           "host_build_s": t2 - t1, "load_seconds": svc.load_seconds,
           "upload_s": upload_s, "join_mirror_s": t4 - t3,
           "oracle_build_s": t5 - t4, "wall_s": t5 - t0})
@@ -4275,6 +4390,625 @@ async def _slice_mqtt(torch, device, n_filters, card, storm_batches,
         gc.unfreeze()       # the services froze the started heap
 
 
+# ---------------------------------------------------------------------------
+# The exhook boundary: the match sidecar in a child process of its
+# own (spawned, as in a deployment: ``serve()`` on its own loop), driven
+# over gRPC from this process or from the port's BrokerNode.  The child
+# obeys commands over a pipe, as the MQTT fleet's processes do, and
+# answers ``counters`` with the sidecar's counters and its process's walk
+# launches.
+
+EXHOOK_MATCH_CALLS = 20      # exhook_sidecar: MatchBatch calls of BATCH
+EXHOOK_PUBLISHES = 16384     # exhook_sidecar: OnMessagePublish burst ...
+EXHOOK_INFLIGHT = 256        # ... calls in flight
+EXHOOK_CHUNK = 1024          # InstallSnapshot chunk (the manager's)
+EXHOOK_CHURN = 1000          # exhook_sidecar: ApplyDeltas adds and removes
+EXHOOK_NODE_CLIENTS = 100    # exhook_node: MQTT clients ...
+EXHOOK_NODE_FILTERS = 100    # ... with this many filters each
+EXHOOK_NODE_CHURN = 100      # exhook_node: subscribes and unsubscribes
+EXHOOK_NODE_STORM = 5        # exhook_node: QoS 1 publishes, in BATCHes
+EXHOOK_WAIT_S = 900.0        # the longest wait for a mirror to sync
+EXHOOK_DIR = os.path.join("trace", "chip_smoke_exhook")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _sidecar_proc(conn, spec: Dict) -> None:
+    """The sidecar's child process: obey (command, args) messages until
+    ``exit``; answer each with ("ok", result) or ("error", text)."""
+    asyncio.run(_sidecar_loop(conn, spec))
+
+
+def _sidecar_counters(sc) -> Dict:
+    from emqx_tpu_torch.ops import walk_kernel
+
+    eng = sc._eng
+    ready = sc._engine is not None
+    return {
+        "launches": walk_kernel.launches,
+        "join_launches": walk_kernel.join_launches,
+        "device_batches": sc.device_batches, "warms": sc.warms,
+        "host_rows": sc.host_rows, "not_ready_rows": sc.not_ready_rows,
+        "aid_reuse_rows": sc.aid_reuse_rows,
+        "queue_timeouts": sc.queue_timeouts,
+        "spill_fallbacks": sc.spill_fallbacks,
+        "sync_failures": sc.sync_failures,
+        "sync_error": repr(sc.sync_error) if sc.sync_error else None,
+        "syncs": sc.syncs, "batches": sc.batches,
+        "topics_matched": sc.topics_matched,
+        "uploads": eng.dev.uploads, "delta_applies": eng.dev.delta_applies,
+        "synced": (ready and not sc._dirty.is_set()
+                   and eng.dev.epoch == eng.inc.epoch),
+        "filters": len(sc._ref), "table_filters": eng.inc.n_filters,
+        "aliases": len(eng.deep_aid), "states": eng.inc.n_states,
+        "shape_key": list(eng.inc.shape_key()),
+        "table_bytes": eng.dev.table_bytes if ready else 0,
+        "batch_ms": sorted(sc._lat_ms),
+    }
+
+
+async def _sidecar_loop(conn, spec: Dict) -> None:
+    from emqx_tpu_torch.exhook.server import TpuMatchSidecar, serve
+
+    loop = asyncio.get_running_loop()
+    conn.send(("ok", {"pid": os.getpid()}))
+    server = sc = None
+    while True:
+        cmd, args = await loop.run_in_executor(None, conn.recv)
+        try:
+            if cmd == "exit":
+                if sc is not None:
+                    await sc.stop()
+                if server is not None:
+                    await server.stop(None)
+                conn.send(("ok", {}))
+                return
+            if cmd == "serve":
+                t0 = time.perf_counter()
+                server, sc = await serve(
+                    port=spec["port"], sidecar=TpuMatchSidecar(**spec["kw"]))
+                out = {"serve_s": time.perf_counter() - t0,
+                       "ready": sc._engine is not None}
+            elif cmd == "counters":
+                out = _sidecar_counters(sc)
+            else:
+                raise ValueError(f"unknown command {cmd!r}")
+            conn.send(("ok", out))
+        except Exception as e:  # noqa: BLE001 - reported to the parent
+            conn.send(("error", f"{cmd}: {type(e).__name__}: {e}"))
+
+
+class _SidecarProc:
+    """One sidecar child process (``serve()`` on ``port``, the sidecar
+    built with ``kw``), and the commands to it."""
+
+    def __init__(self, port: int, device, **kw) -> None:
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.port = port
+        kw["device"] = str(device)
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=_sidecar_proc,
+                                args=(child, {"port": port, "kw": kw}),
+                                daemon=True)
+        self.proc.start()
+        child.close()
+
+    async def call(self, cmd: str, *args):
+        self.conn.send((cmd, args))
+        status, out = await asyncio.to_thread(self.conn.recv)
+        _check(status == "ok", f"sidecar process: {out}")
+        return out
+
+    async def ready(self) -> int:
+        status, out = await asyncio.to_thread(self.conn.recv)
+        _check(status == "ok", f"sidecar process: {out}")
+        return out["pid"]
+
+    async def synced(self, timeout: float = EXHOOK_WAIT_S) -> Dict:
+        """Poll until the mirror serves and holds every mutation; the
+        counters then.  Fails on a failed sync."""
+        t0 = time.perf_counter()
+        while True:
+            c = await self.call("counters")
+            _check(c["sync_failures"] == 0,
+                   f"the sidecar's mirror sync failed: {c['sync_error']}")
+            if c["synced"]:
+                return c
+            _check(time.perf_counter() - t0 < timeout,
+                   f"the sidecar did not sync in {timeout} s")
+            await asyncio.sleep(0.02)
+
+    def close(self) -> None:
+        try:
+            self.conn.send(("exit", ()))
+            if self.conn.poll(60):
+                self.conn.recv()
+        except (OSError, EOFError):
+            pass
+        self.proc.join(30)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(5)
+        self.conn.close()
+
+
+def _exhook_stubs(port: int):
+    """(channel, HookProvider stub, MirrorSync stub) to the sidecar on
+    ``port``: the channel takes messages of any size (a 1M-filter
+    FilterTable is tens of MB)."""
+    import grpc.aio
+
+    from emqx_tpu_torch.exhook.rpc import HookProviderStub, MirrorSyncStub
+
+    chan = grpc.aio.insecure_channel(
+        f"127.0.0.1:{port}",
+        options=[("grpc.max_receive_message_length", -1),
+                 ("grpc.max_send_message_length", -1)])
+    return chan, HookProviderStub(chan), MirrorSyncStub(chan)
+
+
+async def _install(mirror, filters: List[str], epoch: int = 1):
+    """InstallSnapshot of ``filters`` (refcount 1 each) in chunks of
+    ``EXHOOK_CHUNK``, as the manager sends them; returns the ack."""
+    from emqx_tpu_torch.exhook.rpc import pb
+
+    items = sorted(filters)
+
+    async def chunks():
+        for i in range(0, len(items), EXHOOK_CHUNK):
+            part = items[i:i + EXHOOK_CHUNK]
+            yield pb.SnapshotChunk(epoch=epoch, filters=part,
+                                   refcounts=[1] * len(part),
+                                   last=i + EXHOOK_CHUNK >= len(items))
+
+    return await mirror.InstallSnapshot(chunks())
+
+
+async def _match_checked(mirror, topics: List[str], trie, table=None):
+    """One MatchBatch of ``topics``: ``(rows as filters, the RPC's ms,
+    mismatches against the trie oracle)``; ``table`` is the FilterTable
+    to resolve ids through (fetched when None)."""
+    from emqx_tpu_torch.exhook.rpc import pb
+
+    t0 = time.perf_counter()
+    resp = await mirror.MatchBatch(pb.MatchBatchRequest(topics=topics))
+    ms = (time.perf_counter() - t0) * 1e3
+    if table is None:
+        table = list((await mirror.FilterTable(
+            pb.FilterTableRequest())).filters)
+    rows = [sorted(table[i] for i in r.filter_ids) for r in resp.results]
+    bad = sum(row != sorted(trie.match(t)) for t, row in zip(topics, rows))
+    return rows, ms, bad
+
+
+def _probe_topics(filters: List[str]) -> List[str]:
+    """A concrete topic each of ``filters`` matches (``+`` → ``p``,
+    ``#`` → ``p/q``)."""
+    return ["/".join("p/q" if w == "#" else "p" if w == "+" else w
+                     for w in f.split("/")) for f in filters]
+
+
+def _launch_check(c: Dict, what: str) -> None:
+    _check(c["launches"] == c["device_batches"] + c["warms"],
+           f"{what}: walk launches {c['launches']} != device batches "
+           f"{c['device_batches']} + warm-ups {c['warms']}")
+    _check(c["join_launches"] == 0, f"{what}: the join kernel ran")
+
+
+def phase_exhook_sidecar(torch, device, shared, card: str) -> Dict:
+    return asyncio.run(_exhook_sidecar(torch, device, shared, card))
+
+
+async def _exhook_sidecar(torch, device, shared, card: str) -> Dict:
+    """BASELINE config 2 at 1M filters through the sidecar at its
+    defaults (depth 8, A = 16, K = ``tpu.max_matches``): the snapshot
+    install, MatchBatch calls, an OnMessagePublish burst and an
+    ApplyDeltas churn, every answer against the trie oracle."""
+    from emqx_tpu_torch.exhook.rpc import pb
+
+    t_start = time.perf_counter()
+    filters, topics, trie = shared["filters"], shared["topics"], \
+        shared["trie"]
+    proc = _SidecarProc(_free_port(), device, annotate=True)
+    chan = None
+    try:
+        await proc.ready()
+        await proc.call("serve")
+        chan, hooks, mirror = _exhook_stubs(proc.port)
+        await hooks.OnProviderLoaded(pb.ProviderLoadedRequest(
+            meta=pb.RequestMeta(node="chip_smoke")))
+        t0 = time.perf_counter()
+        ack = await _install(mirror, filters)
+        ack_s = time.perf_counter() - t0
+        _check(ack.n_filters == len(filters),
+               f"snapshot ack {ack.n_filters} != {len(filters)} filters")
+        c_ready = await proc.synced()
+        ready_s = time.perf_counter() - t0
+        table = list((await mirror.FilterTable(
+            pb.FilterTableRequest())).filters)
+        line = {"phase": "exhook_sidecar", "ok": True, "card": card,
+                "filters": len(filters), "snapshot_ack_s": ack_s,
+                "snapshot_to_ready_s": ready_s,
+                "aliases": c_ready["aliases"], "states": c_ready["states"],
+                "table_filters": c_ready["table_filters"],
+                "table_bytes": c_ready["table_bytes"],
+                "shape_key": c_ready["shape_key"]}
+        failed = []
+        # -- MatchBatch: EXHOOK_MATCH_CALLS calls of BATCH topics ---------
+        rpc_ms, bad = [], 0
+        replies = []
+        for i in range(EXHOOK_MATCH_CALLS):
+            batch = topics[(i * BATCH) % len(topics):][:BATCH]
+            t1 = time.perf_counter()
+            replies.append((batch, await mirror.MatchBatch(
+                pb.MatchBatchRequest(topics=batch))))
+            rpc_ms.append((time.perf_counter() - t1) * 1e3)
+        for batch, resp in replies:
+            bad += sum(sorted(table[a] for a in r.filter_ids)
+                       != sorted(trie.match(t))
+                       for t, r in zip(batch, resp.results))
+        replies = None
+        st = await mirror.Stats(pb.StatsRequest())
+        c1 = await proc.call("counters")
+        line["match_batch"] = {
+            "calls": EXHOOK_MATCH_CALLS, "topics": EXHOOK_MATCH_CALLS * BATCH,
+            "topics_per_s": EXHOOK_MATCH_CALLS * BATCH / (sum(rpc_ms) / 1e3),
+            "rpc_ms": {"p50": _pct(rpc_ms, 50), "p99": _pct(rpc_ms, 99)},
+            "sidecar_batch_ms": {"p50": st.p50_batch_ms,
+                                 "p99": st.p99_batch_ms},
+            "mismatches": bad,
+            "spill_reruns": c1["spill_fallbacks"] - c_ready["spill_fallbacks"],
+            "host_rows": c1["host_rows"]}
+        if bad:
+            failed.append(f"MatchBatch: {bad} rows differ from the oracle")
+        # -- OnMessagePublish: a burst at EXHOOK_INFLIGHT in flight -------
+        sem = asyncio.Semaphore(EXHOOK_INFLIGHT)
+        pub_topics = [topics[i % len(topics)]
+                      for i in range(EXHOOK_PUBLISHES)]
+
+        async def publish(t):
+            async with sem:
+                resp = await hooks.OnMessagePublish(pb.MessagePublishRequest(
+                    message=pb.Message(topic=t, payload=b"x")))
+            return int(resp.message.headers["matched_filters"])
+
+        t1 = time.perf_counter()
+        counts = await asyncio.gather(*(publish(t) for t in pub_topics))
+        pub_s = time.perf_counter() - t1
+        c2 = await proc.call("counters")
+        pub_bad = sum(n != len(trie.match(t))
+                      for t, n in zip(pub_topics, counts))
+        line["publish_burst"] = {
+            "calls": EXHOOK_PUBLISHES, "in_flight": EXHOOK_INFLIGHT,
+            "calls_per_s": EXHOOK_PUBLISHES / pub_s,
+            "micro_batches": c2["batches"] - c1["batches"],
+            "mean_micro_batch": ((c2["topics_matched"] - c1["topics_matched"])
+                                 / max(1, c2["batches"] - c1["batches"])),
+            "mismatches": pub_bad}
+        if pub_bad:
+            failed.append(f"OnMessagePublish: {pub_bad} counts differ")
+        # -- ApplyDeltas: EXHOOK_CHURN removes, then as many adds ---------
+        rng = np.random.default_rng(3)
+        gone = [filters[i] for i in rng.choice(len(filters), EXHOOK_CHURN,
+                                               replace=False)]
+        fresh = _fresh_filters(set(filters), EXHOOK_CHURN, 33)
+        req = pb.DeltaBatch(from_epoch=1, to_epoch=2)
+        for f in gone:
+            req.deltas.add(op=pb.DeltaBatch.Delta.DEL, filter=f)
+        for f in fresh:
+            req.deltas.add(op=pb.DeltaBatch.Delta.ADD, filter=f)
+        for f in gone:
+            trie.delete(f)
+        for f in fresh:
+            trie.insert(f)
+        probes = (_probe_topics(fresh[:BATCH // 4])
+                  + _probe_topics(gone[:BATCH // 4]))
+        probes += topics[:BATCH - len(probes)]
+        t1 = time.perf_counter()
+        await mirror.ApplyDeltas(req)
+        c3 = await proc.synced()
+        _rows, _ms, churn_bad = await _match_checked(mirror, probes, trie)
+        churn_s = time.perf_counter() - t1
+        _undo_churn(trie, gone, fresh)
+        grew = c3["shape_key"] != c_ready["shape_key"]
+        line["apply_deltas"] = {
+            "removed": len(gone), "added": len(fresh),
+            "seconds_to_answer": churn_s, "mismatches": churn_bad,
+            "uploads": [c_ready["uploads"], c3["uploads"]],
+            "delta_applies": c3["delta_applies"] - c_ready["delta_applies"],
+            "grew_table": grew}
+        if churn_bad:
+            failed.append(f"after ApplyDeltas: {churn_bad} rows differ")
+        if not grew and c3["uploads"] != c_ready["uploads"]:
+            failed.append("ApplyDeltas re-uploaded the table without growth")
+        c = await proc.call("counters")
+        line["sidecar"] = {k: c[k] for k in (
+            "launches", "join_launches", "device_batches", "warms",
+            "host_rows", "not_ready_rows", "aid_reuse_rows", "queue_timeouts",
+            "spill_fallbacks", "sync_failures", "syncs", "batches",
+            "topics_matched", "uploads", "delta_applies")}
+        if c["host_rows"]:
+            failed.append(f"{c['host_rows']} rows served by the host "
+                          "beside spills")
+        if c["queue_timeouts"]:
+            failed.append(f"{c['queue_timeouts']} publishes timed out "
+                          "waiting for their micro-batch")
+        if device.type == "cuda":
+            _launch_check(c, "exhook_sidecar")
+        line["wall_s"] = time.perf_counter() - t_start
+        _emit_checked(line, failed)
+        return {"launches": c["launches"], "join_launches": c["join_launches"]}
+    finally:
+        if chan is not None:
+            await chan.close()
+        proc.close()
+
+
+def phase_exhook_node(torch, device, card: str) -> Dict:
+    return asyncio.run(_exhook_node(torch, device, card))
+
+
+def _node_filters(broker) -> Dict[str, int]:
+    """The routing filters of the broker's sessions ($share stripped),
+    with their counts: what the manager's snapshot sends."""
+    from emqx_tpu_torch import topic as T
+
+    ref: Dict[str, int] = {}
+    for sess in broker.sessions.values():
+        for flt in sess.subscriptions:
+            share = T.parse_share(flt)
+            f = share[1] if share is not None else flt
+            ref[f] = ref.get(f, 0) + 1
+    return ref
+
+
+async def _mirror_filters(mirror) -> set:
+    from emqx_tpu_torch.exhook.rpc import pb
+
+    ft = await mirror.FilterTable(pb.FilterTableRequest())
+    return {f for f in ft.filters if f}
+
+
+async def _mirror_equal(proc, mirror, broker, what: str) -> float:
+    """Wait until the sidecar's mirror holds exactly the node's filters
+    and is synced; returns the seconds it took."""
+    t0 = time.perf_counter()
+    while True:
+        want = set(_node_filters(broker))
+        if await _mirror_filters(mirror) == want:
+            c = await proc.call("counters")
+            if c["synced"]:
+                return time.perf_counter() - t0
+        _check(time.perf_counter() - t0 < 120,
+               f"{what}: the mirror never equalled the node's filters")
+        await asyncio.sleep(0.05)
+
+
+async def _exhook_node(torch, device, card: str) -> Dict:
+    """The deployment's path end to end: the port's BrokerNode with its
+    match service off and ``exhook.servers`` naming a sidecar that
+    starts after the node; MQTT clients subscribe, the reconnect loop
+    loads the sidecar and pushes the snapshot, subscribes and
+    unsubscribes follow through the hooks, and QoS 1 publishes each ride
+    an OnMessagePublish round trip."""
+    from emqx_tpu_torch.config import Config
+    from emqx_tpu_torch.node import BrokerNode
+    from emqx_tpu_torch.workload import build_workload
+
+    t_start = time.perf_counter()
+    n = EXHOOK_NODE_CLIENTS * EXHOOK_NODE_FILTERS
+    filters, topics = build_workload(np.random.default_rng(0), n,
+                                     EXHOOK_NODE_STORM * BATCH)
+    held = set(filters)
+    start = _fresh_filters(held, EXHOOK_NODE_CHURN, 51)
+    held.update(start)
+    add = _fresh_filters(held, EXHOOK_NODE_CHURN, 52)
+    churn_ids = [f"churn{k}" for k in range(10)]
+    per = -(-len(start) // len(churn_ids))
+    churn = [(cid, start[k * per:(k + 1) * per])
+             for k, cid in enumerate(churn_ids)]
+    specs = _fleet_specs(filters, topics, EXHOOK_NODE_CLIENTS, 1, churn)
+    fleet = _FleetProcs(specs)
+    fleet.client_idx = {f"dev{k}": k for k in range(EXHOOK_NODE_CLIENTS)}
+    port = _free_port()
+    cfg = Config(env={})
+    cfg.put("listeners.tcp.default.bind", "127.0.0.1:0")
+    cfg.put("tpu.enable", False)      # the sidecar is the card's only user
+    cfg.put("exhook.servers", f"tpu=127.0.0.1:{port}")
+    node = BrokerNode(cfg, device=device)
+    # the sidecar's process starts (imports) now and serves only later
+    proc = _SidecarProc(port, device)
+    chan = None
+    try:
+        await fleet.ready()
+        await proc.ready()
+        await node.start()
+        mgr = node.exhook
+        _check(mgr is not None and mgr.servers[0].stub is None,
+               "the exhook server loaded before the sidecar started")
+        await fleet.all("connect", node.listeners.all()[0].port)
+        t0 = time.perf_counter()
+        await proc.call("serve")
+        chan, _hooks, mirror = _exhook_stubs(port)
+        while mgr.servers[0].stub is None:
+            _check(time.perf_counter() - t0 < 60,
+                   "the reconnect loop never loaded the sidecar")
+            await asyncio.sleep(0.02)
+        loaded_s = time.perf_counter() - t0
+        snapshot_s = await _mirror_equal(proc, mirror, node.broker,
+                                         "after the snapshot")
+        mirror_n = len(await _mirror_filters(mirror))
+        drops = [(cid, f) for cid, flts in churn for f in flts]
+        adds = [(churn_ids[i % len(churn_ids)], f)
+                for i, f in enumerate(add)]
+        t1 = time.perf_counter()
+        await fleet.all("churn_start", adds, drops, NODE_CHURN_RATE,
+                        only=[len(fleet.conns) - 1])
+        await asyncio.sleep(EXHOOK_NODE_CHURN / NODE_CHURN_RATE + 0.5)
+        churned = (await fleet.all("churn_stop",
+                                   only=[len(fleet.conns) - 1]))[0]
+        churn_s = time.perf_counter() - t1
+        _check(churned["subscribed"] == churned["unsubscribed"]
+               == EXHOOK_NODE_CHURN, f"the churn sent {churned}")
+        follow_s = await _mirror_equal(proc, mirror, node.broker,
+                                       "after the churn")
+        c0 = await proc.call("counters")
+        storm = await _mqtt_storm(fleet, node, topics, 0,
+                                  EXHOOK_NODE_STORM * BATCH, card)
+        failed = _storm_checks(storm, False, False)
+        c = await proc.call("counters")
+        matched = c["topics_matched"] - c0["topics_matched"]
+        if matched < storm["publishes"]:
+            failed.append(f"the sidecar matched {matched} topics for "
+                          f"{storm['publishes']} publishes")
+        if c["host_rows"]:
+            failed.append(f"{c['host_rows']} rows served by the host "
+                          "beside spills")
+        if device.type == "cuda":
+            _launch_check(c, "exhook_node")
+        st = mgr.stats()[0]
+        line = {"phase": "exhook_node", "ok": True, "card": card,
+                "clients": EXHOOK_NODE_CLIENTS,
+                "filters": len(_node_filters(node.broker)),
+                "mirror_filters_after_snapshot": mirror_n,
+                "sidecar_serve_to_loaded_s": loaded_s,
+                "loaded_to_mirror_equal_s": snapshot_s,
+                "churn": churned, "churn_s": churn_s,
+                "churn_to_mirror_equal_s": follow_s,
+                "publishes": storm["publishes"],
+                "puback_publishes_per_s": storm["publishes_per_s"],
+                "puback_ms": storm["puback_ms"],
+                "delivered_ms": storm["delivered_ms"],
+                "checked": storm["checked"], "missing": storm["missing"],
+                "duplicate": storm["duplicate"], "extra": storm["extra"],
+                "queue_full": storm["queue_full"],
+                "sidecar_topics_matched": matched,
+                "sidecar_micro_batches": c["batches"] - c0["batches"],
+                "exhook": {k: st[k] for k in ("hooks", "ok", "failed",
+                                              "dropped")},
+                "sidecar": {k: c[k] for k in (
+                    "launches", "join_launches", "device_batches", "warms",
+                    "host_rows", "spill_fallbacks", "sync_failures",
+                    "syncs", "uploads", "delta_applies")},
+                "broker_cpu_s": storm["broker_cpu_s"]}
+        if st["failed"] or st["dropped"]:
+            failed.append(f"exhook calls failed {st['failed']}, "
+                          f"dropped {st['dropped']}")
+        await fleet.all("disconnect")
+        line["wall_s"] = time.perf_counter() - t_start
+        _emit_checked(line, failed)
+        return {"launches": c["launches"], "join_launches": c["join_launches"]}
+    finally:
+        if chan is not None:
+            await chan.close()
+        await node.stop()
+        proc.close()
+        fleet.close()
+
+
+async def _checkpoint_steps(procs, filters, topics, trie, path, device,
+                            line, failed, launches) -> None:
+    """exhook_checkpoint's two steps: the first process installs the
+    filters and writes the checkpoint, the second restores it."""
+    for step, proc in zip(("install", "restore"), procs):
+        chan = None
+        try:
+            await proc.ready()
+            t0 = time.perf_counter()
+            served = await proc.call("serve")
+            chan, _hooks, mirror = _exhook_stubs(proc.port)
+            if step == "install":
+                await _install(mirror, filters)
+            c = await proc.synced()
+            _rows, ms, bad = await _match_checked(mirror, topics, trie)
+            first_s = time.perf_counter() - t0
+            c = await proc.call("counters")
+            if step == "install":
+                while not os.path.exists(path):
+                    _check(time.perf_counter() - t0 < EXHOOK_WAIT_S,
+                           "the sidecar wrote no checkpoint")
+                    await asyncio.sleep(0.05)
+            line[step] = {"to_first_device_match_s": first_s,
+                          "serve_s": served["serve_s"],
+                          "ready_at_serve": served["ready"],
+                          "match_ms": ms, "mismatches": bad,
+                          "device_batches": c["device_batches"],
+                          "not_ready_rows": c["not_ready_rows"],
+                          "uploads": c["uploads"], "syncs": c["syncs"],
+                          "launches": c["launches"]}
+            if bad:
+                failed.append(f"{step}: {bad} rows differ from the oracle")
+            if c["host_rows"] or c["device_batches"] != 1:
+                failed.append(f"{step}: the first MatchBatch was not served "
+                              f"by the card ({c['host_rows']} host rows, "
+                              f"{c['device_batches']} device batches)")
+            if device.type == "cuda":
+                _launch_check(c, f"exhook_checkpoint {step}")
+            launches[0] += c["launches"]
+            launches[1] += c["join_launches"]
+        finally:
+            if chan is not None:
+                await chan.close()
+            proc.close()
+
+
+def phase_exhook_checkpoint(torch, device, card: str,
+                            n_filters: int = PYTHON_FILTERS) -> Dict:
+    return asyncio.run(_exhook_checkpoint(torch, device, card, n_filters))
+
+
+async def _exhook_checkpoint(torch, device, card: str,
+                             n_filters: int) -> Dict:
+    """A sidecar with ``checkpoint_path`` installs ``n_filters`` workload
+    filters (the Python table's size) and writes its checkpoint; a new
+    sidecar process restores it at start.  The seconds from the install,
+    and from the restoring start, to the first MatchBatch served by the
+    card."""
+    from emqx_tpu_torch.broker.trie import FilterTrie
+    from emqx_tpu_torch.workload import build_workload
+
+    t_start = time.perf_counter()
+    filters, topics = build_workload(np.random.default_rng(0), n_filters,
+                                     BATCH)
+    trie = FilterTrie()
+    for f in filters:
+        trie.insert(f)
+    os.makedirs(os.path.join(ROOT, EXHOOK_DIR), exist_ok=True)
+    path = os.path.join(ROOT, EXHOOK_DIR, "sidecar.npz")
+    if os.path.exists(path):
+        os.remove(path)
+    line = {"phase": "exhook_checkpoint", "ok": True, "card": card,
+            "filters": len(filters)}
+    failed = []
+    launches = [0, 0]
+    # both processes start (import) now; each serves in its turn
+    procs = [_SidecarProc(_free_port(), device, checkpoint_path=path)
+             for _ in range(2)]
+    try:
+        await _checkpoint_steps(procs, filters, topics, trie, path, device,
+                                line, failed, launches)
+    finally:
+        for proc in procs:
+            proc.close()
+    line["checkpoint_bytes"] = os.path.getsize(path)
+    line["restore_over_install"] = (
+        line["restore"]["to_first_device_match_s"]
+        / line["install"]["to_first_device_match_s"])
+    if not line["restore"]["ready_at_serve"]:
+        failed.append("the restoring sidecar was not serving at start")
+    line["wall_s"] = time.perf_counter() - t_start
+    _emit_checked(line, failed)
+    return {"launches": launches[0], "join_launches": launches[1]}
+
+
 def _pct(xs, q) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
@@ -4571,6 +5305,7 @@ def main(argv=None) -> int:
     from emqx_tpu_torch.ops import cuda_build
 
     phase = "device"
+    big_gen = None
     try:
         card = "not measured (CPU rehearsal)"
         kind = "cpu"
@@ -4605,8 +5340,21 @@ def main(argv=None) -> int:
             phase = "dense_kernel"
             dense_check = phase_dense_kernel(torch, device, card)
         launches = {"hash": {}, "join": {}}
+        # BASELINE config 3's 10M workload, generated meanwhile
+        big_gen = _BackgroundWorkload(args.large_filters,
+                                      BATCHES_10M * BATCH)
         phase = "slice"
-        s = phase_slice(torch, device, args.filters)
+        # one 1M workload and oracle for slice, slice_join, exhook_sidecar
+        t0 = time.perf_counter()
+        shared = shared_workload(
+            args.filters, SERVE_BATCHES + JOIN_SMALL_BATCHES + AFTER_BATCHES)
+        emit({"phase": "shared_workload", "ok": True,
+              "filters": len(shared["filters"]),
+              "topics": len(shared["topics"]),
+              "workload_s": shared["workload_s"],
+              "oracle_build_s": shared["oracle_build_s"],
+              "wall_s": time.perf_counter() - t0})
+        s = phase_slice(torch, device, args.filters, shared=shared)
         phase = "times"
         shapes, _stages = phase_times(torch, device, s, card,
                                             timed=args.timed_batches)
@@ -4615,13 +5363,28 @@ def main(argv=None) -> int:
         s = None
         gc.collect()
         phase = "slice_join"
-        s = phase_slice_join(torch, device, args.filters)
+        s = phase_slice_join(torch, device, args.filters, shared=shared)
         phase = "times_join"
         join_shapes, _ = phase_times(torch, device, s, card, backend="join",
                                      timed=args.timed_batches)
         launches["join"]["1m"] = s["launches"]
         s = None
         gc.collect()
+        phase = "exhook_sidecar"
+        ex = phase_exhook_sidecar(torch, device, shared, card)
+        launches["hash"]["exhook_sidecar"] = ex["launches"]
+        launches["join"]["exhook_sidecar"] = ex["join_launches"]
+        shared = None
+        gc.collect()
+        phase = "exhook_node"
+        ex = phase_exhook_node(torch, device, card)
+        launches["hash"]["exhook_node"] = ex["launches"]
+        launches["join"]["exhook_node"] = ex["join_launches"]
+        phase = "exhook_checkpoint"
+        ex = phase_exhook_checkpoint(torch, device, card,
+                                     args.python_filters)
+        launches["hash"]["exhook_checkpoint"] = ex["launches"]
+        launches["join"]["exhook_checkpoint"] = ex["join_launches"]
         phase = "slice_python"
         s = phase_slice_python(torch, device, args.python_filters)
         launches["hash"]["python"] = s["launches"]
@@ -4668,7 +5431,7 @@ def main(argv=None) -> int:
         mqtt = None
         gc.collect()
         phase = "slice_10m_build"
-        big = phase_10m_build(torch, device, args.large_filters)
+        big = phase_10m_build(torch, device, args.large_filters, big_gen)
         phase = "slice_10m"
         s = phase_10m(torch, device, big, rules)
         big = None      # the filter list and the oracle go
@@ -4688,6 +5451,8 @@ def main(argv=None) -> int:
     except Exception as e:  # any failed phase: report it and fail the run
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}"})
+        if big_gen is not None:
+            big_gen.close()
         raise
     if device.type != "cuda":
         print("chip_smoke: CPU rehearsal finished; no result", file=sys.stderr)

@@ -42,6 +42,8 @@ Named injection points:
                      delay)
 ``inflight.insert``  Inflight.insert / insert_many (raise)
 ``inflight.retry``   Inflight.older_than retry scan (raise)
+``exhook.call``      ExHookManager advisory gRPC call (raise: the
+                     server's failure_action path; delay)
 ==================  =====================================================
 
 Rule fields: ``point`` (required), ``action`` (``raise`` | ``drop`` |
@@ -66,7 +68,8 @@ __all__ = [
 
 POINTS = ("transport.write", "frame.parse", "match.dispatch",
           "match.compile", "match.readback", "table.load", "table.swap",
-          "fanout.drain", "inflight.insert", "inflight.retry")
+          "fanout.drain", "inflight.insert", "inflight.retry",
+          "exhook.call")
 
 _ACTIONS = ("raise", "drop", "delay", "dup", "hang")
 

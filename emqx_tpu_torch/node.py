@@ -12,9 +12,12 @@ the rule engine (``rule_engine/``, attached to the started match service
 so that rule selection rides the walk on the card) and access control
 (``auth/``: the authn chain and the authz sources on the broker's
 ``client.authenticate`` / ``client.authorize`` hooks, when the caller
-passes ``auth_chain`` or ``authz``, or on :meth:`ensure_access_control`).
-Boot order is the reference's (core workers, then services, the match
-service and the fanout, listeners last); stop order is the reverse.
+passes ``auth_chain`` or ``authz``, or on :meth:`ensure_access_control`)
+and the exhook client (``exhook/manager.py``: the HookProvider servers
+of ``exhook.servers``, the match sidecar among them, with their advisory
+round trips as the last stage of ``_intercept``).  Boot order is the
+reference's (core workers, then services, the match service, the fanout
+and exhook, listeners last); stop order is the reverse.
 
 ``BrokerNode(config, auth_chain=None, authz=None, device=None)`` serves
 its match service on the card unless ``device`` names another (``"cpu"``
@@ -23,7 +26,7 @@ service that cannot start and serves from the host trie,
 :meth:`BrokerNode.start` raises.
 
 The subsystems the port does not have yet (the network-backed auth
-backends, bridges, cluster, exhook, management and dashboard, gateways,
+backends, bridges, cluster, management and dashboard, gateways,
 QUIC, TLS and WebSocket listeners, connection shards, admission,
 persistence, statsd and telemetry, slow_subs, topic metrics, ``$SYS``
 publishing, banned and flapping, rewrite and auto-subscribe) are left
@@ -80,7 +83,6 @@ UNPORTED_KEYS = {
     "cluster.": "the cluster",
     "dashboard.": "the management API and dashboard",
     "durable_storage.": "persistence",
-    "exhook.": "exhook",
     "flapping_detect.": "flapping detection",
     "gateway.": "the gateways",
     "listeners.quic.": "the QUIC listener",
@@ -209,6 +211,7 @@ class BrokerNode:
         # housekeeping
         self._disconnected_at: Dict[str, float] = {}
         self.match_service = None    # the match service on the card
+        self.exhook = None           # built in start() (needs a loop)
         self.fanout_pipeline = None  # the batched publish fanout
         self.limiter = LimiterGroup(
             max_conn_rate=cfg.get("limiter.max_conn_rate"),
@@ -364,7 +367,8 @@ class BrokerNode:
 
     def _wants_intercept(self) -> bool:
         return (
-            self.match_service is not None
+            self.exhook is not None
+            or self.match_service is not None
             or (self.access_control is not None
                 and self.access_control.needs_async())
         )
@@ -475,7 +479,7 @@ class BrokerNode:
         of async auth backends.  No ported backend is async
         (``needs_async()`` is false), so the second step runs only for a
         backend a caller adds that has ``authenticate_async`` or
-        ``prefetch_async``."""
+        ``prefetch_async``; last, the exhook advisory round trips."""
         if self.match_service is not None and pkt.type == P.PUBLISH \
                 and self.broker.fanout is None:
             try:
@@ -508,11 +512,14 @@ class BrokerNode:
                             opts.get("qos", 0))
             except Exception:
                 log.exception("async auth pre-resolution failed")
+        if self.exhook is not None:
+            return await self.exhook.intercept(channel, pkt)
         return None
 
     async def start(self) -> None:
         await self._start_match_service()
         await self._start_fanout()
+        await self._start_exhook()
         await self.listeners.start_all()
         self._running = True
         self._jobs.append(self.supervisor.start_child(
@@ -662,6 +669,35 @@ class BrokerNode:
         self.observed.stats.provide(
             "broker.fanout.depth", self.fanout_pipeline.depth)
 
+    async def _start_exhook(self) -> None:
+        """Dial the ``exhook.servers`` list (``name=host:port``, comma
+        separated); a server that does not answer is retried by the
+        manager's reconnect loop."""
+        spec = (self.config.get("exhook.servers") or "").strip()
+        if not spec:
+            return
+        from .exhook import ExHookManager, ServerSpec
+
+        servers = []
+        for part in spec.split(","):
+            name, _, url = part.strip().partition("=")
+            if not url:
+                log.warning(
+                    "exhook.servers entry %r ignored (expected name=host:port)",
+                    part.strip(),
+                )
+                continue
+            servers.append(
+                ServerSpec(
+                    name=name, url=url,
+                    timeout=self.config.get("exhook.request_timeout"),
+                    failure_action=self.config.get("exhook.failure_action"),
+                )
+            )
+        if servers:
+            self.exhook = ExHookManager(self, servers)
+            await self.exhook.start()
+
     async def stop(self) -> None:
         self._running = False
         if self.fanout_pipeline is not None:
@@ -674,6 +710,9 @@ class BrokerNode:
             await self.match_service.stop()
             self.broker.device_match = None
             self.match_service = None
+        if self.exhook is not None:
+            await self.exhook.stop()
+            self.exhook = None
         for job in self._jobs:
             job.cancel()
         if self._jobs:

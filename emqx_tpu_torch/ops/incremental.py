@@ -14,7 +14,8 @@ consumes the drained deltas.
 * accept-id free-list — ``accept_filters`` may hold ``None`` holes, and a
   freed id is reused only once the device has applied the epoch that
   cleared it, and each reuse is counted in ``aid_reuses``;
-* ``flush()`` drains the dirty node rows and bucket rows;
+* ``flush()`` drains the dirty node rows and bucket rows; ``snapshot()``
+  copies the arrays out as an ``NfaTable`` (the sidecar's checkpoint);
 * ``track_regions`` (the segments mode): growth keeps the dirty sets
   valid across a resize, and the delta says which region moved
   (``node_grown_from``, ``edges_rehashed``), so that the device twin can
@@ -34,7 +35,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 
 from .. import topic as T
-from .compiler import BUCKET_SLOTS, _bucket
+from .compiler import BUCKET_SLOTS, NfaTable, _bucket
 
 __all__ = ["IncrementalNfa", "NfaDelta"]
 
@@ -441,6 +442,21 @@ class IncrementalNfa:
         self._edges_rehashed = False
         self._node_wholesale = False
         return delta
+
+    def snapshot(self) -> NfaTable:
+        """An immutable copy in the ``compile_filters`` output format (the
+        sidecar's checkpoint, parity tests).  Holes in ``accept_filters``
+        are unreachable, so indexing by a matched id stays safe."""
+        return NfaTable(
+            node_tab=self.node_tab.copy(),
+            edge_tab=self.edge_tab.copy(),
+            seeds=self.seeds.copy(),
+            n_states=self.n_states,
+            depth=self.depth,
+            vocab=dict(self.vocab),
+            accept_filters=list(self.accept_filters),
+            epoch=self.epoch,
+        )
 
     def filters(self) -> List[str]:
         """Live table filters (aliases excluded)."""

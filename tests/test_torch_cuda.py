@@ -3,7 +3,8 @@ PyTorch versions, and the asyncio serve loop on them (the fixed-window
 path, the overlapped pipeline with its two-phase readback, the deadline
 loop's dispatch timeout over a real hang, grow in place and a
 compaction swap); the dense walk against its plain version, the
-two-tier matcher and the retained replay; on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
+two-tier matcher and the retained replay; the exhook match sidecar;
+on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
 module imports neither JAX nor the reference package, so it also runs
 where only the port is installed:
 
@@ -1101,3 +1102,59 @@ def test_retained_replay_on_card_equals_cpu():
     want = r.replay_batch(filters, device="cpu")
     assert {f: [m.topic for m in v] for f, v in got.items()} == \
         {f: [m.topic for m in v] for f, v in want.items()}
+
+
+@pytest.mark.cuda
+def test_match_sidecar_on_card_equals_cpu():
+    """The exhook match sidecar on ``cuda`` answers MatchBatch and
+    OnMessagePublish as the CPU sidecar does, with one walk launch per
+    device batch beside the warm-up, and no host answer but spills."""
+    _skip_without_card()
+    import grpc.aio
+
+    from emqx_tpu_torch.exhook.rpc import (HookProviderStub, MirrorSyncStub,
+                                           pb)
+    from emqx_tpu_torch.exhook.server import TpuMatchSidecar, serve
+
+    filters, topics = build_workload(np.random.default_rng(6), 3000, 512)
+    filters = filters + ["a/b/c/d/e/f/g/h/i/+"]     # deeper than 8: alias
+    topics = topics + ["a/b/c/d/e/f/g/h/i/j"]
+
+    async def one(device):
+        sc = TpuMatchSidecar(device=device, rebuild_debounce_s=0.01,
+                             annotate=True, active_slots=4, max_matches=8)
+        server, sc = await serve(port=0, sidecar=sc)
+        chan = grpc.aio.insecure_channel(f"127.0.0.1:{sc.port}")
+        mirror, hooks = MirrorSyncStub(chan), HookProviderStub(chan)
+        try:
+            async def chunks():
+                yield pb.SnapshotChunk(epoch=1, filters=filters, last=True)
+
+            await mirror.InstallSnapshot(chunks())
+            for _ in range(3000):
+                if sc._engine is not None and not sc._dirty.is_set():
+                    break
+                await asyncio.sleep(0.01)
+            launches0 = walk_kernel.launches
+            resp = await mirror.MatchBatch(pb.MatchBatchRequest(
+                topics=topics))
+            pubs = await asyncio.gather(*(hooks.OnMessagePublish(
+                pb.MessagePublishRequest(message=pb.Message(topic=t)))
+                for t in topics[:64]))
+            rows = [list(r.filter_ids) for r in resp.results]
+            counts = [p.message.headers["matched_filters"] for p in pubs]
+            return (rows, counts, walk_kernel.launches - launches0,
+                    sc.device_batches, sc.host_rows, sc.spill_fallbacks)
+        finally:
+            await chan.close()
+            await sc.stop()
+            await server.stop(None)
+
+    walk_kernel.launches = 0
+    card = asyncio.run(one("cuda"))
+    cpu = asyncio.run(one("cpu"))
+    assert card[0] == cpu[0] and card[1] == cpu[1]
+    # one launch per device batch (MatchBatch and the publish
+    # micro-batches; the warm-up's walk came before the window)
+    assert card[2] == card[3] >= 2
+    assert card[4] == cpu[4] == 0 and card[5] == cpu[5] > 0

@@ -978,7 +978,7 @@ def test_start_on_cuda_without_a_card_raises():
     ("cluster.enable", True), ("dashboard.enable", True),
     ("listeners.ws.default.enable", True), ("broker.conn.shards", 2),
     ("admission.enable", True), ("node.data_dir", "data"),
-    ("exhook.servers", "s=127.0.0.1:9000"), ("gateway.stomp.enable", True),
+    ("statsd.enable", True), ("gateway.stomp.enable", True),
     ("broker.sys_msg_interval", "10s"), ("psk.enable", True),
 ])
 def test_unported_subsystem_key_raises(key, value):

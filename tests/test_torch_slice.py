@@ -256,7 +256,9 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     assert len(files) > 10
     # every subpackage, the rule engine and access control among them
     scanned = {p.parent.name for p in files}
-    assert {"rule_engine", "auth", "broker", "ops", "native"} <= scanned
+    assert {"rule_engine", "auth", "broker", "ops", "native", "exhook",
+            "storage"} <= scanned
+    assert REPO / "emqx_tpu_torch" / "storage" / "checkpoint.py" in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for mod in _imports(tree):
