@@ -23,8 +23,15 @@ phases, one JSON line each; any failure exits non-zero:
    is first churned through a ``DeviceNfa`` with its mirror on, so it
    holds tombstones and overlay rows.  Then ``nfa_match`` and
    ``join_match`` in flat mode on the card against the same calls on the
-   CPU, all five ``MatchResult`` fields equal; then dense_kernel: the
-   dense walk (``dense_walk.cu``, K6) against ``dense_match_plain``,
+   CPU, all five ``MatchResult`` fields equal; the flat epilogue
+   (``flat_epilogue.cu``, K3) against ``flat_epilogue_plain`` on the same
+   card tensors, every output bit for bit, at the C of (D, A) = (16, 16),
+   (8, 16), (4, 16) and (8, 1) with K 32, 64 and 128, B 2048, 1000 and 0:
+   seeded rows of every density (rows past K, spills), all-empty
+   batches, a roomy cap, a cap that drops whole rows and part of one,
+   a cap of one id; then dense_kernel: the
+   frontier-sparse dense walk (``dense_walk.cu``, K6) against
+   ``dense_match_plain``,
    every field bit for bit, on ``bench_dense``'s table (B = 4096, D = 8,
    K = 64; timed rotating over four batches, L2 flushed and warm, the
    plain twin from a CUDA graph replay, with its bound), random 0/1
@@ -44,8 +51,11 @@ phases, one JSON line each; any failure exits non-zero:
    the L2 flushed before each launch (``ms_cold``), and one batch
    repeated (``ms_warm``, tables' rows L2-resident); the plain version's
    device ms from a CUDA graph replay; the kernel's bytes bound on this
-   run's data; the serve stage breakdown (with the ids the split stage
-   turned into filters); serve throughput with p50/p99 over 100 timed
+   run's data; the same readings of the flat epilogue on those walks
+   (K = 128, flat_cap = 8·B; its plain version, the torch-ops epilogue,
+   also by CUDA events; the whole flat match beside; on the hash path
+   also at the exhook sidecar's D = 8); the serve stage breakdown (with
+   the ids the split stage turned into filters); serve throughput with p50/p99 over 100 timed
    ``serve()`` calls of 2048 topics (``TIMED_BATCHES``); the card's busy and idle share over
    20 ``serve()`` calls from a ``torch.profiler`` trace; table bytes and
    the spill share of the main path;
@@ -114,6 +124,11 @@ walk launches read over a pipe:
    native encoder must have encoded every batch;
 11. times_10m — phase 5's readings at 10M, once for each kernel (a
    fifth of the timed ``serve()`` calls).
+
+Every phase that counts walk launches also reads the flat epilogue's
+(zeroed with them): on a serve path they equal the walk launches of
+both backends, on a compact or raw path (``acl_batch``, ``tiered``,
+``retained_replay``) they are 0.
 
 Between phases 8 and 9 it drives the broker's own publish path
 (after ``slice_node``, the table lifecycle and the deadline plane:
@@ -289,9 +304,10 @@ Then it drives the port's MQTT front door over TCP:
 Each phase's line carries its wall seconds.
 The line before the last names every kernel with its numbers (and its
 launch shape, ``ptxas`` register count, launches on each path, the
-exhook paths' among them, and its 10M readings; the dense walk's at the tiered hot shape, with
-``bench_dense``'s beside); the last line is ``{"ok": true, "device":
-{...}}``.
+exhook paths' among them, and its 10M readings; the dense walk's at the
+tiered hot shape, with ``bench_dense``'s beside; the flat epilogue's on
+the 1M hash walks at D = 16, its other shapes beside); the last line is
+``{"ok": true, "device": {...}}``.
 With no CUDA device the script prints no result and exits 2.
 ``--rehearse-cpu`` runs phases 4-11, the slice_node, tiered,
 retained_replay and slice_mqtt phases on the CPU with the plain versions
@@ -434,6 +450,14 @@ EDGE_TOPICS = ["$SYS/a/x", "$SYS", "x//y", "/", "//", "a/b/c/d",
                "w/a/b/c/d/e/f"]
 #: (D, A) of the kernel cases, each at B = 64, 1000 and 2048
 WALK_CASES = ((4, 16), (8, 16), (16, 16), (8, 2), (8, 1), (16, 12), (8, 32))
+#: the flat epilogue (K3): its source and the reference function it
+#: replaces
+FLAT_KERNEL = ("flat_epilogue", "emqx_tpu_torch/ops/csrc/flat_epilogue.cu",
+               "emqx_tpu/ops/match_kernel.py:217")
+#: (D, A) of the flat epilogue's kernel cases (C = 446, 190, 62, 18
+#: accept slots a row), each at K 32, 64 and 128 and B 2048, 1000 (no
+#: whole number of tiles) and 0
+FLAT_CASES = ((16, 16), (8, 16), (4, 16), (8, 1))
 
 
 def emit(obj) -> None:
@@ -447,6 +471,36 @@ class PhaseError(RuntimeError):
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise PhaseError(what)
+
+
+#: the flat epilogue's launches on each path, as :func:`_flat_launches`
+#: read them (the kernels line's ``launches_by_path`` of ``flat_epilogue``)
+FLAT_LAUNCHES: Dict[str, int] = {}
+
+
+def _reset_launches() -> None:
+    """Zero the launch counts of both walk kernels and of the flat
+    epilogue, just before a main path is driven."""
+    from emqx_tpu_torch.ops import match_kernel, walk_kernel
+
+    walk_kernel.launches = 0
+    walk_kernel.join_launches = 0
+    match_kernel.flat_launches = 0
+
+
+def _flat_launches(device, path: str, flat_walks: int) -> int:
+    """The flat epilogue's launches since :func:`_reset_launches`, kept
+    as ``FLAT_LAUNCHES[path]``.  On the card they must equal
+    ``flat_walks``: the walk launches of the path that ran in flat mode
+    (every walk of a serve path of either backend; none of a compact or
+    raw one)."""
+    from emqx_tpu_torch.ops import match_kernel
+
+    flat = FLAT_LAUNCHES[path] = match_kernel.flat_launches
+    if device.type == "cuda":
+        _check(flat == flat_walks, f"{path}: flat epilogue launches {flat} "
+               f"!= flat walk launches {flat_walks}")
+    return flat
 
 
 def nvidia_smi() -> str:
@@ -705,6 +759,83 @@ def _flat_cases(torch, match, operands) -> List[Dict]:
     return flat
 
 
+def _flat_caps(torch, n, K: int, B: int) -> List[int]:
+    """A roomy cap, one that ends inside a row's segment (whole rows and
+    part of a row dropped) and a cap of one id."""
+    nk = torch.clamp(n, max=K)
+    offs = torch.cumsum(nk, 0) - nk
+    caps = [8 * max(B, 1), 1]
+    inside = torch.nonzero(nk >= 2).flatten()
+    if len(inside):
+        caps.append(int(offs[inside[len(inside) // 3]]) + 1)
+    return caps
+
+
+def _flat_err(got, want) -> int:
+    """Largest |difference| over the four outputs of two flat
+    epilogues."""
+    err = 0
+    for g, w in zip(got, want):
+        _check(g.shape == w.shape, "flat epilogue outputs differ in shape")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+def phase_flat_kernel(torch, device) -> int:
+    """The flat epilogue (``flat_epilogue.cu``) against
+    ``flat_epilogue_plain`` on the same card tensors, every output bit
+    for bit, at ``FLAT_CASES``: seeded rows of every density (rows past
+    K where C > K, spills), each batch also all empty, each at a roomy
+    cap, a cap that ends inside a row's segment and a cap of one id.
+    Returns the largest |difference|."""
+    from emqx_tpu_torch.ops import match_kernel as mk
+    from emqx_tpu_torch.ops.walk_kernel import accept_cols
+
+    t0 = time.perf_counter()
+    cases, worst, calls = [], 0, 0
+    mk.flat_launches = 0
+    for depth, A in FLAT_CASES:
+        C = accept_cols(depth, A)
+        for K in (32, 64, 128):
+            for B in (BATCH, 1000, 0):
+                acc, aover = (torch.from_numpy(a).to(device)
+                              for a in mk.random_accepts(
+                                  depth * 1000 + A * 10 + K + B, B, C))
+                n = (acc >= 0).sum(dim=1, dtype=torch.int32)
+                dropped = err = 0
+                for a in (acc, torch.full_like(acc, -1)):
+                    for cap in _flat_caps(torch, n, K, B):
+                        got = mk.flat_epilogue(a, aover, K, cap)
+                        want = mk.flat_epilogue_plain(a, aover, K, cap)
+                        calls += 1
+                        err = max(err, _flat_err(got, want))
+                        nk = torch.clamp(want[1], max=K)
+                        offs = torch.cumsum(nk, 0) - nk
+                        dropped = max(dropped, int(((offs >= cap)
+                                                    & (nk > 0)).sum()))
+                _check(err == 0, f"flat_epilogue != plain at D={depth} "
+                       f"A={A} K={K} B={B}")
+                rows_past_k = int((n > K).sum())
+                if B:
+                    _check((rows_past_k > 0) == (C > K) and dropped > 0
+                           and bool((aover > 0).any()),
+                           f"the flat case D={depth} A={A} K={K} B={B} "
+                           "lacks rows past K, dropped rows or spills")
+                worst = max(worst, err)
+                cases.append({"D": depth, "A": A, "C": C, "K": K, "B": B,
+                              "equal": True, "max_abs_err": err,
+                              "rows_past_k": rows_past_k,
+                              "rows_dropped_max": dropped,
+                              "spilled_rows": int((aover > 0).sum())})
+    _check(mk.flat_launches == calls,
+           f"{mk.flat_launches} flat epilogue launches for {calls} calls")
+    emit({"phase": "kernel", "kernel": "flat_epilogue", "ok": True,
+          "cases": cases, "calls": calls, "tolerance": "exact",
+          "max_abs_err": worst, "wall_s": time.perf_counter() - t0})
+    return worst
+
+
 def phase_kernel(torch, device) -> Dict[str, int]:
     """Each kernel against its plain version on the card; returns the
     largest |difference| of each kernel."""
@@ -762,6 +893,7 @@ def phase_kernel(torch, device) -> Dict[str, int]:
     emit({"phase": "kernel", "kernel": "nfa_join_walk", "ok": True,
           "relation": rel, "walk_cases": cases, "flat_cases": flat,
           "tolerance": "exact", "max_abs_err": worst["join"]})
+    worst["flat"] = phase_flat_kernel(torch, device)
     return worst
 
 
@@ -895,8 +1027,7 @@ def phase_slice(torch, device, n_filters: int, table: str = "native",
     encoded0 = svc.encoder.native_batches
 
     # -- the main path: counts zeroed just before, read just after -------
-    walk_kernel.launches = 0
-    walk_kernel.join_launches = 0
+    _reset_launches()
     d0 = svc.dispatches
     bad = _serve_batches(svc, trie, topics, 0, SERVE_BATCHES)
     rng = np.random.default_rng(1)
@@ -911,6 +1042,7 @@ def phase_slice(torch, device, n_filters: int, table: str = "native",
     bad += _serve_batches(svc, trie, topics, SERVE_BATCHES, AFTER_BATCHES)
     launches = walk_kernel.launches
     join_launches = walk_kernel.join_launches
+    flat = _flat_launches(device, name, launches + join_launches)
     dispatches = svc.dispatches - d0
     # ---------------------------------------------------------------------
     _undo_churn(trie, gone, fresh)
@@ -930,6 +1062,7 @@ def phase_slice(torch, device, n_filters: int, table: str = "native",
             "mismatches": bad, "walk_dispatches": dispatches,
             "kernel_launches": launches,
             "join_kernel_launches": join_launches,
+            "flat_epilogue_launches": flat,
             "churn_removed": len(gone),
             "churn_added": len(fresh), "churn_sync_s": sync_s,
             "churn_grew_table": grew, "uploads": svc.dev.uploads,
@@ -957,8 +1090,7 @@ def phase_slice_join(torch, device, n_filters: int, shared=None) -> Dict:
     encoded0 = svc.encoder.native_batches
 
     # -- the main path: counts zeroed just before, read just after -------
-    walk_kernel.launches = 0
-    walk_kernel.join_launches = 0
+    _reset_launches()
     d0, j0 = svc.dispatches, svc.join_dispatches
     bad = _serve_batches(svc, trie, topics, 0, SERVE_BATCHES)
     rng = np.random.default_rng(4)
@@ -990,6 +1122,7 @@ def phase_slice_join(torch, device, n_filters: int, shared=None) -> Dict:
                           AFTER_BATCHES)
     launches = walk_kernel.join_launches
     hash_launches = walk_kernel.launches
+    flat = _flat_launches(device, "slice_join", launches + hash_launches)
     dispatches = svc.dispatches - d0
     join_dispatches = svc.join_dispatches - j0
     # ---------------------------------------------------------------------
@@ -1011,6 +1144,7 @@ def phase_slice_join(torch, device, n_filters: int, shared=None) -> Dict:
           "mismatches": bad, "join_dispatches": join_dispatches,
           "join_kernel_launches": launches,
           "hash_kernel_launches": hash_launches,
+          "flat_epilogue_launches": flat,
           "small_churn": {"removed": n_rm, "added": n_add, "sync_s": small_s,
                           "relation": rel_small},
           "big_churn": {"removed": len(gone_big), "added": CHURN,
@@ -1096,9 +1230,10 @@ def phase_python_segments(torch, device, svc, build_s: float,
     _, topics = build_workload(np.random.default_rng(43), 16, BATCH)
     enc = encode_batch(inc2, topics, batch=BATCH, depth=inc2.depth)
     # -- the main path: counts zeroed just before, read just after -------
-    walk_kernel.launches = 0
+    _reset_launches()
     got = dev.match(*dev.put_batch(*enc), flat_cap=8 * BATCH)
     launches = walk_kernel.launches
+    flat = _flat_launches(device, "python_segments", launches)
     # ---------------------------------------------------------------------
     want = full.match(*full.put_batch(*enc), flat_cap=8 * BATCH)
     walks_equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want)
@@ -1115,7 +1250,7 @@ def phase_python_segments(torch, device, svc, build_s: float,
                      "dirty_rows_uploaded": dev.dirty_rows_uploaded,
                      "node_edge_seeds_bit_equal": bit_equal,
                      "walks_equal": walks_equal},
-            "kernel_launches": launches,
+            "kernel_launches": launches, "flat_epilogue_launches": flat,
             "wall_s": time.perf_counter() - t_start}
     failed = [what for ok, what in (
         (grew and dev.grow_applies >= 1, "the table never grew in place"),
@@ -1252,8 +1387,7 @@ def phase_10m(torch, device, b: Dict, rules) -> Dict:
         return bad
 
     # -- the main path: counts zeroed just before, read just after -------
-    walk_kernel.launches = 0
-    walk_kernel.join_launches = 0
+    _reset_launches()
     d0, j0 = svc.dispatches, svc.join_dispatches
     enc0 = (svc.encoder.native_batches, svc.encoder.python_batches)
     reuses0, uploads0, key0 = (svc.inc.aid_reuses, svc.dev.uploads,
@@ -1279,6 +1413,7 @@ def phase_10m(torch, device, b: Dict, rules) -> Dict:
     bad += serve_both(before, AFTER_BATCHES_10M)
     launches = walk_kernel.launches
     join_launches = walk_kernel.join_launches
+    flat = _flat_launches(device, "slice_10m", launches + join_launches)
     join_dispatches = svc.join_dispatches - j0
     hash_dispatches = svc.dispatches - d0 - join_dispatches
     native_encodes = svc.encoder.native_batches - enc0[0]
@@ -1306,6 +1441,7 @@ def phase_10m(torch, device, b: Dict, rules) -> Dict:
           "join_dispatches": join_dispatches,
           "hash_kernel_launches": launches,
           "join_kernel_launches": join_launches,
+          "flat_epilogue_launches": flat,
           "native_encodes": native_encodes,
           "python_encodes": python_encodes,
           "churn": {"removed": len(gone), "added": len(fresh),
@@ -1321,8 +1457,7 @@ def phase_10m(torch, device, b: Dict, rules) -> Dict:
     # -- the rule path: counts zeroed just before, read just after -------
     t0 = time.perf_counter()
     oracle_rules = _RuleOracle(rules)
-    walk_kernel.launches = 0
-    walk_kernel.join_launches = 0
+    _reset_launches()
     d0 = svc.dispatches
     rule_bad = matched = 0
     for i in range(RULE_BATCHES_10M):
@@ -1333,6 +1468,8 @@ def phase_10m(torch, device, b: Dict, rules) -> Dict:
     rule_launches = walk_kernel.launches
     rule_dispatches = svc.dispatches - d0
     rule_join_launches = walk_kernel.join_launches
+    rule_flat = _flat_launches(device, "slice_10m_rules",
+                               rule_launches + rule_join_launches)
     # ---------------------------------------------------------------------
     _check(rule_bad == 0, f"{rule_bad} rule-id lists at 10M differ from "
            "the host trie of the rule filters")
@@ -1352,6 +1489,7 @@ def phase_10m(torch, device, b: Dict, rules) -> Dict:
           "walk_dispatches": rule_dispatches,
           "kernel_launches": rule_launches,
           "join_kernel_launches": rule_join_launches,
+          "flat_epilogue_launches": rule_flat,
           "wall_s": time.perf_counter() - t0})
     # the timing phases' distinct batches: every served topic
     return {"svc": svc, "topics": topics, "launches": launches,
@@ -1687,8 +1825,7 @@ async def _node_storms(torch, device, ms, broker, metrics, topics, card,
     if before_timed is not None:
         before_timed()
     # -- the main path: counts zeroed just before, read just after -------
-    walk_kernel.launches = 0
-    walk_kernel.join_launches = 0
+    _reset_launches()
     d0, j0, a0 = ms.dispatches, ms.join_dispatches, ms.autotune_launches
     r0 = ms.dev.join_rebuilds
     m0 = metrics.all()
@@ -1703,6 +1840,7 @@ async def _node_storms(torch, device, ms, broker, metrics, topics, card,
     m1 = metrics.all()
     launches = walk_kernel.launches
     join_launches = walk_kernel.join_launches
+    flat = _flat_launches(device, name, launches + join_launches)
     dispatches = ms.dispatches - d0
     join_dispatches = ms.join_dispatches - j0
     measure_launches = ms.autotune_launches - a0
@@ -1719,6 +1857,7 @@ async def _node_storms(torch, device, ms, broker, metrics, topics, card,
                  "join_dispatches": join_dispatches,
                  "kernel_launches": launches,
                  "join_kernel_launches": join_launches,
+                 "flat_epilogue_launches": flat,
                  "autotune_launches": measure_launches,
                  "join_rebuilds": rebuilds, "churn": churned})
     failed = [what for ok, what in (
@@ -1933,8 +2072,7 @@ async def _fanout_phase(torch, device, broker, metrics, filters, topics,
     try:
         await _fanout_storm(fan, broker, topics, 0, warm_hi, [], [])
         # -- the main path: counts zeroed just before, read just after ---
-        walk_kernel.launches = 0
-        walk_kernel.join_launches = 0
+        _reset_launches()
         m0 = metrics.all()
         f0 = (fan.batches, fan.msgs)
         if ms is not None:
@@ -1958,6 +2096,7 @@ async def _fanout_phase(torch, device, broker, metrics, filters, topics,
         m1 = metrics.all()
         launches = walk_kernel.launches
         join_launches = walk_kernel.join_launches
+        flat = _flat_launches(device, name, launches + join_launches)
         # -----------------------------------------------------------------
         n = hi - warm_hi
         delta = {k: m1[k] - m0[k] for k in m1}
@@ -2019,6 +2158,7 @@ async def _fanout_phase(torch, device, broker, metrics, filters, topics,
                 "pipeline_inflight_max": inflight["max"],
                 "walk_dispatches": dispatches, "kernel_launches": launches,
                 "join_kernel_launches": join_launches,
+                "flat_epilogue_launches": flat,
                 "stale_race_batches": logs.stale_races,
                 "aid_reuses": ms.inc.aid_reuses - ids0[0],
                 "accept_ids_grown": len(ms._filter_of) - ids0[1]})
@@ -2240,9 +2380,10 @@ async def _slice_node(torch, device, n_filters, card, storm_batches):
             storm_batches, "slice_node_auto")
         failed += _log_checks(logs)
         if device.type == "cuda":
-            # device time of a flat match (the walk and its epilogue's
-            # launches, ~0.1-0.2 ms), not a wait on the host (a worker
-            # thread's clock read ~100 ms of GIL waits)
+            # device time of a flat match (the walk and the flat
+            # epilogue kernel's two launches; the times line has its
+            # flat_match_ms), not a wait on the host (a worker thread's
+            # clock read ~100 ms of GIL waits)
             failed += [f"tuner time {us} us of {be} at {sig} is over 1 ms"
                        for sig, took in ms.tuner.measured.items()
                        for be, us in took.items() if us > 1000]
@@ -2478,8 +2619,7 @@ async def _segments_1m(torch, device, broker, metrics, filters, topics,
         swap["held_ids_after"] = ms.dev._id_holds
     ms._swap_in = timed_swap
     # -- the main path: counts zeroed just before, read just after -------
-    walk_kernel.launches = 0
-    walk_kernel.join_launches = 0
+    _reset_launches()
     d0 = ms.dispatches
     beat = _Heartbeat()
     lat: List[float] = []
@@ -2522,6 +2662,7 @@ async def _segments_1m(torch, device, broker, metrics, filters, topics,
              if e - g >= b1 or e <= b0), default=0.0) * 1e3
     launches = walk_kernel.launches
     join_launches = walk_kernel.join_launches
+    flat = _flat_launches(device, "segments_1m", launches + join_launches)
     dispatches = ms.dispatches - d0
     # ---------------------------------------------------------------------
     mismatches = _verify_routes(broker.router, check)
@@ -2580,8 +2721,7 @@ async def _segments_1m(torch, device, broker, metrics, filters, topics,
     ms, ready_b = await _start_node_service(
         torch, device, broker, metrics, "hash", segments=True,
         segments_dir=seg_dir, compact_interval_s=1e9)
-    walk_kernel.launches = 0
-    walk_kernel.join_launches = 0
+    _reset_launches()
     d0 = ms.dispatches
     check = _RouteLog(ms, broker.router)
     broker.device_match = check
@@ -2589,6 +2729,8 @@ async def _segments_1m(torch, device, broker, metrics, filters, topics,
     await _storm(ms, broker, topics, 0, 2 * BATCH, lat)
     cold_launches = walk_kernel.launches
     cold_join_launches = walk_kernel.join_launches
+    cold_flat = _flat_launches(device, "segments_1m.cold_start",
+                               cold_launches + cold_join_launches)
     cold_dispatches = ms.dispatches - d0
     cold_bad = _verify_routes(broker.router, check)
     line["cold_start"] = {
@@ -2708,8 +2850,7 @@ async def _deadline_phases(torch, device, ms, ready_s, broker, metrics,
     broker.device_match = check
     fr = ms.flightrec
     # -- the main path: counts zeroed just before, read just after -------
-    walk_kernel.launches = 0
-    walk_kernel.join_launches = 0
+    _reset_launches()
     d0 = ms.dispatches
     ladder.reset()
     dumps0 = fr.dumps
@@ -2815,6 +2956,7 @@ async def _deadline_phases(torch, device, ms, ready_s, broker, metrics,
     hang.update(ladder.counts())
     launches = walk_kernel.launches
     join_launches = walk_kernel.join_launches
+    flat = _flat_launches(device, "deadline_faults", launches + join_launches)
     dispatches = ms.dispatches - d0
     # ---------------------------------------------------------------------
     limit = ms.dispatch_timeout_s + ms.deadline_s + HANG_SLACK_S
@@ -3179,8 +3321,7 @@ def phase_acl_batch(torch, device, card: str) -> Dict:
         no_match = "deny" if action == "publish" else "allow"
         gc.collect()    # no pause of the earlier phases' garbage in it
         # -- the main path: counts zeroed just before, read just after ---
-        walk_kernel.launches = 0
-        walk_kernel.join_launches = 0
+        _reset_launches()
         got: List[bool] = []
         t0 = time.perf_counter()
         for i in range(ACL_BATCHES):
@@ -3190,6 +3331,7 @@ def phase_acl_batch(torch, device, card: str) -> Dict:
         card_s = time.perf_counter() - t0
         launches = walk_kernel.launches
         join_launches = walk_kernel.join_launches
+        flat = _flat_launches(device, f"acl_batch.{action}", 0)
         # -----------------------------------------------------------------
         az = Authz(sources, no_match=no_match, cache_max_size=1 << 16)
         t0 = time.perf_counter()
@@ -3204,6 +3346,7 @@ def phase_acl_batch(torch, device, card: str) -> Dict:
             "allowed": sum(got), "denied": len(got) - sum(got),
             "verdict_mismatches": bad, "kernel_launches": launches,
             "join_kernel_launches": join_launches,
+            "flat_epilogue_launches": flat,
             "batch_authorize_ms_per_batch": card_s / ACL_BATCHES * 1e3,
             "host_authz_us_per_topic": host_s / len(topics) * 1e6,
             "host_authz_metrics": dict(az.metrics)}
@@ -3242,26 +3385,28 @@ def _dense_err(torch, got, want) -> int:
     return err
 
 
-def _dense_bound(batch, dense, steps: int, K: int) -> Dict[str, object]:
+def _dense_bound(batch, dense, traffic: Dict[str, float],
+                 K: int) -> Dict[str, object]:
     """The least time of one dense walk on these inputs: the bytes it
-    must move (the batch, the table in the kernel's column-list form,
-    the accept ids, the four outputs; each once) over 3.35 TB/s, and
-    its operations (one label compare a column for each row step that
-    computes a next frontier) over ``SCALAR_OPS_PER_S``; the larger."""
+    must move (the batch, the table in the kernel's packed form, the
+    four outputs; each once) over 3.35 TB/s, and its operations (one
+    for each active state a step expands and each state it makes
+    active, from ``dense_match_plain``'s ``traffic``) over
+    ``SCALAR_OPS_PER_S``; the larger."""
     dm = _dense_mod()
     words, lens, _ = batch
     B, D = words.shape
-    S = int(dense[2].shape[0])
-    lptr, lrow, pptr, prow = dm.dense_columns(dense[0], dense[1])
-    nbytes = (B * D * 4 + B * 4 + B + 4 * S * 3 + 4 * 2 * (S + 1)
-              + 4 * (int(lrow.shape[0]) + int(prow.shape[0]))
+    table, _nl, _np = dm.dense_table(*dense)
+    nbytes = (B * D * 4 + B * 4 + B + 4 * int(table.shape[0])
               + B * K * 4 + 3 * B * 4)
-    ops = steps * S
+    ops = traffic["states"] + traffic["children"]
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / SCALAR_OPS_PER_S * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bound_bytes": nbytes, "bound_ops": ops, "row_steps": steps}
+            "bound_bytes": nbytes, "bound_ops": ops,
+            "row_steps": traffic["steps"],
+            "states_expanded": traffic["states"]}
 
 
 def _time_dense(torch, device, batches, dense, K: int, flush) -> Dict:
@@ -3272,14 +3417,14 @@ def _time_dense(torch, device, batches, dense, K: int, flush) -> Dict:
     version's ms from a CUDA graph replay; the bound on these inputs."""
     dm = _dense_mod()
     time_ms = timer(torch, device)
-    err, steps = 0, []
+    err, traffics = 0, []
     for b in batches:
         traffic: Dict[str, int] = {}
         want = dm.dense_match_plain(*b, *dense, max_matches=K,
                                     traffic=traffic)
         err = max(err, _dense_err(torch, dm.dense_match(
             *b, *dense, max_matches=K), want))
-        steps.append(traffic["steps"])
+        traffics.append(traffic)
     _check(err == 0, f"dense_walk != plain (max |diff| {err})")
     turn = [0]
 
@@ -3304,7 +3449,8 @@ def _time_dense(torch, device, batches, dense, K: int, flush) -> Dict:
     pt = (time_ms(graph_replay(torch, plain_call), 20) if card
           else {"ms": call_ms, "covered": False})
     words = batches[0][0]
-    bound = _dense_bound(batches[0], dense, int(np.mean(steps)), K)
+    bound = _dense_bound(batches[0], dense, {
+        k: float(np.mean([t[k] for t in traffics])) for k in traffics[0]}, K)
     return {"B": int(words.shape[0]), "D": int(words.shape[1]),
             "S": int(dense[2].shape[0]), "K": K,
             "distinct_batches": len(batches), "ms": rot["ms"],
@@ -3431,16 +3577,17 @@ def phase_tiered(torch, device, card: str, n_filters: int) -> Dict:
             "hot_states": tiered.hot.n_states, "dense_S": dense_np.S,
             "build_s": build_s}
     tm = TieredMatcher(tiered, depth=8, hot_engine="auto", device=device)
-    tm.match(main[:256])         # ships the tables and the column lists
+    tm.match(main[:256])         # ships the tables and the packed table
     host = _HostRows(tm)
     gc.collect()
     # -- the main path: counts zeroed just before, read just after -------
     dm.launches = 0
-    walk_kernel.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     got = tm.match(main)
     match_s = time.perf_counter() - t0
     launches = {"dense": dm.launches, "hash": walk_kernel.launches}
+    _flat_launches(device, "tiered", 0)
     # ---------------------------------------------------------------------
     _check(tm.hot_engine == "dense", f"auto resolved to {tm.hot_engine}")
     _check(device.type != "cuda" or launches == {"dense": 1, "hash": 1},
@@ -3465,9 +3612,9 @@ def phase_tiered(torch, device, card: str, n_filters: int) -> Dict:
                               batch=_pow2(len(hot_idx)))) + dense
     cargs = put(encode_topics(tiered.cold, [main[i] for i in cold_idx],
                               batch=_pow2(len(cold_idx)))) + cold_tab
-    dm.dense_match(*hargs, max_matches=DENSE_K)   # column lists built
+    dm.dense_match(*hargs, max_matches=DENSE_K)   # packed table built
     dm.launches = 0
-    walk_kernel.launches = 0
+    _reset_launches()
     card_run = device.type == "cuda"
     if card_run:
         torch.cuda.synchronize()
@@ -3478,6 +3625,7 @@ def phase_tiered(torch, device, card: str, n_filters: int) -> Dict:
         if card_run:
             torch.cuda.set_sync_debug_mode("default")
     fused_launches = {"dense": dm.launches, "hash": walk_kernel.launches}
+    _flat_launches(device, "tiered_fused", 0)
     d2 = dm.dense_match(*hargs, max_matches=DENSE_K)
     c2 = nfa_match(*cargs, active_slots=8, compact_output=False)
     for f in ("matches", "n_matches", "active_overflow", "match_overflow"):
@@ -3511,7 +3659,7 @@ def phase_tiered(torch, device, card: str, n_filters: int) -> Dict:
     cold_bytes = (walk_traffic["node_rows"] * 16
                   + walk_traffic["bucket_rows"] * 32 + 8 + Bc * Dc * 4
                   + 5 * Bc + Bc * accept_cols(Dc, 8) * 4 + 4 * Bc)
-    pair_bound = (_dense_bound(hargs[:3], hargs[3:], dense_traffic["steps"],
+    pair_bound = (_dense_bound(hargs[:3], hargs[3:], dense_traffic,
                                DENSE_K)["bound_ms"]
                   + cold_bytes / HBM_BYTES_PER_S * 1e3)
     t0 = time.perf_counter()
@@ -3581,11 +3729,12 @@ def phase_retained_replay(torch, device, card: str, size: int) -> Dict:
     setup_s = time.perf_counter() - t_start
     gc.collect()
     # -- the main path: counts zeroed just before, read just after -------
-    walk_kernel.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     out = r.replay_batch(filters, device=device)
     replay_s = time.perf_counter() - t0
     launches = walk_kernel.launches
+    _flat_launches(device, "retained_replay", 0)
     # ---------------------------------------------------------------------
     _check(device.type != "cuda" or launches == 1,
            f"the replay launched the walk {launches} times")
@@ -4139,7 +4288,7 @@ def _storm_checks(line: Dict, device_path: bool, on_card: bool) -> List[str]:
 
 
 async def _mqtt_device_storm(fleet, node, topics, lo, hi, card, churn,
-                             logs, device) -> Dict:
+                             logs, device, path: str) -> Dict:
     """A storm through the node's match service: launches counted from
     just before to just after, the hint share of the route lookups, and
     the service's logged failures."""
@@ -4151,11 +4300,11 @@ async def _mqtt_device_storm(fleet, node, topics, lo, hi, card, churn,
     logs.reset()
     d0, b0 = ms.dispatches, len(ms._batch_ms)
     # -- the main path: counts zeroed just before, read just after -------
-    walk_kernel.launches = 0
-    walk_kernel.join_launches = 0
+    _reset_launches()
     line = await _mqtt_storm(fleet, node, topics, lo, hi, card, churn)
     launches = walk_kernel.launches
     join_launches = walk_kernel.join_launches
+    flat = _flat_launches(device, path, launches + join_launches)
     # ---------------------------------------------------------------------
     c = line["counters"]
     served = c.get("tpu.match.hint_served", 0)
@@ -4246,7 +4395,8 @@ async def _mqtt_node_phase(torch, device, name: str, fleet, filters, topics,
         drops = fleet.churn_held[:NODE_CHURN]
         failed = []
         warm = await _mqtt_device_storm(fleet, node, topics, 0, warm_hi,
-                                        card, None, logs, device)
+                                        card, None, logs, device,
+                                        f"{name}.warmup")
         failed += [f"warm-up: {f}" for f in
                    _storm_checks(warm, True, device.type == "cuda")]
         line["warmup"] = {k: warm[k] for k in (
@@ -4254,7 +4404,7 @@ async def _mqtt_node_phase(torch, device, name: str, fleet, filters, topics,
             "duplicate", "extra", "hint_share_device")}
         dev = await _mqtt_device_storm(fleet, node, topics, warm_hi, hi,
                                        card, (adds, drops, NODE_CHURN_RATE),
-                                       logs, device)
+                                       logs, device, name)
         dev_failed = _storm_checks(dev, True, device.type == "cuda")
         # the churn's filters stay; the next churn unsubscribes them
         fleet.churn_held = fleet.churn_held[NODE_CHURN:] + adds
@@ -4426,13 +4576,14 @@ def _sidecar_proc(conn, spec: Dict) -> None:
 
 
 def _sidecar_counters(sc) -> Dict:
-    from emqx_tpu_torch.ops import walk_kernel
+    from emqx_tpu_torch.ops import match_kernel, walk_kernel
 
     eng = sc._eng
     ready = sc._engine is not None
     return {
         "launches": walk_kernel.launches,
         "join_launches": walk_kernel.join_launches,
+        "flat_launches": match_kernel.flat_launches,
         "device_batches": sc.device_batches, "warms": sc.warms,
         "host_rows": sc.host_rows, "not_ready_rows": sc.not_ready_rows,
         "aid_reuse_rows": sc.aid_reuse_rows,
@@ -4601,6 +4752,9 @@ def _launch_check(c: Dict, what: str) -> None:
            f"{what}: walk launches {c['launches']} != device batches "
            f"{c['device_batches']} + warm-ups {c['warms']}")
     _check(c["join_launches"] == 0, f"{what}: the join kernel ran")
+    _check(c["flat_launches"] == c["launches"] + c["join_launches"],
+           f"{what}: flat epilogue launches {c['flat_launches']} != flat "
+           f"walk launches {c['launches']} + {c['join_launches']}")
 
 
 def phase_exhook_sidecar(torch, device, shared, card: str) -> Dict:
@@ -4731,10 +4885,10 @@ async def _exhook_sidecar(torch, device, shared, card: str) -> Dict:
             failed.append("ApplyDeltas re-uploaded the table without growth")
         c = await proc.call("counters")
         line["sidecar"] = {k: c[k] for k in (
-            "launches", "join_launches", "device_batches", "warms",
-            "host_rows", "not_ready_rows", "aid_reuse_rows", "queue_timeouts",
-            "spill_fallbacks", "sync_failures", "syncs", "batches",
-            "topics_matched", "uploads", "delta_applies")}
+            "launches", "join_launches", "flat_launches", "device_batches",
+            "warms", "host_rows", "not_ready_rows", "aid_reuse_rows",
+            "queue_timeouts", "spill_fallbacks", "sync_failures", "syncs",
+            "batches", "topics_matched", "uploads", "delta_applies")}
         if c["host_rows"]:
             failed.append(f"{c['host_rows']} rows served by the host "
                           "beside spills")
@@ -4745,6 +4899,7 @@ async def _exhook_sidecar(torch, device, shared, card: str) -> Dict:
             _launch_check(c, "exhook_sidecar")
         line["wall_s"] = time.perf_counter() - t_start
         _emit_checked(line, failed)
+        FLAT_LAUNCHES["exhook_sidecar"] = c["flat_launches"]
         return {"launches": c["launches"], "join_launches": c["join_launches"]}
     finally:
         if chan is not None:
@@ -4895,9 +5050,10 @@ async def _exhook_node(torch, device, card: str) -> Dict:
                 "exhook": {k: st[k] for k in ("hooks", "ok", "failed",
                                               "dropped")},
                 "sidecar": {k: c[k] for k in (
-                    "launches", "join_launches", "device_batches", "warms",
-                    "host_rows", "spill_fallbacks", "sync_failures",
-                    "syncs", "uploads", "delta_applies")},
+                    "launches", "join_launches", "flat_launches",
+                    "device_batches", "warms", "host_rows",
+                    "spill_fallbacks", "sync_failures", "syncs", "uploads",
+                    "delta_applies")},
                 "broker_cpu_s": storm["broker_cpu_s"]}
         if st["failed"] or st["dropped"]:
             failed.append(f"exhook calls failed {st['failed']}, "
@@ -4905,6 +5061,7 @@ async def _exhook_node(torch, device, card: str) -> Dict:
         await fleet.all("disconnect")
         line["wall_s"] = time.perf_counter() - t_start
         _emit_checked(line, failed)
+        FLAT_LAUNCHES["exhook_node"] = c["flat_launches"]
         return {"launches": c["launches"], "join_launches": c["join_launches"]}
     finally:
         if chan is not None:
@@ -4954,6 +5111,7 @@ async def _checkpoint_steps(procs, filters, topics, trie, path, device,
                 _launch_check(c, f"exhook_checkpoint {step}")
             launches[0] += c["launches"]
             launches[1] += c["join_launches"]
+            FLAT_LAUNCHES[f"exhook_checkpoint.{step}"] = c["flat_launches"]
         finally:
             if chan is not None:
                 await chan.close()
@@ -5042,11 +5200,77 @@ def _join_bytes(traffic: Dict[str, int], depth: int, A: int) -> int:
             + OVERLAY_CAP * 12 + _io_bytes(depth, A))
 
 
+def _flat_bound(acc, cap: int) -> Dict[str, object]:
+    """The least time of one flat epilogue on these inputs: ``acc`` and
+    ``aover`` read once, the flat buffer and three ints a row written
+    once, over 3.35 TB/s (its operations, a compare a slot, are far
+    below the card's scalar rate)."""
+    B, C = acc.shape
+    nbytes = 4 * (B * C + B + cap + 3 * B)
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_bytes": nbytes}
+
+
+def _time_flat(torch, device, walks, match, K: int, cap: int,
+               flush) -> Dict:
+    """The flat epilogue on the raw walks ``walks`` (``(acc, aover)`` of
+    the distinct served batches) at the serve shape (K, ``cap``): equal
+    to ``flat_epilogue_plain`` bit for bit on each, then its device ms
+    as the walks are timed (rotating, L2 flushed, one batch repeated),
+    the plain version's (the torch-ops epilogue) by the same CUDA events
+    and from a CUDA graph replay, its bound, and the whole flat match
+    (walk + epilogue; ``match()`` runs the next batch) rotating."""
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    time_ms = timer(torch, device)
+    err = max(_flat_err(mk.flat_epilogue(a, o, K, cap),
+                        mk.flat_epilogue_plain(a, o, K, cap))
+              for a, o in walks)
+    _check(err == 0, f"flat_epilogue != plain on the served walks (max "
+           f"|diff| {err})")
+    turn = [0]
+
+    def rotate():
+        turn[0] += 1
+        mk.flat_epilogue(*walks[turn[0] % len(walks)], K, cap)
+
+    card = device.type == "cuda"
+    warm = time_ms(lambda: mk.flat_epilogue(*walks[0], K, cap), 200)
+    rot = time_ms(rotate, 20 * len(walks))
+    cold = time_ms(rotate, 4 * len(walks), before=flush)
+
+    def plain_call():
+        mk.flat_epilogue_plain(*walks[0], K, cap)
+
+    plain_ev = time_ms(plain_call, 20)
+    pt = (time_ms(graph_replay(torch, plain_call), 20) if card
+          else {"ms": plain_ev["ms"], "covered": False})
+    flat_match = time_ms(match, 20 * len(walks))
+    _check(not card or all(x["covered"] for x in (warm, rot, cold, plain_ev,
+                                                  flat_match)),
+           "a flat epilogue time was not covered by the sleep")
+    acc = walks[0][0]
+    return {"B": int(acc.shape[0]), "C": int(acc.shape[1]), "K": K,
+            "flat_cap": cap, "distinct_batches": len(walks),
+            "ms": rot["ms"], "ms_cold": cold["ms"], "ms_warm": warm["ms"],
+            "call_ms": warm["call_ms"], "plain_ms": pt["ms"],
+            "plain_covered": pt["covered"],
+            "plain_timing": "cuda graph replay" if card else "host loop",
+            "plain_events_ms": plain_ev["ms"],
+            "plain_call_ms": plain_ev["call_ms"],
+            "flat_match_ms": flat_match["ms"],
+            "ids_per_batch": float(np.mean([
+                int(torch.clamp((a >= 0).sum(1), max=K).sum())
+                for a, _ in walks])),
+            **_flat_bound(acc, cap), "max_abs_err": err}
+
+
 def phase_times(torch, device, s: Dict, card: str, backend: str = "hash",
                 name: str = "", timed: int = TIMED_BATCHES) -> List[Dict]:
     """Kernel and serve readings of the service ``s["svc"]`` on
     ``backend``; emits line ``name`` (``times`` / ``times_join`` by
     default)."""
+    from emqx_tpu_torch.ops import join_match, nfa_match
     from emqx_tpu_torch.ops.walk_kernel import (
         join_walk, join_walk_plain, nfa_walk, nfa_walk_plain)
 
@@ -5057,11 +5281,25 @@ def phase_times(torch, device, s: Dict, card: str, backend: str = "hash",
     node, edge, seeds = svc.dev.arrays()
     if backend == "hash":
         walk, plain, nbytes_of = nfa_walk, nfa_walk_plain, _walk_bytes
+        match = nfa_match
         tables = (node, edge, seeds)
     else:
         walk, plain, nbytes_of = join_walk, join_walk_plain, _join_bytes
+        match = join_match
         tables = (node, *svc.dev._jarrs)
     A = svc.dev.active_slots
+    K, cap = svc.dev.max_matches, svc.FLAT_MULT * BATCH
+
+    def flat_readings(batches):
+        walks = [walk(*args, active_slots=A) for args in batches]
+        turn = [0]
+
+        def flat_match():
+            turn[0] += 1
+            match(*batches[turn[0] % len(batches)], active_slots=A,
+                  max_matches=K, flat_cap=cap)
+
+        return _time_flat(torch, device, walks, flat_match, K, cap, flush)
     long_t = [t for t in topics if t.count("/") >= svc.short_depth]
     short_t = [t for t in topics if t.count("/") < svc.short_depth]
     # more than twice the card's 50 MB L2: writing it evicts the tables
@@ -5127,7 +5365,13 @@ def phase_times(torch, device, s: Dict, card: str, backend: str = "hash",
             "warm_bound_ms": nbytes[0] / HBM_BYTES_PER_S * 1e3,
             "traffic_mean": {k: float(np.mean([t[k] for t in traffics]))
                              for k in traffics[0]},
-            "max_abs_err": 0})
+            "max_abs_err": 0, "flat_epilogue": flat_readings(batches)})
+    flat_d8 = None
+    if backend == "hash" and svc.depth > 8:
+        # the exhook sidecar's shape: depth 8 (C = 190) at its defaults
+        flat_d8 = flat_readings([
+            (*_encoded(torch, svc.inc, long_t[i * BATCH:], 8, BATCH, device),
+             *tables) for i in range(min(4, len(long_t) // BATCH))])
     flush = None
     stages = _stage_breakdown(torch, device, svc, topics)
     n_batches = len(topics) // BATCH
@@ -5154,10 +5398,11 @@ def phase_times(torch, device, s: Dict, card: str, backend: str = "hash",
                        "p99_ms_less_gc": _pct(
                            [t * 1e3 - g for t, g in zip(lat, gc_ms)], 99)},
           "serve_stage_ms": stages, "serve_device": busy,
+          "flat_epilogue_d8": flat_d8,
           "table_bytes": svc.dev.table_bytes,
           "spill_share": s["spill_share"],
           "wall_s": time.perf_counter() - t_start})
-    return shapes, stages
+    return shapes, flat_d8
 
 
 def _stage_breakdown(torch, device, svc, topics) -> Dict[str, float]:
@@ -5242,11 +5487,12 @@ def _dense_entry(launches: Dict[str, int], check: Dict, shape: Dict) -> Dict:
     tiered main path (and the fused pair's), the times and bound at the
     tiered matcher's hot shape, ``bench_dense``'s shape beside."""
     name, source, replaces = DENSE_KERNEL
+    threads, lanes = _dense_mod().launch_shape(shape["S"])
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches["tiered"],
         "launches_by_path": launches,
-        "threads_per_block": 128, "lanes_per_row": 32,
+        "threads_per_block": threads, "lanes_per_row": lanes,
         "registers": _registers(name),
         "max_abs_err": max(check["max_abs_err"], shape["max_abs_err"]),
         **{k: shape[k] for k in ("ms", "ms_cold", "ms_warm", "plain_ms",
@@ -5254,6 +5500,40 @@ def _dense_entry(launches: Dict[str, int], check: Dict, shape: Dict) -> Dict:
                                  "bound_ms", "bound_by")},
         "library_ms": None, "shape": shape,
         "bench_dense": check["bench_dense"]}
+
+
+def _flat_entry(max_err: int, groups: Dict[str, List[Dict]],
+                flat_d8: Dict) -> Dict:
+    """The flat epilogue's entry of the kernels line: its launches on the
+    1M hash serve path (and every path's), its times and bound on the
+    hash walks of that path at (B = 2048, D = 16), the other shapes of
+    ``groups`` (D = 4; after the join walk; at 10M) and the sidecar's
+    D = 8 beside."""
+    from emqx_tpu_torch.ops.match_kernel import FLAT_TILE_ROWS
+
+    name, source, replaces = FLAT_KERNEL
+    main = groups["1m_hash"][0]["flat_epilogue"]
+    keys = ("C", "ms", "ms_cold", "ms_warm", "plain_ms", "plain_events_ms",
+            "flat_match_ms", "bound_ms", "ids_per_batch")
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": FLAT_LAUNCHES["slice"],
+        "launches_by_path": dict(FLAT_LAUNCHES),
+        "threads_per_block": 256, "rows_per_block": FLAT_TILE_ROWS,
+        "registers": _registers(name),
+        "max_abs_err": max(max_err, *(x["flat_epilogue"]["max_abs_err"]
+                                      for g in groups.values() for x in g)),
+        **{k: main[k] for k in ("ms", "ms_cold", "ms_warm", "plain_ms",
+                                "plain_covered", "plain_timing",
+                                "plain_events_ms", "bound_ms", "bound_by",
+                                "flat_match_ms")},
+        "library_ms": None,
+        "shape": {k: main[k] for k in ("B", "C", "K", "flat_cap",
+                                       "ids_per_batch")},
+        "by_shape": {
+            f"{tag}_D{x['D']}": {k: x["flat_epilogue"][k] for k in keys}
+            for tag, group in groups.items() for x in group},
+        "sidecar_D8": {k: flat_d8[k] for k in keys}}
 
 
 def _native_build() -> Dict[str, float]:
@@ -5309,7 +5589,7 @@ def main(argv=None) -> int:
     try:
         card = "not measured (CPU rehearsal)"
         kind = "cpu"
-        max_err = {"hash": 0, "join": 0}
+        max_err = {"hash": 0, "join": 0, "flat": 0}
         dense_check = None
         if device.type == "cuda":
             card = nvidia_smi()
@@ -5356,8 +5636,8 @@ def main(argv=None) -> int:
               "wall_s": time.perf_counter() - t0})
         s = phase_slice(torch, device, args.filters, shared=shared)
         phase = "times"
-        shapes, _stages = phase_times(torch, device, s, card,
-                                            timed=args.timed_batches)
+        shapes, flat_d8 = phase_times(torch, device, s, card,
+                                      timed=args.timed_batches)
         launches["hash"]["1m"] = s["launches"]
         # one table in host memory at a time
         s = None
@@ -5463,7 +5743,10 @@ def main(argv=None) -> int:
                       shapes_10m),
         _kernel_entry("join", launches["join"], max_err["join"], join_shapes,
                       join_shapes_10m),
-        _dense_entry(launches["dense"], dense_check, tiered["shape"])]})
+        _dense_entry(launches["dense"], dense_check, tiered["shape"]),
+        _flat_entry(max_err["flat"], {
+            "1m_hash": shapes, "1m_join": join_shapes,
+            "10m_hash": shapes_10m, "10m_join": join_shapes_10m}, flat_d8)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

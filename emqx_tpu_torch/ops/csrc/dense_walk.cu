@@ -1,5 +1,5 @@
 // dense_walk.cu — K6, the dense walk of a multi-hot frontier, for Hopper
-// (sm_90a).
+// (sm_90a): a frontier-sparse push walk.
 //
 // Replaces: emqx_tpu/ops/dense_match.py `dense_match`, an XLA function of
 // the reference (not a `pallas_call`): a (D+1)-step walk whose frontier is
@@ -11,193 +11,233 @@
 // aover (B,) = 0 (the walk never spills) and mover (B,) = n > K.
 //
 // The function without the matmul.  `> 0.5` after a sum of 0/1 values is
-// an OR: column c is active at t + 1 iff t < len and (some `+` parent of c
-// is active, except at t = 0 for a $-topic) or (words[t] == label[c] and
-// some literal parent of c is active).  The wrapper turns lmat and pmat
-// once per table into column -> parents lists (CSC: ptr (S + 1), row
-// (nnz)), so a step costs O(S + the parents tested) instead of O(S^2),
-// exact for any 0/1 matrix, several parents a column included.
+// an OR: state c is active at t + 1 iff t < len and some active state p
+// has c as a `+` child (except at t = 0 for a $-topic) or as a literal
+// child whose label equals words[t].  So the walk pushes from the active
+// states instead of pulling every column: the wrapper turns lmat and pmat
+// once per table into each state's literal children, sorted by (label,
+// child), and its `+` children (CSR), and packs them with the accept ids
+// and the accept-id bitmaps into one int32 buffer (dense_match.
+// dense_table; the segment layout is `layout` below).  Exact for any 0/1
+// matrix: several parents a column and several children a label included.
 //
-// Layout: one warp walks one row (rows strided over the grid's warps).
-// The row's frontier is an S-bit set in shared memory (cur), with the next
-// frontier (nxt) and the two accept bitmaps (acch, acce) beside it, 4 *
-// ceil(S/32) words a warp.  Step t: lane l pulls columns l, l + 32, ...;
-// a 32-column chunk's bits are one __ballot_sync, written as one word of
-// nxt.  Lanes own the bitmap words k = l mod 32 for the accumulation.  The
-// walk stops after t = min(D, len) or once the frontier is empty (no
-// later step can fire).  Then the compaction: each 32-state chunk of acch,
-// then of acce, is one ballot of "bit set and id >= 0", its ids written at
-// the running count plus the lane's prefix (chunks with no bit set are
-// skipped); the row's tail is filled with -1.  The tables (label, both ptr
-// arrays, both row lists: 12 S + 4 nnz bytes, 8 KB at S = 512 with one
-// parent a column, 112 KB at S = 4096 with two in each matrix) are staged
-// once per block in shared memory when they fit beside the warps' bitmaps
-// (2 S bytes); else the kernel reads them from device memory through L1.  The grid is capped at
-// the blocks that can be resident, so each block stages the tables once.
+// A step.  The row's frontier is an S-bit set; each lane of the row's
+// group owns the words k = lane, lane + G, ...  It ORs its words into the
+// hash (not at t = 0 for a $-topic) and end (at t = len) accept bitmaps,
+// clears the next frontier's words, and one ballot says whether the row
+// goes on (t < min(D, len) and some bit set).  Then each lane expands the
+// set bits of its own words: every `+` child, then a binary search of the
+// state's literal children for words[t] and every child of the equal
+// range, each set with atomicOr on the next frontier's shared word.  A
+// step costs O(active states x log degree) instead of O(S); a trie's
+// frontier is a handful of states (each state has one incoming literal
+// edge and at most one `+` parent).
 //
-// What bounds it on the H100: neither bytes nor arithmetic.  One call moves
-// the batch (4 B D + 5 B), the CSC table and the outputs (4 B (K + 3)):
-// about 1.3 MB at B = 4096, D = 8, K = 64 (bench_dense's table, S =
-// 2048), 0.4 us at 3.35 TB/s.  Its work is one label compare a column and
-// step plus the parents tested for the columns whose word matches (a few
-// a step): there, about 3.4 steps a row, ~28M compares, under a
-// microsecond of the card's scalar rate.  What the kernel waits on is the chain inside a warp: each
-// step is S / 32 ballots, each behind a shared-memory load of the
-// column's ptr pair and label and the frontier probes of its parents; so
-// the design keeps every operand of a step in shared memory, skips the
-// parents of a literal column whose label differs from the word, and
-// ends a row's walk at its length or at an empty frontier.
+// Layout: G lanes a row, G = 8 for S <= 256, 16 for S <= 512, else 32, so
+// that a lane owns about one frontier word at the hot tier's S = 256 (a
+// warp a row would leave 24 of 32 lanes without a word in every scan) and
+// a warp walks 32 / G rows at once.  The warp's rows step together (its
+// ballots and shuffles take every lane): a finished row's group idles
+// until the warp's last row is done.  Each group keeps four S-bit sets in
+// shared memory (frontier, next, hash and end accepts).  The packed table
+// is staged once per block with cp.async (16 B a copy) when it fits beside
+// the bitsets; else it is read through L1 from device memory.  The grid is
+// capped at the blocks that can be resident, so each block stages once.
+//
+// Compaction, per pass (hash, then end accepts): the group scans its
+// accept words G at a time, each word ANDed with the table's bitmap of
+// states that carry an id; one warp ballot skips a chunk in which no word
+// has a bit; a shuffle scan of the per-lane popcounts gives each lane its
+// first position, and it writes the ids of its bits (read from shared
+// memory) while the position is below K.  Then -1 up to K, n and mover.
+//
+// What bounds it on the H100: bytes, by far the smaller part of its time.
+// One call must move the batch (4 B D + 5 B), the packed table and the
+// outputs (4 B (K + 3)): about 1.3 MB at B = 4096, D = 8, K = 64, 0.4 us
+// at 3.35 TB/s.  The work is one visit per active state and child set, a
+// few per row step.  What the kernel waits on is the chain of a step:
+// the frontier's shared loads, the search and the atomics, then two warp
+// syncs; the design keeps every operand of a step in shared memory and
+// visits only the active states.
 
 #include <cstdint>
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
-#define DENSE_THREADS 128  // threads per block: 4 warps, one row each
-#define DENSE_WARPS (DENSE_THREADS / 32)
+#define DENSE_THREADS 256  // threads per block: 8 warps, 32 / G rows each
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 
-struct Columns {  // generic pointers: shared memory or device memory
-  const int* label;
-  const int* lptr;
-  const int* lrow;
-  const int* pptr;
-  const int* prow;
+// Segments of the packed table, in ints, each padded to 4 ints (16 B) so
+// that the whole buffer stages in 16-byte copies: the same layout as
+// dense_match._layout.
+struct Layout {
+  int lptr, llab, lchild, pptr, pchild, hacc, eacc, hmask, emask, total;
 };
 
-// Any parent in row[ptr[c] .. ptr[c + 1]) set in the frontier `cur`.
-__device__ __forceinline__ bool any_parent(const int* ptr, const int* row,
-                                           const unsigned* cur, int c) {
-  for (int i = ptr[c], e = ptr[c + 1]; i < e; ++i) {
-    const int p = row[i];
-    if (cur[p >> 5] >> (p & 31) & 1u) return true;
-  }
-  return false;
+__host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
+
+__host__ __device__ __forceinline__ Layout layout(int S, int nl, int np) {
+  const int nw = (S + 31) >> 5;
+  Layout L;
+  L.lptr = 0;                         // S + 1 offsets into llab / lchild
+  L.llab = L.lptr + pad4(S + 1);      // nl labels, ascending per state
+  L.lchild = L.llab + pad4(nl);       // nl literal children
+  L.pptr = L.lchild + pad4(nl);       // S + 1 offsets into pchild
+  L.pchild = L.pptr + pad4(S + 1);    // np `+` children
+  L.hacc = L.pchild + pad4(np);       // S hash-accept ids (-1 none)
+  L.eacc = L.hacc + pad4(S);          // S end-accept ids (-1 none)
+  L.hmask = L.eacc + pad4(S);         // nw words: bit s = hacc[s] >= 0
+  L.emask = L.hmask + pad4(nw);       // nw words: bit s = eacc[s] >= 0
+  L.total = L.emask + pad4(nw);
+  return L;
 }
 
-// Copies n ints of `src` to `tab` (the block's threads together) and moves
-// `tab` past them; returns where they went.
-__device__ __forceinline__ const int* stage_copy(int*& tab, const int* src,
-                                                 int n) {
-  int* dst = tab;
-  for (int i = threadIdx.x; i < n; i += DENSE_THREADS) dst[i] = src[i];
-  tab += n;
-  return dst;
+__device__ __forceinline__ void set_bit(unsigned* bits, int s) {
+  atomicOr(bits + (s >> 5), 1u << (s & 31));
 }
 
-__device__ __forceinline__ void walk_row(
-    int r, int lane, unsigned* bits, int nw, const Columns& col,
-    const int* __restrict__ words, const int* __restrict__ lens,
-    const uint8_t* __restrict__ is_sys, const int* __restrict__ hacc,
-    const int* __restrict__ eacc, int D, int S, int K,
-    int* __restrict__ matches, int* __restrict__ nout,
-    int* __restrict__ aover, int* __restrict__ mover) {
-  unsigned* cur = bits;
-  unsigned* nxt = bits + nw;
-  unsigned* acch = bits + 2 * nw;
-  unsigned* acce = bits + 3 * nw;
-  const int len = __ldg(lens + r);
-  const bool sys = __ldg(is_sys + r) != 0;
-  const int* row_words = words + (size_t)r * D;
-  for (int k = lane; k < nw; k += 32) {
-    cur[k] = k == 0 ? 1u : 0u;  // {root}
-    acch[k] = 0u;
-    acce[k] = 0u;
-  }
-  __syncwarp();
-  for (int t = 0;; ++t) {
-    const bool root_sys = t == 0 && sys;  // no root fire, no root '+'
-    unsigned live = 0u;
-    for (int k = lane; k < nw; k += 32) {
-      const unsigned a = cur[k];
-      live |= a;
-      if (!root_sys) acch[k] |= a;
-      if (t == len) acce[k] |= a;
-    }
-    if (t == D || t >= len || __ballot_sync(FULL, live != 0u) == 0u) break;
-    const int word = __ldg(row_words + t);
-    for (int base = 0; base < S; base += 32) {
-      const int c = base + lane;
-      bool on = false;
-      if (c < S) {
-        if (!root_sys) on = any_parent(col.pptr, col.prow, cur, c);
-        if (!on && col.label[c] == word)
-          on = any_parent(col.lptr, col.lrow, cur, c);
-      }
-      const unsigned m = __ballot_sync(FULL, on);
-      if (lane == 0) nxt[base >> 5] = m;
-    }
-    __syncwarp();  // every lane is done reading cur and sees nxt whole
-    unsigned* const done = cur;
-    cur = nxt;
-    nxt = done;
-  }
-  __syncwarp();  // the accept bitmaps are whole
-  int n = 0;
-  int* out = matches + (size_t)r * K;
-  const unsigned below = (1u << lane) - 1u;
-  for (int pass = 0; pass < 2; ++pass) {
-    const unsigned* acc = pass ? acce : acch;
-    const int* ids = pass ? eacc : hacc;
-    for (int k = 0; k < nw; ++k) {
-      const unsigned w = acc[k];  // the same word in every lane
-      if (w == 0u) continue;
-      const int id = w >> lane & 1u ? __ldg(ids + (k << 5) + lane) : -1;
-      const unsigned m = __ballot_sync(FULL, id >= 0);
-      const int pos = n + __popc(m & below);
-      if (id >= 0 && pos < K) out[pos] = id;
-      n += __popc(m);
-    }
-  }
-  for (int j = min(n, K) + lane; j < K; j += 32) out[j] = -1;
-  if (lane == 0) {
-    nout[r] = n;
-    aover[r] = 0;
-    mover[r] = n > K ? 1 : 0;
-  }
-  __syncwarp();  // the next row may reset the bitmaps
-}
-
+template <int G>
 __global__ void __launch_bounds__(DENSE_THREADS)
 dense_walk_kernel(const int* __restrict__ words, const int* __restrict__ lens,
                   const uint8_t* __restrict__ is_sys,
-                  const int* __restrict__ hacc, const int* __restrict__ eacc,
-                  Columns col, int stage, int B, int D, int S, int nl, int np,
-                  int K, int* __restrict__ matches, int* __restrict__ nout,
-                  int* __restrict__ aover, int* __restrict__ mover) {
+                  const int* __restrict__ table, int stage, int B, int D,
+                  int S, int nl, int np, int K, int* __restrict__ matches,
+                  int* __restrict__ nout, int* __restrict__ aover,
+                  int* __restrict__ mover) {
   extern __shared__ unsigned dense_smem[];
   const int nw = (S + 31) >> 5;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  Columns c = col;
+  const Layout L = layout(S, nl, np);
+  const int* tab = table;
+  unsigned* bits = dense_smem;
   if (stage) {  // the same for every thread of the block
-    int* tab = reinterpret_cast<int*>(dense_smem + DENSE_WARPS * 4 * nw);
-    c.label = stage_copy(tab, col.label, S);
-    c.lptr = stage_copy(tab, col.lptr, S + 1);
-    c.pptr = stage_copy(tab, col.pptr, S + 1);
-    c.lrow = stage_copy(tab, col.lrow, nl);
-    c.prow = stage_copy(tab, col.prow, np);
+    int* staged = reinterpret_cast<int*>(dense_smem);
+    for (int i = threadIdx.x * 4; i < L.total; i += DENSE_THREADS * 4)
+      __pipeline_memcpy_async(staged + i, table + i, 16);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
     __syncthreads();
+    tab = staged;
+    bits = dense_smem + L.total;
   }
-  unsigned* bits = dense_smem + warp * 4 * nw;
-  for (int r = blockIdx.x * DENSE_WARPS + warp; r < B;
-       r += gridDim.x * DENSE_WARPS)
-    walk_row(r, lane, bits, nw, c, words, lens, is_sys, hacc, eacc, D, S,
-             K, matches, nout, aover, mover);
+  const int* lptr = tab + L.lptr;
+  const int* llab = tab + L.llab;
+  const int* lchild = tab + L.lchild;
+  const int* pptr = tab + L.pptr;
+  const int* pchild = tab + L.pchild;
+  const int lane = threadIdx.x & 31;
+  const int lg = lane % G;                     // lane within the row's group
+  const int g = lane / G;                      // the group within the warp
+  const unsigned gmask = G == 32 ? FULL : ((1u << G) - 1u) << (g * G);
+  unsigned* const sets = bits + (threadIdx.x / G) * 4 * nw;
+  unsigned* const acch = sets + 2 * nw;
+  unsigned* const acce = sets + 3 * nw;
+  const int warps = gridDim.x * (DENSE_THREADS / 32);
+  for (int first = (blockIdx.x * (DENSE_THREADS / 32) + (threadIdx.x >> 5)) *
+                   (32 / G);
+       first < B; first += warps * (32 / G)) {  // the same in the warp
+    const int r = first + g;
+    const bool row = r < B;
+    const int len = row ? __ldg(lens + r) : -1;
+    const bool sys = row && __ldg(is_sys + r) != 0;
+    unsigned* cur = sets;
+    unsigned* nxt = sets + nw;
+    for (int k = lg; k < nw; k += G) {
+      cur[k] = k == 0 && row ? 1u : 0u;  // {root}
+      acch[k] = 0u;
+      acce[k] = 0u;
+    }
+    __syncwarp();
+    for (int t = 0;; ++t) {
+      const bool root_sys = t == 0 && sys;  // no root fire, no root '+'
+      unsigned live = 0u;
+      for (int k = lg; k < nw; k += G) {
+        const unsigned a = cur[k];
+        live |= a;
+        if (!root_sys) acch[k] |= a;
+        if (t == len) acce[k] |= a;
+        nxt[k] = 0u;
+      }
+      const unsigned lit = __ballot_sync(FULL, live != 0u);
+      const bool go = t < D && t < len && (lit & gmask) != 0u;
+      if (__ballot_sync(FULL, go) == 0u) break;
+      __syncwarp();  // nxt is clear in every lane before any bit is set
+      if (go) {
+        const int word = __ldg(words + (size_t)r * D + t);
+        for (int k = lg; k < nw; k += G) {
+          for (unsigned a = cur[k]; a != 0u; a &= a - 1u) {
+            const int p = (k << 5) + __ffs(a) - 1;
+            if (!root_sys)
+              for (int i = pptr[p], e = pptr[p + 1]; i < e; ++i)
+                set_bit(nxt, pchild[i]);
+            int lo = lptr[p];
+            const int end = lptr[p + 1];
+            for (int hi = end; lo < hi;) {  // the first label >= word
+              const int mid = (lo + hi) >> 1;
+              if (llab[mid] < word)
+                lo = mid + 1;
+              else
+                hi = mid;
+            }
+            for (; lo < end && llab[lo] == word; ++lo)
+              set_bit(nxt, lchild[lo]);
+          }
+        }
+      }
+      __syncwarp();  // nxt is whole before it becomes the frontier
+      unsigned* const done = cur;
+      cur = nxt;
+      nxt = done;
+    }
+    __syncwarp();  // the accept bitmaps are whole
+    int n = 0;
+    int* const out = matches + (size_t)r * K;  // written only for a row
+    for (int pass = 0; pass < 2; ++pass) {
+      const unsigned* acc = pass ? acce : acch;
+      const unsigned* has_id =
+          reinterpret_cast<const unsigned*>(tab + (pass ? L.emask : L.hmask));
+      const int* ids = tab + (pass ? L.eacc : L.hacc);
+      for (int k0 = 0; k0 < nw; k0 += G) {  // the same in the warp
+        const int k = k0 + lg;
+        unsigned w = k < nw ? acc[k] & has_id[k] : 0u;
+        if (__ballot_sync(FULL, w != 0u) == 0u) continue;
+        const int cnt = __popc(w);
+        int incl = cnt;
+        for (int d = 1; d < G; d <<= 1) {
+          const int v = __shfl_up_sync(FULL, incl, d, G);
+          if (lg >= d) incl += v;
+        }
+        const int total = __shfl_sync(FULL, incl, G - 1, G);
+        for (int pos = n + incl - cnt; w != 0u && pos < K; ++pos) {
+          out[pos] = ids[(k << 5) + __ffs(w) - 1];
+          w &= w - 1u;
+        }
+        n += total;
+      }
+    }
+    if (row) {
+      for (int j = min(n, K) + lg; j < K; j += G) out[j] = -1;
+      if (lg == 0) {
+        nout[r] = n;
+        aover[r] = 0;
+        mover[r] = n > K ? 1 : 0;
+      }
+    }
+    __syncwarp();  // the next rows may reset the bitsets
+  }
 }
 
 }  // namespace
 
-// C interface for ctypes.  Pointers are device pointers; `stream` is a
-// cudaStream_t.  Returns the cudaError_t of the set-up and the launch (0 =
-// launched).
+// C interface for ctypes.  Pointers are device pointers (`table` the
+// packed buffer of dense_match.dense_table, 16-byte aligned); `stream` is
+// a cudaStream_t.  Returns the cudaError_t of the set-up and the launch
+// (0 = launched).
 extern "C" int dense_walk_launch(const int* words, const int* lens,
-                                 const uint8_t* is_sys, const int* label,
-                                 const int* hacc, const int* eacc,
-                                 const int* lptr, const int* lrow,
-                                 const int* pptr, const int* prow, int B,
-                                 int D, int S, int nl, int np, int K,
+                                 const uint8_t* is_sys, const int* table,
+                                 int B, int D, int S, int nl, int np, int K,
                                  int* matches, int* nout, int* aover,
                                  int* mover, void* stream) {
   if (B <= 0 || D < 0 || S <= 0 || nl < 0 || np < 0 || K < 0)
@@ -210,24 +250,28 @@ extern "C" int dense_walk_launch(const int* words, const int* lens,
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  const size_t nw = ((size_t)S + 31) / 32;
-  const size_t bit_bytes = DENSE_WARPS * 4 * nw * sizeof(unsigned);
-  const size_t tab_bytes = sizeof(int) * (3 * (size_t)S + 2 + nl + np);
+  const int nw = (S + 31) / 32;
+  const int G = nw <= 8 ? 8 : nw <= 16 ? 16 : 32;
+  const size_t bit_bytes =
+      (size_t)(DENSE_THREADS / G) * 4 * nw * sizeof(unsigned);
+  const size_t tab_bytes = sizeof(int) * (size_t)layout(S, nl, np).total;
   const int stage = bit_bytes + tab_bytes <= (size_t)max_smem;
   const size_t smem = stage ? bit_bytes + tab_bytes : bit_bytes;
   if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(dense_walk_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = G == 8    ? dense_walk_kernel<8>
+                : G == 16 ? dense_walk_kernel<16>
+                          : dense_walk_kernel<32>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, dense_walk_kernel, DENSE_THREADS, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      DENSE_THREADS, smem);
   if (e != cudaSuccess) return (int)e;
-  const int want = (B + DENSE_WARPS - 1) / DENSE_WARPS;
+  const int rows_per_block = DENSE_THREADS / G;
+  const int want = (B + rows_per_block - 1) / rows_per_block;
   const int grid = min(want, max(1, per_sm * sms));
-  const Columns col{label, lptr, lrow, pptr, prow};
-  dense_walk_kernel<<<grid, DENSE_THREADS, smem, (cudaStream_t)stream>>>(
-      words, lens, is_sys, hacc, eacc, col, stage, B, D, S, nl, np, K,
-      matches, nout, aover, mover);
+  kernel<<<grid, DENSE_THREADS, smem, (cudaStream_t)stream>>>(
+      words, lens, is_sys, table, stage, B, D, S, nl, np, K, matches, nout,
+      aover, mover);
   return (int)cudaGetLastError();
 }

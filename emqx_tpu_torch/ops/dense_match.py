@@ -19,18 +19,21 @@ open (``active_overflow`` is always 0).  One step of the walk:
 ops on any device.  :func:`dense_match` runs it for CPU tensors; for CUDA
 tensors it launches ``csrc/dense_walk.cu``, which computes the whole
 function in one launch, or raises.  The kernel does not multiply the
-S×S matrices: ``> 0.5`` after a sum of 0/1 values is an OR, so "child c
-is active iff any of its parents is active (and, for a literal parent,
-the word equals ``label[c]``)".  The wrapper turns ``lmat`` and ``pmat``
-into column → parents lists (CSC) once per table, on the card, and the
-kernel pulls each column's parents from the frontier held as an S-bit
-set.  This is exact for any 0/1 matrix, several parents a column
-included.
+S×S matrices: ``> 0.5`` after a sum of 0/1 values is an OR, so "state c
+is active iff some active state has c as a ``+`` child, or as a literal
+child whose label equals the word".  The wrapper turns ``lmat`` and
+``pmat`` into each state's literal children sorted by (label, child) and
+its ``+`` children, packed with the accept ids and their bitmaps into
+one int32 buffer (:func:`dense_table`), once per table, on the card; the
+kernel pushes from the active states of a frontier held as an S-bit set,
+finding a literal edge by a binary search.  This is exact for any 0/1
+matrix, several parents a column and several children a label included.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 import time
 from collections import OrderedDict
 from typing import Dict, NamedTuple, Optional, Tuple, Union
@@ -55,15 +58,15 @@ _LABEL_NONE = -7            # never equals a word id (those are >= 0)
 #: it to 0 to reset)
 launches = 0
 
-#: column → parents lists of recent ``(lmat, pmat)`` pairs on the card
-_CSC_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
-_CSC_CACHE_SIZE = 4
+#: packed tables of recent ``(lmat, pmat, label, hacc, eacc)`` on the card
+_TABLE_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_TABLE_CACHE_SIZE = 4
 _entry_fn = None
 
-#: C entry point of the kernel and its ctypes arguments: 10 operand
-#: pointers, 6 ints (B, D, S, nnz of each matrix, K), 4 output pointers
-#: and the stream
-_ENTRY = ("dense_walk_launch", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+#: C entry point of the kernel and its ctypes arguments: 4 operand
+#: pointers (words, lens, is_sys, the packed table), 6 ints (B, D, S,
+#: literal and ``+`` child counts, K), 4 output pointers and the stream
+_ENTRY = ("dense_walk_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
           + [ctypes.c_void_p] * 5)
 
 
@@ -123,15 +126,16 @@ def dense_match_plain(words, lens, is_sys, lmat, pmat, label, hacc, eacc, *,
                       ) -> MatchResult:
     """The reference's dense walk as PyTorch ops, on any device: bf16
     matmuls of the multi-hot frontier, step by step.  A ``traffic`` dict
-    receives ``steps``, the row steps for which the CUDA kernel computes
-    a next frontier (t < min(D, len) with a state active), for the
-    kernel's bound."""
+    receives, for the kernel's bound, ``steps``, the row steps for which
+    the CUDA kernel computes a next frontier (t < min(D, len) with a
+    state active), ``states``, the active states it expands on them, and
+    ``children``, the states those steps make active."""
     B, D = words.shape
     S = label.shape[0]
     dev = words.device
     dt = torch.bfloat16
     if traffic is not None:
-        traffic["steps"] = 0
+        traffic.update(steps=0, states=0, children=0)
     lmat = lmat.to(dt)
     pmat = pmat.to(dt)
     not_sys = ~is_sys[:, None]
@@ -146,8 +150,10 @@ def dense_match_plain(words, lens, is_sys, lmat, pmat, label, hacc, eacc, *,
         acc_e = acc_e | (a & (lens == t)[:, None])
         if t == D:
             break
+        going = (t < lens) & a.any(dim=1)
         if traffic is not None:
-            traffic["steps"] += int(((t < lens) & a.any(dim=1)).sum())
+            traffic["steps"] += int(going.sum())
+            traffic["states"] += int(a[going].sum())
         lit_in = active @ lmat
         plus_src = active if t else active * not_sys.to(dt)
         plus_in = plus_src @ pmat
@@ -155,6 +161,8 @@ def dense_match_plain(words, lens, is_sys, lmat, pmat, label, hacc, eacc, *,
         nxt = torch.where(wmatch, lit_in, torch.zeros((), dtype=dt,
                                                        device=dev)) + plus_in
         active = ((t < lens)[:, None] & (nxt > 0.5)).to(dt)
+        if traffic is not None:
+            traffic["children"] += int((active > 0.5).sum())
     cand = torch.cat(
         [torch.where(acc_h & (hacc >= 0)[None, :], hacc[None, :], -1),
          torch.where(acc_e & (eacc >= 0)[None, :], eacc[None, :], -1)],
@@ -182,38 +190,97 @@ def _entry():
     return _entry_fn
 
 
-def _parents(mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Column → parents of a 0/1 matrix: ``(ptr (S+1,), row (nnz,))``
-    int32, each column's parents in ascending order."""
+def launch_shape(S: int) -> Tuple[int, int]:
+    """``(threads per block, lanes per row)`` of ``csrc/dense_walk.cu``
+    at S states: its ``DENSE_THREADS`` and G = 8, 16 or 32, about one
+    frontier word a lane."""
+    src = (cuda_build.CSRC / "dense_walk.cu").read_text()
+    threads = int(re.search(r"#define DENSE_THREADS (\d+)", src).group(1))
+    nw = (S + 31) // 32
+    return threads, 8 if nw <= 8 else 16 if nw <= 16 else 32
+
+
+def _layout(S: int, nl: int, np_: int) -> Dict[str, Tuple[int, int]]:
+    """``name → (offset, length)`` in ints of each segment of the packed
+    table, each padded to a multiple of 4 ints (16 B): the ``layout`` of
+    ``csrc/dense_walk.cu``, in its order."""
+    nw = (S + 31) // 32
+    out, off = {}, 0
+    for name, n in (("lptr", S + 1), ("llab", nl), ("lchild", nl),
+                    ("pptr", S + 1), ("pchild", np_), ("hacc", S),
+                    ("eacc", S), ("hmask", nw), ("emask", nw)):
+        out[name] = (off, n)
+        off += -(-n // 4) * 4
+    out["total"] = (off, 0)
+    return out
+
+
+def _children(mat: torch.Tensor, label: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Parent → children of a 0/1 matrix: ``(ptr (S+1,), child (nnz,))``
+    int32, each state's children by ascending child id, or, given
+    ``label``, by ascending ``(label[child], child)``."""
     S = mat.shape[0]
-    nz = mat != 0
+    p, c = (mat != 0).nonzero(as_tuple=True)   # by parent, then child
+    if label is not None:
+        order = torch.sort(label[c], stable=True).indices
+        order = order[torch.sort(p[order], stable=True).indices]
+        p, c = p[order], c[order]
     ptr = torch.zeros((S + 1,), dtype=torch.int32, device=mat.device)
-    ptr[1:] = torch.cumsum(nz.sum(dim=0, dtype=torch.int32), dim=0)
-    row = nz.t().nonzero()[:, 1].to(torch.int32).contiguous()
-    return ptr, row
+    ptr[1:] = torch.cumsum(torch.bincount(p, minlength=S), dim=0)
+    return ptr, c.to(torch.int32)
 
 
-def dense_columns(lmat: torch.Tensor, pmat: torch.Tensor):
-    """``(lptr, lrow, pptr, prow)``: the CSC form of ``lmat`` and
-    ``pmat`` that the kernel walks, built on their device at the first
-    call for a table (one host sync, as a table upload has) and kept for
-    the next calls.  Raises ValueError for an entry other than 0 or 1."""
-    key = (lmat.data_ptr(), pmat.data_ptr(), lmat._version, pmat._version,
-           tuple(lmat.shape), tuple(pmat.shape), lmat.dtype, pmat.dtype,
-           str(lmat.device))
-    hit = _CSC_CACHE.get(key)
+def _bitmap(valid: torch.Tensor) -> torch.Tensor:
+    """(S,) bool → (ceil(S/32),) int32 words, bit j of word k set iff
+    ``valid[32k + j]``."""
+    S = valid.shape[0]
+    nw = (S + 31) // 32
+    v = torch.zeros((nw * 32,), dtype=torch.int64, device=valid.device)
+    v[:S] = valid.to(torch.int64)
+    shift = torch.arange(32, dtype=torch.int64, device=valid.device)
+    w = (v.view(nw, 32) << shift).sum(dim=1)
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+
+def dense_table(lmat, pmat, label, hacc, eacc
+                ) -> Tuple[torch.Tensor, int, int]:
+    """``(table, nl, np)``: the packed int32 buffer the kernel walks
+    (:func:`_layout`: each state's literal children sorted by (label,
+    child) with their labels, its ``+`` children, both accept-id vectors
+    and their bitmaps) and the literal and ``+`` child counts.  Built on
+    the operands' device at the first call for a table (one host sync,
+    as a table upload has) and kept for the next calls.  Raises
+    ValueError for a matrix entry other than 0 or 1."""
+    ops = (lmat, pmat, label, hacc, eacc)
+    key = tuple((t.data_ptr(), t._version, tuple(t.shape), t.dtype)
+                for t in ops) + (str(lmat.device),)
+    hit = _TABLE_CACHE.get(key)
     if hit is not None:
-        _CSC_CACHE.move_to_end(key)
-        return hit[2]
+        _TABLE_CACHE.move_to_end(key)
+        return hit[1]
     for name, m in (("lmat", lmat), ("pmat", pmat)):
         if not bool(((m == 0) | (m == 1)).all()):
             raise ValueError(f"{name} holds an entry other than 0 or 1")
-    cols = (*_parents(lmat), *_parents(pmat))
-    # the matrices stay referenced, so their storage (and key) stays theirs
-    _CSC_CACHE[key] = (lmat, pmat, cols)
-    while len(_CSC_CACHE) > _CSC_CACHE_SIZE:
-        _CSC_CACHE.popitem(last=False)
-    return cols
+    S = label.shape[0]
+    lptr, lchild = _children(lmat, label)
+    pptr, pchild = _children(pmat)
+    parts = {"lptr": lptr, "llab": label[lchild.long()], "lchild": lchild,
+             "pptr": pptr, "pchild": pchild, "hacc": hacc, "eacc": eacc,
+             "hmask": _bitmap(hacc >= 0), "emask": _bitmap(eacc >= 0)}
+    nl, np_ = int(lchild.shape[0]), int(pchild.shape[0])
+    lay = _layout(S, nl, np_)
+    table = torch.zeros((lay["total"][0],), dtype=torch.int32,
+                        device=lmat.device)
+    for name, part in parts.items():
+        off, n = lay[name]
+        table[off:off + n] = part
+    out = (table, nl, np_)
+    # the operands stay referenced, so their storage (and key) stays theirs
+    _TABLE_CACHE[key] = (ops, out)
+    while len(_TABLE_CACHE) > _TABLE_CACHE_SIZE:
+        _TABLE_CACHE.popitem(last=False)
+    return out
 
 
 def _check(words, lens, is_sys, lmat, pmat, label, hacc, eacc, K) -> None:
@@ -260,7 +327,7 @@ def dense_match(words, lens, is_sys, lmat, pmat, label, hacc, eacc, *,
         raise ValueError(f"dense_match runs on cuda or cpu, not {dev}")
     K = int(max_matches)
     _check(words, lens, is_sys, lmat, pmat, label, hacc, eacc, K)
-    lptr, lrow, pptr, prow = dense_columns(lmat, pmat)
+    table, nl, np_ = dense_table(lmat, pmat, label, hacc, eacc)
     B, D = words.shape
     S = label.shape[0]
     matches = torch.empty((B, K), dtype=torch.int32, device=dev)
@@ -271,11 +338,8 @@ def dense_match(words, lens, is_sys, lmat, pmat, label, hacc, eacc, *,
             stream = torch.cuda.current_stream().cuda_stream
             rc = _entry()(
                 words.data_ptr(), lens.data_ptr(), is_sys.data_ptr(),
-                label.data_ptr(), hacc.data_ptr(), eacc.data_ptr(),
-                lptr.data_ptr(), lrow.data_ptr(), pptr.data_ptr(),
-                prow.data_ptr(), B, D, S, int(lrow.shape[0]),
-                int(prow.shape[0]), K, matches.data_ptr(), n.data_ptr(),
-                aover.data_ptr(), mover.data_ptr(), stream)
+                table.data_ptr(), B, D, S, nl, np_, K, matches.data_ptr(),
+                n.data_ptr(), aover.data_ptr(), mover.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"dense_walk launch failed: cudaError {rc}")
         global launches

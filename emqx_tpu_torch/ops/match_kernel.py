@@ -4,7 +4,7 @@ The port of ``emqx_tpu/ops/match_kernel.py``.  :func:`nfa_match` runs the
 fused hash walk (:func:`~emqx_tpu_torch.ops.walk_kernel.nfa_walk`: the
 CUDA kernel on the card, its plain version on the CPU) for the raw
 accept slots, then :func:`epilogue`, which ``join_match.join_match``
-shares, picks one of three outputs, written as PyTorch ops:
+shares, picks one of three outputs:
 
 * raw — all Σ2·w_t accept slots with -1 holes (nothing truncates, only
   active-set spill is a fail-open cause);
@@ -13,6 +13,12 @@ shares, picks one of three outputs, written as PyTorch ops:
 * flat — the per-row compaction scattered at global cumsum offsets into
   one ``(flat_cap,)`` buffer, plus the packed ``row_meta`` vector; a row
   whose segment runs past ``flat_cap`` is truncated and flagged.
+
+Raw and compact are PyTorch ops.  Flat (K3, the reference's XLA
+``flat_epilogue``) is :func:`flat_epilogue`: on CUDA tensors it launches
+``csrc/flat_epilogue.cu`` (two launches, nothing between them in device
+memory beside one int a tile), on CPU tensors it runs
+:func:`flat_epilogue_plain`, the same function as PyTorch ops.
 
 Everything is int32 and matches the reference bit for bit.
 
@@ -33,18 +39,21 @@ reference's).
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from . import cuda_build
 from .compiler import NfaTable, encode_topics
 from .walk_kernel import nfa_walk
 
 __all__ = ["MatchResult", "SERVE_FLAT_MULT", "ROW_META_COUNT_MASK",
            "ROW_META_SPILL_SHIFT", "decode_flat", "decode_row_meta",
            "epilogue", "fetch_flat_prefix", "fetch_flat_ragged",
-           "flat_epilogue", "match_topics", "nfa_match", "ragged_capacity"]
+           "flat_epilogue", "flat_epilogue_plain", "match_topics",
+           "nfa_match", "ragged_capacity"]
 
 #: serving flat-output capacity per padded batch row (ids per topic)
 SERVE_FLAT_MULT = 8
@@ -54,6 +63,21 @@ SERVE_FLAT_MULT = 8
 #: overflow)
 ROW_META_COUNT_MASK = 0xFFFF
 ROW_META_SPILL_SHIFT = 16
+
+#: launches of the flat-epilogue kernel since the count was last reset
+#: (set it to 0 to reset)
+flat_launches = 0
+
+#: rows of one tile of the flat-epilogue kernel (``EPI_ROWS`` of
+#: ``csrc/flat_epilogue.cu``): the wrapper's scratch holds one int a tile
+FLAT_TILE_ROWS = 8
+
+#: C entry point of the flat-epilogue kernel and its ctypes arguments: 2
+#: operand pointers, 4 ints (B, C, K, flat_cap), 4 output pointers, the
+#: scratch pointer and the stream
+FLAT_ENTRY = ("flat_epilogue_launch", [ctypes.c_void_p] * 2
+              + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6)
+_flat_entry_fn = None
 
 
 class MatchResult(NamedTuple):
@@ -127,44 +151,114 @@ def _compact(cand: torch.Tensor, width: int) -> torch.Tensor:
     return out[:, :width].contiguous()
 
 
-def flat_epilogue(flat, n, aover, max_matches: int, flat_cap: int):
-    """Per-row top-K compaction, a global cumsum-offset scatter into one
-    ``(flat_cap,)`` buffer (writes past the end dropped) and the packed
-    ``row_meta``.  Returns ``(matches, mover, row_meta)``."""
+def flat_epilogue_plain(acc, aover, max_matches: int, flat_cap: int):
+    """The flat epilogue as PyTorch ops, on any device: the row counts
+    ``n``, a per-row top-K compaction, a global cumsum-offset scatter
+    into one ``(flat_cap,)`` buffer (writes past the end dropped) and
+    the packed ``row_meta``.  Returns ``(matches, n, mover, row_meta)``."""
+    n = (acc >= 0).sum(dim=1, dtype=torch.int32)
     K = max_matches
-    per_row = _compact(flat, K)                            # (B, K)
+    per_row = _compact(acc, K)                             # (B, K)
     nk = torch.clamp(n, max=K)
     offs = torch.cumsum(nk, dim=0, dtype=torch.int32) - nk
-    col = torch.arange(K, dtype=torch.int32, device=flat.device)[None, :]
+    col = torch.arange(K, dtype=torch.int32, device=acc.device)[None, :]
     idx = offs[:, None] + col
     keep = (col < nk[:, None]) & (idx < flat_cap)
     out = torch.full((flat_cap + 1,), -1, dtype=torch.int32,
-                     device=flat.device)
+                     device=acc.device)
     out.scatter_(0, torch.where(keep, idx, flat_cap).reshape(-1).long(),
                  torch.where(keep, per_row, -1).reshape(-1))
     matches = out[:flat_cap].contiguous()
     mover = ((n > K) | (offs + nk > flat_cap)).to(torch.int32)
     spilled = ((aover > 0) | (mover > 0)).to(torch.int32)
     row_meta = nk | (spilled << ROW_META_SPILL_SHIFT)
-    return matches, mover, row_meta
+    return matches, n, mover, row_meta
+
+
+def _flat_entry():
+    """The bound C entry point of ``csrc/flat_epilogue.cu``, built at
+    first use."""
+    global _flat_entry_fn
+    if _flat_entry_fn is None:
+        sym, argtypes = FLAT_ENTRY
+        fn = getattr(cuda_build.load("flat_epilogue"), sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _flat_entry_fn = fn
+    return _flat_entry_fn
+
+
+def flat_epilogue(acc, aover, max_matches: int, flat_cap: int):
+    """The flat output of raw accept slots ``acc (B, C)`` and spills
+    ``aover (B,)``: ``(matches (flat_cap,), n, mover, row_meta)``, as
+    :func:`flat_epilogue_plain` computes them.  CPU tensors run
+    :func:`flat_epilogue_plain`; CUDA tensors launch
+    ``csrc/flat_epilogue.cu`` on the current stream (outputs and one
+    int of scratch a tile allocated here) or raise."""
+    dev = acc.device
+    if dev.type == "cpu":
+        return flat_epilogue_plain(acc, aover, max_matches, flat_cap)
+    if dev.type != "cuda":
+        raise ValueError(f"flat_epilogue runs on cuda or cpu, not {dev}")
+    K, cap = int(max_matches), int(flat_cap)
+    if acc.dtype != torch.int32 or acc.dim() != 2 or not acc.is_contiguous():
+        raise ValueError("acc must be a contiguous 2-d int32 tensor")
+    B, C = acc.shape
+    if (aover.device != dev or aover.dtype != torch.int32
+            or tuple(aover.shape) != (B,) or not aover.is_contiguous()):
+        raise ValueError(f"aover must be a contiguous ({B},) int32 tensor "
+                         f"on {dev}")
+    if K < 0 or cap <= 0:
+        raise ValueError(f"max_matches {K} < 0 or flat_cap {cap} <= 0")
+    matches = torch.empty((cap,), dtype=torch.int32, device=dev)
+    n, mover, row_meta = (torch.empty((B,), dtype=torch.int32, device=dev)
+                          for _ in range(3))
+    tile_nk = torch.empty((max(1, -(-B // FLAT_TILE_ROWS)),),
+                          dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _flat_entry()(acc.data_ptr(), aover.data_ptr(), B, C, K, cap,
+                           matches.data_ptr(), n.data_ptr(),
+                           mover.data_ptr(), row_meta.data_ptr(),
+                           tile_nk.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"flat_epilogue launch failed: cudaError {rc}")
+    global flat_launches
+    flat_launches += 1
+    return matches, n, mover, row_meta
+
+
+def random_accepts(seed: int, B: int, C: int):
+    """Seeded raw accept slots for the flat epilogue's checks: ``(acc
+    (B, C), aover (B,))`` int32 numpy, rows of every density (empty,
+    sparse, a fifth, half and all valid; ids in [0, 2**20)) and spills
+    on about a quarter of the rows."""
+    rng = np.random.default_rng(seed)
+    share = rng.choice([0.0, 0.03, 0.2, 0.5, 1.0], B)
+    acc = np.where(rng.random((B, C)) < share[:, None],
+                   rng.integers(0, 1 << 20, (B, C)), -1)
+    aover = np.where(rng.random(B) < 0.25, rng.integers(1, 5, B), 0)
+    return acc.astype(np.int32), aover.astype(np.int32)
 
 
 def epilogue(acc, aover, max_matches: int, compact_output: bool,
              flat_cap: int) -> MatchResult:
     """The output of a walk's raw accept slots ``acc`` and spills
-    ``aover``: flat when ``flat_cap`` > 0, else compact or raw.  Shared
-    by every walk backend."""
-    n = (acc >= 0).sum(dim=1, dtype=torch.int32)
+    ``aover``: flat when ``flat_cap`` > 0 (:func:`flat_epilogue`, the
+    kernel on the card), else compact or raw.  Shared by every walk
+    backend."""
     K = max_matches
     row_meta = None
     if flat_cap:
-        matches, mover, row_meta = flat_epilogue(acc, n, aover, K, flat_cap)
-    elif compact_output:
-        matches = _compact(acc, K)
-        mover = (n > K).to(torch.int32)
+        matches, n, mover, row_meta = flat_epilogue(acc, aover, K, flat_cap)
     else:
-        matches = acc
-        mover = torch.zeros_like(n)
+        n = (acc >= 0).sum(dim=1, dtype=torch.int32)
+        if compact_output:
+            matches = _compact(acc, K)
+            mover = (n > K).to(torch.int32)
+        else:
+            matches = acc
+            mover = torch.zeros_like(n)
     return MatchResult(matches=matches, n_matches=n, active_overflow=aover,
                        match_overflow=mover, row_meta=row_meta)
 

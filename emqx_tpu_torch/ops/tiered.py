@@ -80,8 +80,8 @@ def fused_tiered_match(hot_args, cold_args, active_slots: int = 8,
     """Both tiers in one dispatch: the dense walk of ``hot_args`` and the
     raw hash walk of ``cold_args``, enqueued back to back on the current
     stream with no host synchronisation between them (on a table whose
-    column lists are built, see :func:`~emqx_tpu_torch.ops.dense_match.
-    dense_columns`).  Returns ``(dense MatchResult, walk MatchResult)``.
+    packed form is built, see :func:`~emqx_tpu_torch.ops.dense_match.
+    dense_table`).  Returns ``(dense MatchResult, walk MatchResult)``.
     ``hot_args``/``cold_args`` are the positional tuples of
     :func:`~emqx_tpu_torch.ops.dense_match.dense_match` /
     :func:`~emqx_tpu_torch.ops.match_kernel.nfa_match`."""

@@ -8,15 +8,18 @@
 // exact for code whose sync points are the same sequence in every lane
 // of a warp (and of the block, for __syncthreads_count), as CUDA asks:
 // after one round every lane has posted its value, after the next every
-// lane has read.  It checks the kernels' logic (lane layout, shuffles,
-// ranks, searches), not their speed or memory model.  A launch
-// `k<<<grid, block, 0, stream>>>(args)` is rewritten to
-// `emu_launch(k, grid, block, args)` by the test (with dynamic shared
-// memory, `emu_launch_smem(k, grid, block, smem, args)`).
+// lane has read.  __syncthreads is a real barrier: a thread waits until
+// every thread of the block has arrived, and all of them leave in the
+// same round, so the warps' rounds line up again after it.  It checks the
+// kernels' logic (lane layout, shuffles, scans, ranks, searches, atomics
+// on shared words), not their speed or memory model.  A launch
+// `k<<<grid, block, smem, stream>>>(args)` is rewritten to
+// `emu_launch_smem(k, grid, block, smem, args)` by the test.
 #pragma once
 #include <ucontext.h>
 
 #include <algorithm>
+#include <cstddef>
 #include <cstdint>
 #include <functional>
 #include <vector>
@@ -111,17 +114,54 @@ inline int __shfl_sync(unsigned, int v, int src, int width = 32) {
   });
 }
 
-inline unsigned __ballot_sync(unsigned, bool p) {
-  return (unsigned)emu_exchange(p, [](const int* posted, unsigned me) {
+inline int __shfl_xor_sync(unsigned, int v, int mask, int width = 32) {
+  return emu_exchange(v, [=](const int* posted, unsigned me) {
+    const unsigned lo = me & ~(unsigned)(width - 1);
+    return posted[lo + (((me - lo) ^ mask) & (width - 1))];
+  });
+}
+
+inline int __shfl_up_sync(unsigned, int v, unsigned delta, int width = 32) {
+  return emu_exchange(v, [=](const int* posted, unsigned me) {
+    const unsigned lane = me & (width - 1);
+    return lane >= delta ? posted[me - delta] : posted[me];
+  });
+}
+
+// Bits of the lanes in `mask` whose predicate holds (a lane outside the
+// mask gives 0, as on the card).
+inline unsigned __ballot_sync(unsigned mask, bool p) {
+  return (unsigned)emu_exchange(p, [=](const int* posted, unsigned me) {
     const int* warp = posted + (me & ~31u);
     unsigned bits = 0;
     for (int i = 0; i < 32; ++i) bits |= (unsigned)(warp[i] != 0) << i;
-    return (int)bits;
+    return (int)(bits & mask);
   });
 }
 
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_yield(); }
-inline void __syncthreads() { emu_yield(); }
+
+inline int emu_round;           // the scheduler's pass over the block
+inline int emu_arrived;         // threads at the block's current barrier
+inline int emu_barrier_gen;     // barriers the block has passed
+inline int emu_release_round;   // the round in which the last one opens
+inline void __syncthreads() {
+  const int gen = emu_barrier_gen;
+  if (++emu_arrived == (int)emu_threads.size()) {
+    emu_arrived = 0;
+    ++emu_barrier_gen;
+    emu_release_round = emu_round + 1;
+  }
+  do {
+    emu_yield();
+  } while (emu_barrier_gen == gen || emu_round < emu_release_round);
+}
+
+inline unsigned atomicOr(unsigned* addr, unsigned v) {
+  const unsigned old = *addr;
+  *addr = old | v;
+  return old;
+}
 
 inline int __syncthreads_count(bool p) {
   return emu_exchange(p, [](const int* posted, unsigned) {
@@ -153,7 +193,8 @@ void emu_launch(Kernel kernel, int grid, int block, Args... args) {
       t.ctx.uc_link = &emu_scheduler;
       makecontext(&t.ctx, emu_entry, 0);
     }
-    for (int live = block; live > 0;) {
+    emu_arrived = 0;
+    for (int live = block; live > 0; ++emu_round) {
       for (int t = 0; t < block; ++t) {
         if (emu_threads[t].done) continue;
         threadIdx.x = t;

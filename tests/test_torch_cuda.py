@@ -1,9 +1,9 @@
-"""The port's CUDA walk kernels (hash and join) against their plain
-PyTorch versions, and the asyncio serve loop on them (the fixed-window
-path, the overlapped pipeline with its two-phase readback, the deadline
-loop's dispatch timeout over a real hang, grow in place and a
-compaction swap); the dense walk against its plain version, the
-two-tier matcher and the retained replay; the exhook match sidecar;
+"""The port's CUDA walk kernels (hash and join) and the flat epilogue
+against their plain PyTorch versions, and the asyncio serve loop on them
+(the fixed-window path, the overlapped pipeline with its two-phase
+readback, the deadline loop's dispatch timeout over a real hang, grow in
+place and a compaction swap); the dense walk against its plain version,
+the two-tier matcher and the retained replay; the exhook match sidecar;
 on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
 module imports neither JAX nor the reference package, so it also runs
 where only the port is installed:
@@ -99,6 +99,76 @@ def test_flat_match_on_card_equals_cpu(table):
     for f in ("matches", "n_matches", "active_overflow", "match_overflow",
               "row_meta"):
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+#: (D, A) of the flat epilogue's cases: C = 446, 190, 62 and 18 columns
+FLAT_SHAPES = [(16, 16), (8, 16), (4, 16), (8, 1)]
+
+
+def _flat_caps(n, K: int, B: int):
+    """A roomy cap, one that ends inside a row's segment (whole rows and
+    part of a row dropped) and a cap of one id."""
+    nk = torch.clamp(n, max=K)
+    offs = torch.cumsum(nk, 0) - nk
+    caps = [8 * max(B, 1), 1]
+    inside = torch.nonzero(nk >= 2).flatten()
+    if len(inside):
+        caps.append(int(offs[inside[len(inside) // 3]]) + 1)
+    return caps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [32, 64, 128])
+@pytest.mark.parametrize("depth,A", FLAT_SHAPES)
+def test_flat_epilogue_kernel_equals_plain(depth, A, K):
+    """``flat_epilogue.cu`` against ``flat_epilogue_plain``, every output
+    bit for bit: rows past K, spills, caps that drop whole rows and part
+    of a row, all-empty batches, B = 1000 (no whole number of tiles) and
+    B = 0."""
+    _skip_without_card()
+    from emqx_tpu_torch.ops import match_kernel as mk
+    from emqx_tpu_torch.ops.walk_kernel import accept_cols
+
+    C = accept_cols(depth, A)
+    mk.flat_launches = 0
+    calls = 0
+    for B in (2048, 1000, 0):
+        acc, aover = (torch.from_numpy(a) for a in mk.random_accepts(
+            depth * 1000 + A * 10 + K + B, B, C))
+        for a in (acc, torch.full_like(acc, -1)):
+            n = (a >= 0).sum(dim=1, dtype=torch.int32)
+            for cap in _flat_caps(n, K, B):
+                got = mk.flat_epilogue(a.cuda(), aover.cuda(), K, cap)
+                want = mk.flat_epilogue_plain(a, aover, K, cap)
+                calls += 1
+                for f, g, w in zip(("matches", "n", "mover", "row_meta"),
+                                   got, want):
+                    assert torch.equal(g.cpu(), w), (f, B, cap)
+    assert mk.flat_launches == calls
+
+
+@pytest.mark.cuda
+def test_flat_match_launches_the_epilogue_kernel(table, join_table):
+    """On the card the flat mode of both walks (and ``DeviceNfa.match``)
+    runs the epilogue kernel, once a walk; compact and raw modes do
+    not."""
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    inc, topics = table
+    args = _operands(inc, topics, 16, 2048)
+    mk.flat_launches = 0
+    nfa_match(*args, active_slots=16, max_matches=128, flat_cap=8 * 2048)
+    nfa_match(*args, active_slots=16, max_matches=128)
+    nfa_match(*args, active_slots=16, compact_output=False)
+    assert mk.flat_launches == 1
+    jinc, jarrs, jtopics = join_table
+    join_match(*_join_operands(jinc, jarrs, jtopics, 8, 512),
+               active_slots=16, max_matches=128, flat_cap=8 * 512)
+    assert mk.flat_launches == 2
+    dev = DeviceNfa(inc, device="cuda")
+    enc = encode_batch(inc, topics[:256], batch=256, depth=16)
+    dev.match(*dev.put_batch(*enc), flat_cap=8 * 256)
+    assert mk.flat_launches == 3
 
 
 @pytest.mark.cuda
@@ -998,6 +1068,25 @@ def test_dense_kernel_equals_plain(S, parents, B, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,parents,B", [(512, 3, 4096), (2048, 60, 333)])
+def test_dense_kernel_on_wide_frontiers_equals_plain(S, parents, B):
+    """One label for every literal edge and one word: frontiers of dozens
+    of states (S = 2048 with up to 60 parents a column is too large to
+    stage in shared memory)."""
+    _skip_without_card()
+    dm = _dense_mod()
+    dense = [torch.from_numpy(a).cuda()
+             for a in dm.random_dense(S * 3 + parents, S, parents, V=1)]
+    batch = [torch.from_numpy(a).cuda()
+             for a in dm.random_dense_batch(S + B, B, 6, V=1)]
+    traffic = {}
+    want = dm.dense_match_plain(*batch, *dense, max_matches=64,
+                                traffic=traffic)
+    assert traffic["states"] >= 24 * traffic["steps"] > 0
+    _dense_fields_equal(dm.dense_match(*batch, *dense, max_matches=64), want)
+
+
+@pytest.mark.cuda
 def test_dense_kernel_on_bench_table_and_sys_topics():
     _skip_without_card()
     from emqx_tpu_torch.ops import compile_filters, encode_topics
@@ -1074,7 +1163,7 @@ def test_fused_tiered_match_has_no_host_sync_and_equals_the_calls():
     cargs = put(encode_topics(tiered.cold, [topics[i] for i in cold],
                               batch=_pow2(len(cold)))) + put(
         tiered.cold.device_arrays())
-    dm.dense_match(*hargs)          # builds the column lists
+    dm.dense_match(*hargs)          # builds the packed table
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:

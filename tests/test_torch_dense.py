@@ -193,16 +193,19 @@ def test_cpu_operands_run_the_plain_version_and_other_devices_raise():
 
 def test_plain_traffic_counts_the_steps_the_kernel_runs():
     """``traffic["steps"]``: rows whose walk computes a next frontier at
-    step t (t < min(D, len), a state active)."""
+    step t (t < min(D, len), a state active); ``states``: the active
+    states those steps expand; ``children``: the states they make
+    active."""
     tab = compile_filters(["a/b/c", "a/+/#"], depth=8)
     d = [torch.from_numpy(a) for a in build_dense(tab).device_arrays()]
     b = [torch.from_numpy(a) for a in encode_topics(
         tab, ["a/b/c", "zz/b/c", "a"], batch=3)]
     traffic = {}
     dense_match_plain(*b, *d, max_matches=4, traffic=traffic)
-    # a/b/c: 3 steps; zz/b/c: the root steps once, then nothing is
-    # active; a: 1 step
-    assert traffic == {"steps": 5}
+    # a/b/c: 3 steps expanding {root}, {a}, {a/b, a/+} into {a},
+    # {a/b, a/+}, {a/b/c}; zz/b/c: the root steps once into nothing; a:
+    # 1 step, {root} into {a}
+    assert traffic == {"steps": 5, "states": 6, "children": 5}
 
 
 def test_bench_dense_runs_on_the_cpu():

@@ -170,13 +170,18 @@ def test_join_walk_plain_equals_pallas_interpret(depth, A):
     (8, 8, 4, 300),          # flat: K truncation + global-cap truncation
     (4, 16, 128, 8 * 256),   # the serve shape of the short group
     (16, 16, 128, 8 * 256),  # the serve shape of the long group
+    (8, 8, 32, 40),          # flat: the cap drops whole rows
 ])
 def test_join_match_equals_reference(depth, A, K, flat_cap):
     inc, arrays, topics = _churned(depth + K, max(depth, 8))
     args = _operands(inc, arrays, topics, depth, batch=256)
     kw = dict(active_slots=A, max_matches=K, flat_cap=flat_cap)
-    _assert_result_equal(join_match(*_torch(args), **kw),
-                         _eager(ref_join_match, *_jax(args), **kw))
+    got = join_match(*_torch(args), **kw)
+    _assert_result_equal(got, _eager(ref_join_match, *_jax(args), **kw))
+    if flat_cap == 40:
+        nk = np.minimum(got.n_matches.numpy(), K)
+        offs = np.cumsum(nk) - nk
+        assert ((offs >= flat_cap) & (nk > 0)).any(), "the cap must drop rows"
 
 
 def _assert_delta_equal(got, want):

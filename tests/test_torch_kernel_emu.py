@@ -1,4 +1,4 @@
-"""The CUDA sources of the walk kernels, built with g++ against a CPU
+"""The CUDA sources of the port's kernels, built with g++ against a CPU
 stand-in for CUDA (``tests/cuda_emu/cuda_runtime.h``: the threads of a
 block are coroutines on one host thread, and a shuffle or ballot is
 exchanged between rounds of them), against their plain PyTorch
@@ -14,8 +14,13 @@ ranks' tie-break to top_k, with an overlay of 0, 1 and 40 rows.  The
 dense walk (``dense_walk.cu``) is held to ``dense_match_plain`` on
 ``bench_dense``'s table, a table of ``$``-topic and wildcard-root
 filters with rows past K, random tables with several parents a column
-(one too large to stage in shared memory), and batches that leave the
-last block partly filled.  It says nothing of speed, and
+(one too large to stage in shared memory), a state with 30 children
+under one label, frontiers of dozens of states, and batches that leave
+the last block partly filled.  The flat epilogue (``flat_epilogue.cu``)
+is held to ``flat_epilogue_plain`` at C of (D, A) = (16, 16), (8, 16),
+(4, 16) and (8, 1) with K 32, 64 and 128: rows past K, spills, a cap
+that drops whole rows and part of one, an all-empty batch, B = 101 (no
+whole number of tiles).  It says nothing of speed, and
 ``tests/test_torch_cuda.py`` remains the test on the card.  Skips where
 g++ is missing."""
 
@@ -34,20 +39,22 @@ from emqx_tpu_torch.ops import compile_filters, cuda_build, encode_topics
 # the module (``emqx_tpu_torch.ops.dense_match`` is the function)
 dense_mod = importlib.import_module("emqx_tpu_torch.ops.dense_match")
 from emqx_tpu_torch.ops.dense_match import (
-    bench_dense_workload, build_dense, dense_columns, dense_match_plain,
-    random_dense, random_dense_batch)
+    _LABEL_NONE, DenseTable, _layout, bench_dense_workload, build_dense,
+    dense_match_plain, dense_table, random_dense, random_dense_batch)
+from emqx_tpu_torch.ops.dense_match import launch_shape as dense_launch_shape
+from emqx_tpu_torch.ops.match_kernel import (
+    FLAT_ENTRY, FLAT_TILE_ROWS, flat_epilogue_plain, random_accepts)
 from emqx_tpu_torch.ops.walk_kernel import (
     _ENTRY, OVERLAY_CAP, _hash_plain, accept_cols, join_walk_plain,
     launch_shape, nfa_walk_plain)
 from emqx_tpu_torch.workload import build_workload
 
 SHIM = cuda_build.CSRC.parents[2] / "tests" / "cuda_emu"
-LAUNCH = re.compile(r"(\w+)<<<\s*(.*?),\s*NFA_THREADS,\s*0,\s*"
+LAUNCH = re.compile(r"(\w+)<<<\s*(.*?),\s*(\w+),\s*(\w+),\s*"
                     r"\(cudaStream_t\)stream>>>\(", re.S)
-LAUNCH_SMEM = re.compile(r"(\w+)<<<\s*(.*?),\s*DENSE_THREADS,\s*(\w+),\s*"
-                         r"\(cudaStream_t\)stream>>>\(", re.S)
 DYN_SMEM = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
-ENTRIES = {**_ENTRY, "dense_walk": dense_mod._ENTRY}
+ENTRIES = {**_ENTRY, "dense_walk": dense_mod._ENTRY,
+           "flat_epilogue": FLAT_ENTRY}
 #: each level of w/a/b/c/d/e/f literal or '+': that topic's frontier
 #: doubles each level, so its walk spills at every A below 64
 FAN_FILTERS = ["w/" + "/".join("+" if m >> k & 1 else c
@@ -72,9 +79,8 @@ def emu_kernels(tmp_path_factory):
         pytest.skip("needs g++")
     src = tmp_path_factory.mktemp("csrc")
     for f in cuda_build.CSRC.iterdir():
-        text = LAUNCH.sub(r"emu_launch(\1, \2, NFA_THREADS, ", f.read_text())
-        text = LAUNCH_SMEM.sub(r"emu_launch_smem(\1, \2, DENSE_THREADS, \3, ",
-                               text)
+        text = LAUNCH.sub(r"emu_launch_smem(\1, \2, \3, \4, ",
+                          f.read_text())
         text = DYN_SMEM.sub(
             r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem.data());", text)
         (src / f.name).write_text(text)
@@ -265,21 +271,29 @@ def test_launch_shape_is_the_kernels_layout():
 def _dense_emu(fn, batch, dense, K):
     """``dense_walk.cu`` through the stand-in on ``batch`` (words, lens,
     is_sys) and the dense operands ``dense`` (lmat, pmat, label, hacc,
-    eacc): the four ``MatchResult`` fields."""
+    eacc), packed by ``dense_table``: the four ``MatchResult`` fields."""
     words, lens, is_sys = batch
-    lmat, pmat, label, hacc, eacc = dense
-    lptr, lrow, pptr, prow = dense_columns(lmat, pmat)
+    table, nl, np_ = dense_table(*dense)
     B, D = words.shape
     matches = torch.full((B, K), -7, dtype=torch.int32)
     n, aover, mover = (torch.full((B,), -7, dtype=torch.int32)
                        for _ in range(3))
-    rc = fn(*(t.data_ptr() for t in (words, lens, is_sys, label, hacc, eacc,
-                                      lptr, lrow, pptr, prow)),
-            B, D, label.shape[0], lrow.shape[0], prow.shape[0], K,
+    rc = fn(words.data_ptr(), lens.data_ptr(), is_sys.data_ptr(),
+            table.data_ptr(), B, D, dense[2].shape[0], nl, np_, K,
             matches.data_ptr(), n.data_ptr(), aover.data_ptr(),
             mover.data_ptr(), None)
     assert rc == 0
     return matches, n, aover, mover
+
+
+def _staged_bytes(dense) -> int:
+    """Shared memory a block of ``dense_walk.cu`` needs to stage the
+    packed table beside its rows' bitsets (four S-bit sets a row)."""
+    S = dense[2].shape[0]
+    _table, nl, np_ = dense_table(*dense)
+    threads, G = dense_launch_shape(S)
+    return (4 * _layout(S, nl, np_)["total"][0]
+            + (threads // G) * 16 * (-(-S // 32)))
 
 
 def _dense_equal(fn, batch, dense, K):
@@ -333,10 +347,141 @@ def test_dense_kernel_source_equals_plain_on_random_tables(emu_kernels, S,
     device memory)."""
     dense = [torch.from_numpy(a) for a in random_dense(S + parents, S,
                                                        parents)]
-    lptr, lrow, pptr, prow = dense_columns(dense[0], dense[1])
-    staged = 4 * (3 * S + 2 + lrow.shape[0] + prow.shape[0]) \
-        + 16 * 4 * (-(-S // 32))
-    assert (staged > 232448) == (S == 1024)
+    assert (_staged_bytes(dense) > 232448) == (S == 1024)
     batch = [torch.from_numpy(a) for a in random_dense_batch(S, rows, 6)]
     want = _dense_equal(emu_kernels["dense_walk"], batch, dense, 16)
     assert int(want.n_matches.sum()) > 0
+
+
+def _fan_table(S: int = 128) -> DenseTable:
+    """A table whose root has 40 literal children, 30 of them under one
+    label and 10 under another, and 3 ``+`` children; each of those 43
+    states has a literal child (labels 0-2) and every third a ``+`` child
+    too; accept ids on most states."""
+    lmat = np.zeros((S, S), np.float32)
+    pmat = np.zeros((S, S), np.float32)
+    label = np.full((S,), _LABEL_NONE, np.int32)
+    lmat[0, 1:41] = 1.0
+    label[1:31] = 1
+    label[31:41] = 2
+    pmat[0, 41:44] = 1.0
+    for c in range(1, 44):
+        lmat[c, 43 + c] = 1.0
+        label[43 + c] = c % 3
+        if c % 3 == 0:
+            pmat[c, 87 + c // 3] = 1.0
+    rng = np.random.default_rng(7)
+    hacc = np.where(rng.random(S) < 0.6, rng.integers(0, 999, S), -1)
+    eacc = np.where(rng.random(S) < 0.6, rng.integers(0, 999, S), -1)
+    return DenseTable(lmat, pmat, label, hacc.astype(np.int32),
+                      eacc.astype(np.int32))
+
+
+def test_dense_kernel_source_equals_plain_on_one_label_fan(emu_kernels):
+    """One parent with many children under the same label: the binary
+    search's equal range sets 30 states at once (rows past K too)."""
+    dense = [torch.from_numpy(a) for a in _fan_table()]
+    rng = np.random.default_rng(8)
+    words = rng.integers(0, 4, (B, 3)).astype(np.int32)
+    words[:40, 0] = 1
+    batch = [torch.from_numpy(words),
+             torch.from_numpy(rng.integers(0, 5, B).astype(np.int32)),
+             torch.from_numpy(rng.random(B) < 0.2)]
+    traffic = {}
+    dense_match_plain(*batch, *dense, max_matches=16, traffic=traffic)
+    assert traffic["children"] >= 40 * 30
+    want = _dense_equal(emu_kernels["dense_walk"], batch, dense, 16)
+    assert int(want.match_overflow.sum()) > 0
+
+
+@pytest.mark.parametrize("S,parents,rows", [(512, 3, 40), (2048, 60, 9)])
+def test_dense_kernel_source_equals_plain_on_a_wide_frontier(emu_kernels, S,
+                                                             parents, rows):
+    """One label for every literal edge and one word, so every literal
+    child of an active state goes on: frontiers of dozens of states (S =
+    2048, up to 60 parents a column, is too large to stage)."""
+    dense = [torch.from_numpy(a)
+             for a in random_dense(S * 3 + parents, S, parents, V=1)]
+    assert (_staged_bytes(dense) > 232448) == (S == 2048)
+    batch = [torch.from_numpy(a)
+             for a in random_dense_batch(S + rows, rows, 6, V=1)]
+    traffic = {}
+    dense_match_plain(*batch, *dense, max_matches=64, traffic=traffic)
+    assert traffic["states"] >= 24 * traffic["steps"] > 0
+    want = _dense_equal(emu_kernels["dense_walk"], batch, dense, 64)
+    assert int(want.n_matches.sum()) > 0
+
+
+# -- the flat epilogue (K3) ---------------------------------------------------
+
+#: (D, A) of the flat epilogue's cases: C = 446, 190, 62 and 18 columns
+FLAT_SHAPES = [(16, 16), (8, 16), (4, 16), (8, 1)]
+
+
+def _flat_emu(fn, acc, aover, K, cap):
+    """``flat_epilogue.cu`` through the stand-in: ``(matches, n, mover,
+    row_meta)``."""
+    rows, C = acc.shape
+    matches = torch.full((cap,), -7, dtype=torch.int32)
+    n, mover, meta = (torch.full((rows,), -7, dtype=torch.int32)
+                      for _ in range(3))
+    tiles = torch.full((max(1, -(-rows // FLAT_TILE_ROWS)),), -7,
+                       dtype=torch.int32)
+    rc = fn(acc.data_ptr(), aover.data_ptr(), rows, C, K, cap,
+            matches.data_ptr(), n.data_ptr(), mover.data_ptr(),
+            meta.data_ptr(), tiles.data_ptr(), None)
+    assert rc == 0
+    return matches, n, mover, meta
+
+
+def _flat_equal(fn, acc, aover, K, cap):
+    want = flat_epilogue_plain(acc, aover, K, cap)
+    for f, g, w in zip(("matches", "n", "mover", "row_meta"),
+                       _flat_emu(fn, acc, aover, K, cap), want):
+        assert torch.equal(g, w), f
+    return want
+
+
+def test_flat_tile_rows_is_the_kernels():
+    """The wrapper sizes its scratch by the source's tile."""
+    src = (cuda_build.CSRC / "flat_epilogue.cu").read_text()
+    rows = int(re.search(r"#define EPI_ROWS (\d+)", src).group(1))
+    assert rows == FLAT_TILE_ROWS
+
+
+@pytest.mark.parametrize("K", [32, 64, 128])
+@pytest.mark.parametrize("depth,A", FLAT_SHAPES)
+def test_flat_epilogue_source_equals_plain(emu_kernels, depth, A, K):
+    """Every field bit for bit: rows past K (where C > K), rows with
+    spills, B = 101
+    (no whole number of tiles), a roomy cap, a cap that ends inside a
+    row's segment (whole rows and part of a row dropped), a cap of one
+    id, and an all-empty batch."""
+    fn = emu_kernels["flat_epilogue"]
+    C = accept_cols(depth, A)
+    acc, aover = (torch.from_numpy(a) for a in random_accepts(
+        depth * 1000 + A * 10 + K, B, C))
+    want = _flat_equal(fn, acc, aover, K, 8 * B)
+    n = want[1]
+    nk = torch.clamp(n, max=K)
+    assert bool((n > K).any()) == (C > K) and bool((aover > 0).any())
+    offs = torch.cumsum(nk, 0) - nk
+    inside = int(torch.nonzero(nk >= 2)[len(nk) // 3 % int(
+        (nk >= 2).sum())])
+    cap = int(offs[inside]) + 1
+    got = _flat_equal(fn, acc, aover, K, cap)
+    dropped = (offs >= cap) & (nk > 0)
+    assert bool(dropped.any()) and int(got[2][inside]) == 1
+    _flat_equal(fn, acc, aover, K, 1)
+    empty = torch.full_like(acc, -1)
+    got = _flat_equal(fn, empty, aover, K, 2 * B)
+    assert int(got[1].sum()) == 0 and bool((got[0] == -1).all())
+
+
+def test_dense_launch_shape_is_the_kernels():
+    """chip_smoke reports ``launch_shape``: the source's block size and
+    G lanes a row, about one frontier word a lane."""
+    for S, lanes in [(128, 8), (256, 8), (257, 16), (512, 16), (513, 32),
+                     (4096, 32)]:
+        threads, G = dense_launch_shape(S)
+        assert G == lanes and threads % 32 == 0

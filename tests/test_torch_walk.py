@@ -122,6 +122,7 @@ def _assert_result_equal(got, ref):
     (8, 2, 6, 150),       # flat with spill and truncation
     (4, 16, 128, 8 * 256),  # the serve shape of the short group
     (16, 16, 128, 8 * 256),  # the serve shape of the long group
+    (8, 8, 32, 40),       # flat: the cap drops whole rows
 ])
 def test_nfa_match_equals_reference(depth, A, K, flat_cap):
     filters, topics = _corpus(depth + A + K, 500, 230, depth)
@@ -132,6 +133,15 @@ def test_nfa_match_equals_reference(depth, A, K, flat_cap):
     _assert_result_equal(got, ref)
     if flat_cap and flat_cap < 8 * 256:
         assert np.asarray(ref.match_overflow).any(), "cap must truncate"
+    if flat_cap == 40:
+        _assert_rows_dropped(got, K, flat_cap)
+
+
+def _assert_rows_dropped(got, K: int, flat_cap: int) -> None:
+    """Some row with ids has its whole segment past ``flat_cap``."""
+    nk = np.minimum(got.n_matches.numpy(), K)
+    offs = np.cumsum(nk) - nk
+    assert ((offs >= flat_cap) & (nk > 0)).any(), "the cap must drop rows"
 
 
 def test_nfa_match_raw_mode_equals_reference():
@@ -216,3 +226,34 @@ def test_cpu_walk_runs_plain_and_counts_no_launch():
     _t, args = _inputs(filters, topics, 4, batch=64)
     nfa_walk(*_torch(args), active_slots=16)
     assert walk_kernel.launches == before
+
+
+@pytest.mark.parametrize("K,flat_cap", [(32, 8 * 101), (8, 120), (128, 1)])
+def test_flat_epilogue_plain_equals_reference(K, flat_cap):
+    """The flat epilogue alone on seeded accept slots (rows of every
+    density, spills, rows past K, caps that drop rows): the port's wrapper
+    on the CPU (its plain version, no launch) against the reference's
+    ``flat_epilogue``."""
+    from emqx_tpu.ops.match_kernel import flat_epilogue as ref_flat
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    acc, aover = mk.random_accepts(K + flat_cap, 101, accept_cols(16, 16))
+    n = (acc >= 0).sum(axis=1).astype(np.int32)
+    before = mk.flat_launches
+    got = mk.flat_epilogue(torch.from_numpy(acc), torch.from_numpy(aover),
+                           K, flat_cap)
+    assert mk.flat_launches == before
+    matches, mover, meta = ref_flat(jnp.asarray(acc), jnp.asarray(n),
+                                    jnp.asarray(aover), K, flat_cap)
+    for g, w in zip(got, (matches, n, mover, meta)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (n > K).any() and (aover > 0).any()
+
+
+def test_flat_epilogue_wrapper_rejects_other_devices():
+    from emqx_tpu_torch.ops import match_kernel as mk
+
+    acc = torch.zeros((4, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        mk.flat_epilogue(acc, torch.zeros((4,), dtype=torch.int32,
+                                          device="meta"), 4, 16)
