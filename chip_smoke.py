@@ -23,13 +23,16 @@ phases, one JSON line each; any failure exits non-zero:
    is first churned through a ``DeviceNfa`` with its mirror on, so it
    holds tombstones and overlay rows.  Then ``nfa_match`` and
    ``join_match`` in flat mode on the card against the same calls on the
-   CPU, all five ``MatchResult`` fields equal; the flat epilogue
-   (``flat_epilogue.cu``, K3) against ``flat_epilogue_plain`` on the same
-   card tensors, every output bit for bit, at the C of (D, A) = (16, 16),
-   (8, 16), (4, 16) and (8, 1) with K 32, 64 and 128, B 2048, 1000 and 0:
-   seeded rows of every density (rows past K, spills), all-empty
-   batches, a roomy cap, a cap that drops whole rows and part of one,
-   a cap of one id; then dense_kernel: the
+   CPU, all five ``MatchResult`` fields equal; the flat mode of both
+   walks (the flat epilogue, K3, fused into the walk kernels: one launch
+   a flat match) against the plain walk and ``flat_epilogue_plain`` on
+   the same card tensors, all five fields bit for bit, at (D, A) =
+   (16, 16), (8, 16), (4, 16), (8, 32) and (8, 1) with K 4, 32 and 128,
+   B 2048, 1000 and 1, each at a roomy cap, a cap at every id, a cap that
+   cuts a row and drops the later ones, and a cap of one id (360
+   calls); one batch of B = 65,536 (8,192 blocks, more than the card
+   holds at once, so later tiles' look-backs wait) with a join and a
+   hash match on a second stream at the same time; then dense_kernel: the
    frontier-sparse dense walk (``dense_walk.cu``, K6) against
    ``dense_match_plain``,
    every field bit for bit, on ``bench_dense``'s table (B = 4096, D = 8,
@@ -51,10 +54,12 @@ phases, one JSON line each; any failure exits non-zero:
    the L2 flushed before each launch (``ms_cold``), and one batch
    repeated (``ms_warm``, tables' rows L2-resident); the plain version's
    device ms from a CUDA graph replay; the kernel's bytes bound on this
-   run's data; the same readings of the flat epilogue on those walks
-   (K = 128, flat_cap = 8·B; its plain version, the torch-ops epilogue,
-   also by CUDA events; the whole flat match beside; on the hash path
-   also at the exhook sidecar's D = 8); the serve stage breakdown (with
+   run's data; the same readings of the flat match (the walk's flat
+   kernel, K3 fused; K = 128, flat_cap = 8·B) on those batches, the raw
+   walk in turns with it on the same batches (K3's own cost is the
+   difference), its plain version (the plain walk and the torch-ops
+   epilogue) from a CUDA graph replay, and on the hash path also at the
+   exhook sidecar's D = 8; the serve stage breakdown (with
    the ids the split stage turned into filters); serve throughput with p50/p99 over 100 timed
    ``serve()`` calls of 2048 topics (``TIMED_BATCHES``); the card's busy and idle share over
    20 ``serve()`` calls from a ``torch.profiler`` trace; table bytes and
@@ -450,14 +455,23 @@ EDGE_TOPICS = ["$SYS/a/x", "$SYS", "x//y", "/", "//", "a/b/c/d",
                "w/a/b/c/d/e/f"]
 #: (D, A) of the kernel cases, each at B = 64, 1000 and 2048
 WALK_CASES = ((4, 16), (8, 16), (16, 16), (8, 2), (8, 1), (16, 12), (8, 32))
-#: the flat epilogue (K3): its source and the reference function it
-#: replaces
-FLAT_KERNEL = ("flat_epilogue", "emqx_tpu_torch/ops/csrc/flat_epilogue.cu",
+#: the flat epilogue (K3), fused into the flat mode of both walk kernels:
+#: its source (``flat_finish`` and the look-back) and the reference
+#: function it replaces
+FLAT_KERNEL = ("flat_epilogue", "emqx_tpu_torch/ops/csrc/walk_common.cuh",
                "emqx_tpu/ops/match_kernel.py:217")
-#: (D, A) of the flat epilogue's kernel cases (C = 446, 190, 62, 18
-#: accept slots a row), each at K 32, 64 and 128 and B 2048, 1000 (no
-#: whole number of tiles) and 0
-FLAT_CASES = ((16, 16), (8, 16), (4, 16), (8, 1))
+#: the walk kernels it is fused into (nfa_walk_flat_kernel and
+#: nfa_join_walk_flat_kernel)
+FLAT_FUSED_INTO = {
+    "hash": "nfa_walk_flat_kernel, emqx_tpu_torch/ops/csrc/nfa_walk.cu",
+    "join": ("nfa_join_walk_flat_kernel, "
+             "emqx_tpu_torch/ops/csrc/nfa_join_walk.cu")}
+#: (D, A) of the flat kernel cases (C = 446, 190, 62, 190, 18 accept slots
+#: a row; A = 1: 128 rows a block, 64 KB of row lists at K = 128), each at
+#: K 4, 32 and 128 and B 2048, 1000 (no whole number of tiles) and 1
+FLAT_CASES = ((16, 16), (8, 16), (4, 16), (8, 32), (8, 1))
+#: rows of the flat kernel's wide batch: 8,192 blocks at A = 16
+FLAT_WIDE = 65536
 
 
 def emit(obj) -> None:
@@ -473,32 +487,33 @@ def _check(cond: bool, what: str) -> None:
         raise PhaseError(what)
 
 
-#: the flat epilogue's launches on each path, as :func:`_flat_launches`
-#: read them (the kernels line's ``launches_by_path`` of ``flat_epilogue``)
+#: flat-mode walk launches (the flat epilogue fused) on each path, as
+#: :func:`_flat_launches` read them (the kernels line's
+#: ``launches_by_path`` of ``flat_epilogue``)
 FLAT_LAUNCHES: Dict[str, int] = {}
 
 
 def _reset_launches() -> None:
-    """Zero the launch counts of both walk kernels and of the flat
-    epilogue, just before a main path is driven."""
-    from emqx_tpu_torch.ops import match_kernel, walk_kernel
+    """Zero the launch counts of both walk kernels and of their flat
+    mode, just before a main path is driven."""
+    from emqx_tpu_torch.ops import walk_kernel
 
     walk_kernel.launches = 0
     walk_kernel.join_launches = 0
-    match_kernel.flat_launches = 0
+    walk_kernel.flat_launches = 0
 
 
 def _flat_launches(device, path: str, flat_walks: int) -> int:
-    """The flat epilogue's launches since :func:`_reset_launches`, kept
-    as ``FLAT_LAUNCHES[path]``.  On the card they must equal
-    ``flat_walks``: the walk launches of the path that ran in flat mode
-    (every walk of a serve path of either backend; none of a compact or
-    raw one)."""
-    from emqx_tpu_torch.ops import match_kernel
+    """The flat-mode walk launches (K3 fused) since
+    :func:`_reset_launches`, kept as ``FLAT_LAUNCHES[path]``.  On the
+    card they must equal ``flat_walks``: the walk launches of the path
+    that ran in flat mode (every walk of a serve path of either backend;
+    none of a compact or raw one)."""
+    from emqx_tpu_torch.ops import walk_kernel
 
-    flat = FLAT_LAUNCHES[path] = match_kernel.flat_launches
+    flat = FLAT_LAUNCHES[path] = walk_kernel.flat_launches
     if device.type == "cuda":
-        _check(flat == flat_walks, f"{path}: flat epilogue launches {flat} "
+        _check(flat == flat_walks, f"{path}: flat-mode launches {flat} "
                f"!= flat walk launches {flat_walks}")
     return flat
 
@@ -760,11 +775,11 @@ def _flat_cases(torch, match, operands) -> List[Dict]:
 
 
 def _flat_caps(torch, n, K: int, B: int) -> List[int]:
-    """A roomy cap, one that ends inside a row's segment (whole rows and
-    part of a row dropped) and a cap of one id."""
+    """A roomy cap, one at every id, one that ends inside a row's segment
+    (that row cut, the later ones dropped) and a cap of one id."""
     nk = torch.clamp(n, max=K)
     offs = torch.cumsum(nk, 0) - nk
-    caps = [8 * max(B, 1), 1]
+    caps = [8 * max(B, 1), max(1, int(nk.sum())), 1]
     inside = torch.nonzero(nk >= 2).flatten()
     if len(inside):
         caps.append(int(offs[inside[len(inside) // 3]]) + 1)
@@ -772,68 +787,135 @@ def _flat_caps(torch, n, K: int, B: int) -> List[int]:
 
 
 def _flat_err(got, want) -> int:
-    """Largest |difference| over the four outputs of two flat
-    epilogues."""
+    """Largest |difference| over the five fields of two flat matches."""
     err = 0
     for g, w in zip(got, want):
-        _check(g.shape == w.shape, "flat epilogue outputs differ in shape")
+        _check(g.shape == w.shape, "flat outputs differ in shape")
         if g.numel():
             err = max(err, int((g.long() - w.long()).abs().max()))
     return err
 
 
-def phase_flat_kernel(torch, device) -> int:
-    """The flat epilogue (``flat_epilogue.cu``) against
-    ``flat_epilogue_plain`` on the same card tensors, every output bit
-    for bit, at ``FLAT_CASES``: seeded rows of every density (rows past
-    K where C > K, spills), each batch also all empty, each at a roomy
-    cap, a cap that ends inside a row's segment and a cap of one id.
-    Returns the largest |difference|."""
-    from emqx_tpu_torch.ops import match_kernel as mk
-    from emqx_tpu_torch.ops.walk_kernel import accept_cols
+
+
+def phase_flat_kernel(torch, device, inc, topics, dev, jtopics) -> int:
+    """The flat mode of both walks (K3 fused into ``nfa_walk.cu`` and
+    ``nfa_join_walk.cu``) against the plain walk and
+    ``flat_epilogue_plain`` on the same card tensors, all five fields bit
+    for bit, at ``FLAT_CASES`` with K 4, 32 and 128 and B 2048, 1000 and
+    1, each at the caps of :func:`_flat_caps`; one launch a call.  Then a
+    batch of ``FLAT_WIDE`` rows on one stream while a join and a hash
+    match run on another, three times.  Returns the largest
+    |difference|."""
+    from emqx_tpu_torch.ops import join_match, nfa_match, walk_kernel
+    from emqx_tpu_torch.ops.walk_kernel import (
+        accept_cols, join_walk_flat_plain, join_walk_plain,
+        nfa_walk_flat_plain, nfa_walk_plain)
 
     t0 = time.perf_counter()
+    def cycled(pool, rows):
+        return (pool * (rows // len(pool) + 1))[:rows]
+
+    backends = {
+        "hash": (nfa_match, nfa_walk_plain, nfa_walk_flat_plain,
+                 lambda d, b: _operands(torch, inc, cycled(topics, b), d, b,
+                                        device)),
+        "join": (join_match, join_walk_plain, join_walk_flat_plain,
+                 lambda d, b: _join_operands(torch, dev, cycled(jtopics, b),
+                                             d, b))}
     cases, worst, calls = [], 0, 0
-    mk.flat_launches = 0
-    for depth, A in FLAT_CASES:
-        C = accept_cols(depth, A)
-        for K in (32, 64, 128):
-            for B in (BATCH, 1000, 0):
-                acc, aover = (torch.from_numpy(a).to(device)
-                              for a in mk.random_accepts(
-                                  depth * 1000 + A * 10 + K + B, B, C))
+    walk_kernel.flat_launches = 0
+    for backend, (match, plain, _flat, operands) in backends.items():
+        for depth, A in FLAT_CASES:
+            for B in (BATCH, 1000, 1):
+                args = operands(depth, B)
+                acc, aover = plain(*args, active_slots=A)
                 n = (acc >= 0).sum(dim=1, dtype=torch.int32)
-                dropped = err = 0
-                for a in (acc, torch.full_like(acc, -1)):
+                for K in (4, 32, 128):
+                    err = cut = dropped = 0
                     for cap in _flat_caps(torch, n, K, B):
-                        got = mk.flat_epilogue(a, aover, K, cap)
-                        want = mk.flat_epilogue_plain(a, aover, K, cap)
+                        got = match(*args, active_slots=A, max_matches=K,
+                                    flat_cap=cap)
+                        want = _flat_epilogue(acc, aover, K, cap)
                         calls += 1
                         err = max(err, _flat_err(got, want))
-                        nk = torch.clamp(want[1], max=K)
+                        nk = torch.clamp(n, max=K)
                         offs = torch.cumsum(nk, 0) - nk
                         dropped = max(dropped, int(((offs >= cap)
                                                     & (nk > 0)).sum()))
-                _check(err == 0, f"flat_epilogue != plain at D={depth} "
-                       f"A={A} K={K} B={B}")
-                rows_past_k = int((n > K).sum())
-                if B:
-                    _check((rows_past_k > 0) == (C > K) and dropped > 0
-                           and bool((aover > 0).any()),
-                           f"the flat case D={depth} A={A} K={K} B={B} "
-                           "lacks rows past K, dropped rows or spills")
-                worst = max(worst, err)
-                cases.append({"D": depth, "A": A, "C": C, "K": K, "B": B,
-                              "equal": True, "max_abs_err": err,
-                              "rows_past_k": rows_past_k,
-                              "rows_dropped_max": dropped,
-                              "spilled_rows": int((aover > 0).sum())})
-    _check(mk.flat_launches == calls,
-           f"{mk.flat_launches} flat epilogue launches for {calls} calls")
+                        cut = max(cut, int(((offs < cap)
+                                            & (offs + nk > cap)).sum()))
+                    _check(err == 0, f"flat {backend} walk != plain at "
+                           f"D={depth} A={A} K={K} B={B}")
+                    worst = max(worst, err)
+                    cases.append({
+                        "backend": backend, "D": depth, "A": A,
+                        "C": accept_cols(depth, A), "K": K, "B": B,
+                        "equal": True, "max_abs_err": err,
+                        "rows_past_k": int((n > K).sum()),
+                        "rows_cut": cut, "rows_dropped_max": dropped,
+                        "spilled_rows": int((aover > 0).sum())})
+                if B == BATCH:
+                    _check(int((n > 4).sum()) > 0 and any(
+                        c["rows_cut"] and c["rows_dropped_max"]
+                        for c in cases[-3:]),
+                        f"the flat {backend} case D={depth} A={A} lacks rows "
+                        "past K, a cut row or dropped rows")
+    _check(walk_kernel.flat_launches == calls,
+           f"{walk_kernel.flat_launches} flat launches for {calls} calls")
+    wide = _flat_wide(torch, device, backends)
+    worst = max(worst, wide["max_abs_err"])
     emit({"phase": "kernel", "kernel": "flat_epilogue", "ok": True,
-          "cases": cases, "calls": calls, "tolerance": "exact",
-          "max_abs_err": worst, "wall_s": time.perf_counter() - t0})
+          "fused_into": FLAT_FUSED_INTO, "cases": cases, "calls": calls,
+          "wide": wide, "tolerance": "exact", "max_abs_err": worst,
+          "wall_s": time.perf_counter() - t0})
     return worst
+
+
+def _flat_epilogue(acc, aover, K: int, cap: int):
+    """``flat_epilogue_plain`` on raw slots, in ``MatchResult`` order."""
+    from emqx_tpu_torch.ops.match_kernel import flat_epilogue_plain
+
+    matches, n, mover, meta = flat_epilogue_plain(acc, aover, K, cap)
+    return matches, n, aover, mover, meta
+
+
+def _flat_wide(torch, device, backends) -> Dict:
+    """A hash batch of ``FLAT_WIDE`` rows (D = 16) on one stream while a
+    2048-row join match (D = 16) and hash match (D = 4) run on a second,
+    three rounds, each equal to its plain version; the two streams have
+    their own look-back state."""
+    from emqx_tpu_torch.ops import walk_kernel
+
+    K = 128
+    runs = {"wide": ("hash", 16, FLAT_WIDE), "join": ("join", 16, BATCH),
+            "hash": ("hash", 4, BATCH)}
+    args = {k: backends[b][3](d, rows) for k, (b, d, rows) in runs.items()}
+    wants = {k: backends[b][2](*args[k], active_slots=16, max_matches=K,
+                               flat_cap=8 * rows)
+             for k, (b, _d, rows) in runs.items()}
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    err = 0
+    torch.cuda.synchronize()
+    for _ in range(3):
+        got = {}
+        for k, stream in (("wide", s1), ("join", s2), ("hash", s2)):
+            b, _d, rows = runs[k]
+            with torch.cuda.stream(stream):
+                got[k] = backends[b][0](*args[k], active_slots=16,
+                                        max_matches=K, flat_cap=8 * rows)
+        torch.cuda.synchronize()
+        for k in runs:
+            err = max(err, _flat_err(got[k], wants[k]))
+    _check(err == 0, "a flat match on two streams at once != plain")
+    own = (walk_kernel.flat_scratch(device, s1.cuda_stream)
+           is not walk_kernel.flat_scratch(device, s2.cuda_stream))
+    _check(own, "two streams share the flat look-back state")
+    return {"B": FLAT_WIDE, "blocks": FLAT_WIDE // 8, "K": K,
+            "flat_cap": 8 * FLAT_WIDE, "rounds": 3,
+            "second_stream": ["join D=16 B=2048", "hash D=4 B=2048"],
+            "ids": int(torch.clamp(wants["wide"][1], max=K).sum()),
+            "equal": True, "max_abs_err": err}
 
 
 def phase_kernel(torch, device) -> Dict[str, int]:
@@ -893,7 +975,8 @@ def phase_kernel(torch, device) -> Dict[str, int]:
     emit({"phase": "kernel", "kernel": "nfa_join_walk", "ok": True,
           "relation": rel, "walk_cases": cases, "flat_cases": flat,
           "tolerance": "exact", "max_abs_err": worst["join"]})
-    worst["flat"] = phase_flat_kernel(torch, device)
+    worst["flat"] = phase_flat_kernel(torch, device, inc, mixed, dev,
+                                      jtopics)
     return worst
 
 
@@ -4576,14 +4659,14 @@ def _sidecar_proc(conn, spec: Dict) -> None:
 
 
 def _sidecar_counters(sc) -> Dict:
-    from emqx_tpu_torch.ops import match_kernel, walk_kernel
+    from emqx_tpu_torch.ops import walk_kernel
 
     eng = sc._eng
     ready = sc._engine is not None
     return {
         "launches": walk_kernel.launches,
         "join_launches": walk_kernel.join_launches,
-        "flat_launches": match_kernel.flat_launches,
+        "flat_launches": walk_kernel.flat_launches,
         "device_batches": sc.device_batches, "warms": sc.warms,
         "host_rows": sc.host_rows, "not_ready_rows": sc.not_ready_rows,
         "aid_reuse_rows": sc.aid_reuse_rows,
@@ -5200,69 +5283,99 @@ def _join_bytes(traffic: Dict[str, int], depth: int, A: int) -> int:
             + OVERLAY_CAP * 12 + _io_bytes(depth, A))
 
 
-def _flat_bound(acc, cap: int) -> Dict[str, object]:
-    """The least time of one flat epilogue on these inputs: ``acc`` and
-    ``aover`` read once, the flat buffer and three ints a row written
-    once, over 3.35 TB/s (its operations, a compare a slot, are far
-    below the card's scalar rate)."""
-    B, C = acc.shape
-    nbytes = 4 * (B * C + B + cap + 3 * B)
+def _flat_bound(walk_bytes: float, B: int, C: int,
+                cap: int) -> Dict[str, object]:
+    """The least time of one flat match (the walk with K3 fused): the
+    walk's own bytes less the raw accept plane it no longer writes (B·C
+    ints), plus the flat outputs written once (the buffer and three ints
+    a row; the spills are the walk's), over 3.35 TB/s; ``k3_bound_ms``
+    is those flat outputs alone, what K3 adds to the walk's bound."""
+    flat_out = 4 * (cap + 3 * B)
+    nbytes = walk_bytes - 4 * B * C + flat_out
     return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bound_bytes": nbytes}
+            "bound_bytes": nbytes,
+            "k3_bound_ms": flat_out / HBM_BYTES_PER_S * 1e3}
 
 
-def _time_flat(torch, device, walks, match, K: int, cap: int,
-               flush) -> Dict:
-    """The flat epilogue on the raw walks ``walks`` (``(acc, aover)`` of
-    the distinct served batches) at the serve shape (K, ``cap``): equal
-    to ``flat_epilogue_plain`` bit for bit on each, then its device ms
-    as the walks are timed (rotating, L2 flushed, one batch repeated),
-    the plain version's (the torch-ops epilogue) by the same CUDA events
-    and from a CUDA graph replay, its bound, and the whole flat match
-    (walk + epilogue; ``match()`` runs the next batch) rotating."""
-    from emqx_tpu_torch.ops import match_kernel as mk
+def _time_flat(torch, device, batches, backend: str, A: int, K: int,
+               cap: int, depth: int, flush) -> Dict:
+    """The flat match (one launch of the walk's flat kernel, K3 fused) on
+    the distinct served ``batches`` at the serve shape (K, ``cap``):
+    equal to the plain walk and ``flat_epilogue_plain`` bit for bit on
+    each, then its device ms as the walks are timed (rotating, L2
+    flushed, one batch repeated) with the raw walk in turns on the same
+    batches (flat, raw, raw, flat: K3's own cost is the difference of
+    their means), the plain version (the plain walk and the torch-ops
+    epilogue; the epilogue alone beside) from a CUDA graph replay, and
+    its bound on this run's data."""
+    from emqx_tpu_torch.ops import join_match, nfa_match
+    from emqx_tpu_torch.ops.match_kernel import flat_epilogue_plain
+    from emqx_tpu_torch.ops.walk_kernel import (
+        accept_cols, join_walk, join_walk_plain, nfa_walk, nfa_walk_plain)
 
+    if backend == "hash":
+        walk, plain, match, nbytes_of = (nfa_walk, nfa_walk_plain, nfa_match,
+                                         _walk_bytes)
+    else:
+        walk, plain, match, nbytes_of = (join_walk, join_walk_plain,
+                                         join_match, _join_bytes)
     time_ms = timer(torch, device)
-    err = max(_flat_err(mk.flat_epilogue(a, o, K, cap),
-                        mk.flat_epilogue_plain(a, o, K, cap))
-              for a, o in walks)
-    _check(err == 0, f"flat_epilogue != plain on the served walks (max "
-           f"|diff| {err})")
+    err, walks, nbytes, ids = 0, [], [], []
+    for args in batches:
+        traffic: Dict[str, int] = {}
+        acc, aover = plain(*args, active_slots=A, traffic=traffic)
+        got = match(*args, active_slots=A, max_matches=K, flat_cap=cap)
+        err = max(err, _flat_err(got, _flat_epilogue(acc, aover, K, cap)))
+        walks.append((acc, aover))
+        nbytes.append(nbytes_of(traffic, depth, A))
+        ids.append(int(torch.clamp((acc >= 0).sum(1), max=K).sum()))
+    _check(err == 0, f"the flat {backend} match != plain on the served "
+           f"batches (max |diff| {err})")
+    n = len(batches)
     turn = [0]
 
-    def rotate():
+    def flat():
         turn[0] += 1
-        mk.flat_epilogue(*walks[turn[0] % len(walks)], K, cap)
+        match(*batches[turn[0] % n], active_slots=A, max_matches=K,
+              flat_cap=cap)
+
+    def raw():
+        turn[0] += 1
+        walk(*batches[turn[0] % n], active_slots=A)
 
     card = device.type == "cuda"
-    warm = time_ms(lambda: mk.flat_epilogue(*walks[0], K, cap), 200)
-    rot = time_ms(rotate, 20 * len(walks))
-    cold = time_ms(rotate, 4 * len(walks), before=flush)
+    warm = time_ms(lambda: match(*batches[0], active_slots=A, max_matches=K,
+                                 flat_cap=cap), 200)
+    turns = [time_ms(fn, 20 * n) for fn in (flat, raw, raw, flat)]
+    cold = time_ms(flat, 4 * n, before=flush)
+    flat_ms = (turns[0]["ms"] + turns[3]["ms"]) / 2
+    raw_ms = (turns[1]["ms"] + turns[2]["ms"]) / 2
 
     def plain_call():
-        mk.flat_epilogue_plain(*walks[0], K, cap)
+        _flat_epilogue(*plain(*batches[0], active_slots=A), K, cap)
 
-    plain_ev = time_ms(plain_call, 20)
-    pt = (time_ms(graph_replay(torch, plain_call), 20) if card
-          else {"ms": plain_ev["ms"], "covered": False})
-    flat_match = time_ms(match, 20 * len(walks))
-    _check(not card or all(x["covered"] for x in (warm, rot, cold, plain_ev,
-                                                  flat_match)),
-           "a flat epilogue time was not covered by the sleep")
-    acc = walks[0][0]
-    return {"B": int(acc.shape[0]), "C": int(acc.shape[1]), "K": K,
-            "flat_cap": cap, "distinct_batches": len(walks),
-            "ms": rot["ms"], "ms_cold": cold["ms"], "ms_warm": warm["ms"],
-            "call_ms": warm["call_ms"], "plain_ms": pt["ms"],
-            "plain_covered": pt["covered"],
+    def plain_epilogue():
+        flat_epilogue_plain(*walks[0], K, cap)
+
+    graph = graph_replay if card else (lambda _torch, fn: fn)
+    pt = time_ms(graph(torch, plain_call), 20)
+    pe = time_ms(graph(torch, plain_epilogue), 20)
+    _check(not card or all(x["covered"] for x in (warm, cold, *turns)),
+           "a flat match time was not covered by the sleep")
+    B = int(walks[0][0].shape[0])
+    C = accept_cols(depth, A)
+    return {"B": B, "C": C, "K": K, "flat_cap": cap, "distinct_batches": n,
+            "ms": flat_ms, "ms_cold": cold["ms"], "ms_warm": warm["ms"],
+            "call_ms": warm["call_ms"], "raw_walk_ms": raw_ms,
+            "k3_ms": flat_ms - raw_ms,
+            "turns_ms": [t["ms"] for t in turns],
+            "turns": "flat, raw, raw, flat",
+            "plain_ms": pt["ms"], "plain_epilogue_ms": pe["ms"],
+            "plain_covered": pt["covered"] and pe["covered"],
             "plain_timing": "cuda graph replay" if card else "host loop",
-            "plain_events_ms": plain_ev["ms"],
-            "plain_call_ms": plain_ev["call_ms"],
-            "flat_match_ms": flat_match["ms"],
-            "ids_per_batch": float(np.mean([
-                int(torch.clamp((a >= 0).sum(1), max=K).sum())
-                for a, _ in walks])),
-            **_flat_bound(acc, cap), "max_abs_err": err}
+            "ids_per_batch": float(np.mean(ids)),
+            **_flat_bound(float(np.mean(nbytes)), B, C, cap),
+            "max_abs_err": err}
 
 
 def phase_times(torch, device, s: Dict, card: str, backend: str = "hash",
@@ -5270,7 +5383,6 @@ def phase_times(torch, device, s: Dict, card: str, backend: str = "hash",
     """Kernel and serve readings of the service ``s["svc"]`` on
     ``backend``; emits line ``name`` (``times`` / ``times_join`` by
     default)."""
-    from emqx_tpu_torch.ops import join_match, nfa_match
     from emqx_tpu_torch.ops.walk_kernel import (
         join_walk, join_walk_plain, nfa_walk, nfa_walk_plain)
 
@@ -5281,25 +5393,16 @@ def phase_times(torch, device, s: Dict, card: str, backend: str = "hash",
     node, edge, seeds = svc.dev.arrays()
     if backend == "hash":
         walk, plain, nbytes_of = nfa_walk, nfa_walk_plain, _walk_bytes
-        match = nfa_match
         tables = (node, edge, seeds)
     else:
         walk, plain, nbytes_of = join_walk, join_walk_plain, _join_bytes
-        match = join_match
         tables = (node, *svc.dev._jarrs)
     A = svc.dev.active_slots
     K, cap = svc.dev.max_matches, svc.FLAT_MULT * BATCH
 
-    def flat_readings(batches):
-        walks = [walk(*args, active_slots=A) for args in batches]
-        turn = [0]
-
-        def flat_match():
-            turn[0] += 1
-            match(*batches[turn[0] % len(batches)], active_slots=A,
-                  max_matches=K, flat_cap=cap)
-
-        return _time_flat(torch, device, walks, flat_match, K, cap, flush)
+    def flat_readings(batches, depth):
+        return _time_flat(torch, device, batches, backend, A, K, cap, depth,
+                          flush)
     long_t = [t for t in topics if t.count("/") >= svc.short_depth]
     short_t = [t for t in topics if t.count("/") < svc.short_depth]
     # more than twice the card's 50 MB L2: writing it evicts the tables
@@ -5365,13 +5468,13 @@ def phase_times(torch, device, s: Dict, card: str, backend: str = "hash",
             "warm_bound_ms": nbytes[0] / HBM_BYTES_PER_S * 1e3,
             "traffic_mean": {k: float(np.mean([t[k] for t in traffics]))
                              for k in traffics[0]},
-            "max_abs_err": 0, "flat_epilogue": flat_readings(batches)})
+            "max_abs_err": 0, "flat": flat_readings(batches, depth)})
     flat_d8 = None
     if backend == "hash" and svc.depth > 8:
         # the exhook sidecar's shape: depth 8 (C = 190) at its defaults
         flat_d8 = flat_readings([
             (*_encoded(torch, svc.inc, long_t[i * BATCH:], 8, BATCH, device),
-             *tables) for i in range(min(4, len(long_t) // BATCH))])
+             *tables) for i in range(min(4, len(long_t) // BATCH))], 8)
     flush = None
     stages = _stage_breakdown(torch, device, svc, topics)
     n_batches = len(topics) // BATCH
@@ -5398,7 +5501,7 @@ def phase_times(torch, device, s: Dict, card: str, backend: str = "hash",
                        "p99_ms_less_gc": _pct(
                            [t * 1e3 - g for t, g in zip(lat, gc_ms)], 99)},
           "serve_stage_ms": stages, "serve_device": busy,
-          "flat_epilogue_d8": flat_d8,
+          "flat_d8": flat_d8,
           "table_bytes": svc.dev.table_bytes,
           "spill_share": s["spill_share"],
           "wall_s": time.perf_counter() - t_start})
@@ -5441,13 +5544,20 @@ def _stage_breakdown(torch, device, svc, topics) -> Dict[str, float]:
     return acc
 
 
-def _registers(name: str):
-    """Registers a thread of kernel ``name``, from its build's ``ptxas``
+def _registers(name: str, kernel: str = ""):
+    """Registers a thread of ``kernel`` (by default the first) in the
+    library of kernel source ``name``, from its build's ``ptxas``
     report; None if the report holds no count."""
     from emqx_tpu_torch.ops import cuda_build
 
-    found = re.search(r"Used (\d+) registers", cuda_build.ptxas_log(name))
-    return int(found.group(1)) if found else None
+    for entry in cuda_build.ptxas_log(name).split("Compiling entry")[1:]:
+        mangled = re.match(r"[^']*'([^']+)'", entry)
+        if kernel and not (mangled and f"{len(kernel)}{kernel}E"
+                           in mangled.group(1)):
+            continue
+        found = re.search(r"Used (\d+) registers", entry)
+        return int(found.group(1)) if found else None
+    return None
 
 
 def _kernel_entry(backend: str, launches: Dict[str, int], max_err: int,
@@ -5467,7 +5577,7 @@ def _kernel_entry(backend: str, launches: Dict[str, int], max_err: int,
         "replaces": replaces, "launches": launches["1m"],
         "launches_by_path": launches,
         "threads_per_block": threads, "lanes_per_row": lanes,
-        "registers": _registers(name),
+        "registers": _registers(name, f"{name}_kernel"),
         "max_abs_err": max(max_err, *(x["max_abs_err"]
                                       for x in shapes + shapes_10m)),
         "ms": main_shape["ms"], "ms_cold": main_shape["ms_cold"],
@@ -5504,34 +5614,40 @@ def _dense_entry(launches: Dict[str, int], check: Dict, shape: Dict) -> Dict:
 
 def _flat_entry(max_err: int, groups: Dict[str, List[Dict]],
                 flat_d8: Dict) -> Dict:
-    """The flat epilogue's entry of the kernels line: its launches on the
-    1M hash serve path (and every path's), its times and bound on the
-    hash walks of that path at (B = 2048, D = 16), the other shapes of
-    ``groups`` (D = 4; after the join walk; at 10M) and the sidecar's
-    D = 8 beside."""
-    from emqx_tpu_torch.ops.match_kernel import FLAT_TILE_ROWS
+    """The flat epilogue's entry of the kernels line: K3 fused into the
+    flat mode of both walk kernels, its launches (the flat-mode walk
+    launches) on the 1M hash serve path and every path's, the flat
+    match's times on that path's batches at (B = 2048, D = 16) with the
+    raw walk's and K3's own cost beside, its bound, the other shapes of
+    ``groups`` (D = 4; the join walk; at 10M) and the sidecar's D = 8."""
+    from emqx_tpu_torch.ops.walk_kernel import launch_shape
 
     name, source, replaces = FLAT_KERNEL
-    main = groups["1m_hash"][0]["flat_epilogue"]
-    keys = ("C", "ms", "ms_cold", "ms_warm", "plain_ms", "plain_events_ms",
-            "flat_match_ms", "bound_ms", "ids_per_batch")
+    main = groups["1m_hash"][0]["flat"]
+    threads, lanes = launch_shape(16)
+    keys = ("C", "ms", "ms_cold", "ms_warm", "raw_walk_ms", "k3_ms",
+            "plain_ms", "plain_epilogue_ms", "bound_ms", "k3_bound_ms",
+            "ids_per_batch")
     return {
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": FLAT_LAUNCHES["slice"],
+        "replaces": replaces, "fused_into": FLAT_FUSED_INTO,
+        "launches": FLAT_LAUNCHES["slice"],
         "launches_by_path": dict(FLAT_LAUNCHES),
-        "threads_per_block": 256, "rows_per_block": FLAT_TILE_ROWS,
-        "registers": _registers(name),
-        "max_abs_err": max(max_err, *(x["flat_epilogue"]["max_abs_err"]
+        "threads_per_block": threads, "rows_per_block": threads // lanes,
+        "registers": {"hash": _registers("nfa_walk", "nfa_walk_flat_kernel"),
+                      "join": _registers("nfa_join_walk",
+                                         "nfa_join_walk_flat_kernel")},
+        "max_abs_err": max(max_err, *(x["flat"]["max_abs_err"]
                                       for g in groups.values() for x in g)),
-        **{k: main[k] for k in ("ms", "ms_cold", "ms_warm", "plain_ms",
-                                "plain_covered", "plain_timing",
-                                "plain_events_ms", "bound_ms", "bound_by",
-                                "flat_match_ms")},
+        **{k: main[k] for k in ("ms", "ms_cold", "ms_warm", "raw_walk_ms",
+                                "k3_ms", "plain_ms", "plain_epilogue_ms",
+                                "plain_covered", "plain_timing", "bound_ms",
+                                "bound_by", "k3_bound_ms")},
         "library_ms": None,
         "shape": {k: main[k] for k in ("B", "C", "K", "flat_cap",
                                        "ids_per_batch")},
         "by_shape": {
-            f"{tag}_D{x['D']}": {k: x["flat_epilogue"][k] for k in keys}
+            f"{tag}_D{x['D']}": {k: x["flat"][k] for k in keys}
             for tag, group in groups.items() for x in group},
         "sidecar_D8": {k: flat_d8[k] for k in keys}}
 

@@ -4,8 +4,11 @@
 // kernel that runs the whole (D+1)-step walk with the literal edge found
 // in a sorted relation (join_match._join_edge_lookup) instead of a cuckoo
 // table.  It serves both `join` and `join-pallas`.  The walk and the
-// output layout are nfa::walk_rows (walk_common.cuh), shared with
-// nfa_walk.cu; this file holds the lookup of a valid state s on word w:
+// output layouts are nfa::walk_rows (walk_common.cuh), shared with
+// nfa_walk.cu: nfa_join_walk_kernel writes the raw accept slots,
+// nfa_join_walk_flat_kernel the flat mode in the same launch (K3, the
+// reference's XLA `match_kernel.flat_epilogue`, fused).  This file holds
+// the lookup of a valid state s on word w:
 //
 //   1. the CSR bounds lo = state_start[s], hi0 = state_start[s+1];
 //   2. a lower bound of w over edge_word[lo, hi0); a hit
@@ -109,6 +112,23 @@ struct JoinLookup {
   }
 };
 
+// Stages the overlay's JOIN_OVERLAY_CAP rows into shared memory; returns
+// its live rows.  Every thread of the block calls it.
+__device__ __forceinline__ int stage_overlay(const int* __restrict__ overlay,
+                                             int* o_state, int* o_word,
+                                             int* o_next) {
+  int n_live = 0;
+  for (int i0 = 0; i0 < JOIN_OVERLAY_CAP; i0 += NFA_THREADS) {
+    const int i = i0 + threadIdx.x;
+    const int st = __ldg(overlay + 3 * i);
+    o_state[i] = st;
+    o_word[i] = __ldg(overlay + 3 * i + 1);
+    o_next[i] = __ldg(overlay + 3 * i + 2);
+    n_live += __syncthreads_count(st != INT32_MAX);
+  }
+  return n_live;
+}
+
 __global__ void __launch_bounds__(NFA_THREADS)
 nfa_join_walk_kernel(const int* __restrict__ words,
                      const int* __restrict__ lens,
@@ -123,19 +143,39 @@ nfa_join_walk_kernel(const int* __restrict__ words,
   __shared__ int o_word[JOIN_OVERLAY_CAP];
   __shared__ int o_next[JOIN_OVERLAY_CAP];
   __shared__ int scratch[NFA_THREADS];
-  int n_live = 0;
-  for (int i0 = 0; i0 < JOIN_OVERLAY_CAP; i0 += NFA_THREADS) {
-    const int i = i0 + threadIdx.x;
-    const int st = __ldg(overlay + 3 * i);
-    o_state[i] = st;
-    o_word[i] = __ldg(overlay + 3 * i + 1);
-    o_next[i] = __ldg(overlay + 3 * i + 2);
-    n_live += __syncthreads_count(st != INT32_MAX);
-  }
+  const int n_live = stage_overlay(overlay, o_state, o_word, o_next);
   const JoinLookup lookup{state_start, edge_word, edge_next, o_state,
                           o_word,      o_next,    n_live};
-  nfa::walk_rows(words, lens, is_sys, node_tab, B, D, A, C, acc, aover,
-                 scratch, lookup);
+  nfa::RawOut out{acc, aover, C};
+  nfa::walk_rows(words, lens, is_sys, node_tab, B, D, A, blockIdx.x,
+                 scratch, lookup, out);
+}
+
+__global__ void __launch_bounds__(NFA_THREADS)
+nfa_join_walk_flat_kernel(const int* __restrict__ words,
+                          const int* __restrict__ lens,
+                          const uint8_t* __restrict__ is_sys,
+                          const int4* __restrict__ node_tab,
+                          const int* __restrict__ state_start,
+                          const int* __restrict__ edge_word,
+                          const int* __restrict__ edge_next,
+                          const int* __restrict__ overlay, int B, int D,
+                          int A, nfa::FlatArgs fa) {
+  __shared__ int o_state[JOIN_OVERLAY_CAP];
+  __shared__ int o_word[JOIN_OVERLAY_CAP];
+  __shared__ int o_next[JOIN_OVERLAY_CAP];
+  __shared__ int scratch[NFA_THREADS];
+  __shared__ nfa::FlatShared sh;
+  extern __shared__ int flat_list[];
+  const int tile = nfa::flat_ticket(fa, sh);
+  const int n_live = stage_overlay(overlay, o_state, o_word, o_next);
+  const JoinLookup lookup{state_start, edge_word, edge_next, o_state,
+                          o_word,      o_next,    n_live};
+  nfa::FlatOut out{fa.K, flat_list + (size_t)(threadIdx.x /
+                                              nfa::lanes_per_row(A)) * fa.K};
+  nfa::walk_rows(words, lens, is_sys, node_tab, B, D, A, tile, scratch,
+                 lookup, out);
+  nfa::flat_finish(fa, sh, tile, B, A, out);
 }
 
 }  // namespace
@@ -156,5 +196,33 @@ extern "C" int nfa_join_walk_launch(
                          (cudaStream_t)stream>>>(
       words, lens, is_sys, reinterpret_cast<const int4*>(node_tab),
       state_start, edge_word, edge_next, overlay, B, D, A, C, acc, aover);
+  return (int)cudaGetLastError();
+}
+
+// The flat mode: the walk's operands as above, then K, cap, the outputs
+// and the stream's state as in nfa_walk.cu's nfa_walk_flat_launch.
+extern "C" int nfa_join_walk_flat_launch(
+    const int* words, const int* lens, const uint8_t* is_sys,
+    const int* node_tab, const int* state_start, const int* edge_word,
+    const int* edge_next, const int* overlay, int B, int D, int A, int S,
+    int E, int K, int cap, int* matches, int* nout, int* aover, int* mover,
+    int* row_meta, unsigned long long* state, unsigned ticket_base,
+    unsigned epoch, void* stream) {
+  if (B <= 0 || D <= 0 || A < 1 || A > NFA_MAX_A || S <= 0 || E <= 0 ||
+      K < 0 || cap <= 0 || (long long)B * K > (long long)NFA_TILE_VALUE)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = nfa::flat_list_bytes(A, K);
+  const int e = nfa::flat_smem_optin(
+      nfa_join_walk_flat_kernel, smem,
+      sizeof(int) * (3 * JOIN_OVERLAY_CAP + NFA_THREADS) +
+          sizeof(nfa::FlatShared));
+  if (e != 0) return e;
+  const nfa::FlatArgs fa{K,         cap,      matches, nout,
+                         aover,     mover,    row_meta, state,
+                         ticket_base, epoch};
+  nfa_join_walk_flat_kernel<<<nfa::walk_blocks(B, A), NFA_THREADS, smem,
+                              (cudaStream_t)stream>>>(
+      words, lens, is_sys, reinterpret_cast<const int4*>(node_tab),
+      state_start, edge_word, edge_next, overlay, B, D, A, fa);
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,8 @@ search over a relation sorted by (state, word):
 :func:`join_match` runs the walk
 (:func:`~emqx_tpu_torch.ops.walk_kernel.join_walk`: the hand-written CUDA
 kernel on the card, its plain version on the CPU) and the shared output
-epilogue.  :class:`JoinRelation` is the host side: it builds the
+epilogue, or, in flat mode on the card, the walk's flat kernel in one
+launch.  :class:`JoinRelation` is the host side: it builds the
 relation from the cuckoo table, and diffs each drained bucket delta
 against a shadow copy of that table into the few writes the device copy
 needs (tombstones and revivals on ``edge_next``, a re-sorted overlay),
@@ -44,7 +45,7 @@ import torch
 
 from .compiler import BUCKET_SLOTS
 from .match_kernel import MatchResult, epilogue
-from .walk_kernel import OVERLAY_CAP, join_walk
+from .walk_kernel import OVERLAY_CAP, _on_card, join_walk, join_walk_flat
 
 log = logging.getLogger(__name__)
 
@@ -95,7 +96,14 @@ def join_match(words, lens, is_sys, node_tab, state_start, edge_word,
     """The join walk over one encoded batch, then the flat
     (``flat_cap`` > 0), compact or raw epilogue: the same outputs as
     :func:`~emqx_tpu_torch.ops.match_kernel.nfa_match` on the same
-    edges."""
+    edges.  Flat mode on CUDA tensors is one launch of the join walk
+    with the epilogue fused
+    (:func:`~emqx_tpu_torch.ops.walk_kernel.join_walk_flat`)."""
+    if flat_cap and _on_card("join_match", words):
+        return MatchResult(*join_walk_flat(
+            words, lens, is_sys, node_tab, state_start, edge_word,
+            edge_next, overlay, active_slots=active_slots,
+            max_matches=max_matches, flat_cap=flat_cap))
     acc, aover = join_walk(words, lens, is_sys, node_tab, state_start,
                            edge_word, edge_next, overlay,
                            active_slots=active_slots)

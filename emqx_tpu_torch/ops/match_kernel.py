@@ -15,10 +15,14 @@ shares, picks one of three outputs:
   whose segment runs past ``flat_cap`` is truncated and flagged.
 
 Raw and compact are PyTorch ops.  Flat (K3, the reference's XLA
-``flat_epilogue``) is :func:`flat_epilogue`: on CUDA tensors it launches
-``csrc/flat_epilogue.cu`` (two launches, nothing between them in device
-memory beside one int a tile), on CPU tensors it runs
-:func:`flat_epilogue_plain`, the same function as PyTorch ops.
+``flat_epilogue``) is fused into the walk on the card: on CUDA tensors
+with ``flat_cap`` > 0, :func:`nfa_match` (and ``join_match``) make one
+launch of the walk kernel's flat mode
+(:func:`~emqx_tpu_torch.ops.walk_kernel.nfa_walk_flat`), which writes
+the five ``MatchResult`` fields and never the raw accept plane.  On CPU
+tensors the walk's plain version runs and :func:`epilogue` takes its
+accept slots through :func:`flat_epilogue_plain`, the same function as
+PyTorch ops.
 
 Everything is int32 and matches the reference bit for bit.
 
@@ -39,20 +43,18 @@ reference's).
 
 from __future__ import annotations
 
-import ctypes
 from typing import List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from . import cuda_build
 from .compiler import NfaTable, encode_topics
-from .walk_kernel import nfa_walk
+from .walk_kernel import _on_card, nfa_walk, nfa_walk_flat
 
 __all__ = ["MatchResult", "SERVE_FLAT_MULT", "ROW_META_COUNT_MASK",
            "ROW_META_SPILL_SHIFT", "decode_flat", "decode_row_meta",
            "epilogue", "fetch_flat_prefix", "fetch_flat_ragged",
-           "flat_epilogue", "flat_epilogue_plain", "match_topics",
+           "flat_epilogue_plain", "match_topics",
            "nfa_match", "ragged_capacity"]
 
 #: serving flat-output capacity per padded batch row (ids per topic)
@@ -63,22 +65,6 @@ SERVE_FLAT_MULT = 8
 #: overflow)
 ROW_META_COUNT_MASK = 0xFFFF
 ROW_META_SPILL_SHIFT = 16
-
-#: launches of the flat-epilogue kernel since the count was last reset
-#: (set it to 0 to reset)
-flat_launches = 0
-
-#: rows of one tile of the flat-epilogue kernel (``EPI_ROWS`` of
-#: ``csrc/flat_epilogue.cu``): the wrapper's scratch holds one int a tile
-FLAT_TILE_ROWS = 8
-
-#: C entry point of the flat-epilogue kernel and its ctypes arguments: 2
-#: operand pointers, 4 ints (B, C, K, flat_cap), 4 output pointers, the
-#: scratch pointer and the stream
-FLAT_ENTRY = ("flat_epilogue_launch", [ctypes.c_void_p] * 2
-              + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6)
-_flat_entry_fn = None
-
 
 class MatchResult(NamedTuple):
     matches: torch.Tensor      # (B, K) int32, valids first, -1 pad; flat
@@ -175,61 +161,8 @@ def flat_epilogue_plain(acc, aover, max_matches: int, flat_cap: int):
     return matches, n, mover, row_meta
 
 
-def _flat_entry():
-    """The bound C entry point of ``csrc/flat_epilogue.cu``, built at
-    first use."""
-    global _flat_entry_fn
-    if _flat_entry_fn is None:
-        sym, argtypes = FLAT_ENTRY
-        fn = getattr(cuda_build.load("flat_epilogue"), sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _flat_entry_fn = fn
-    return _flat_entry_fn
-
-
-def flat_epilogue(acc, aover, max_matches: int, flat_cap: int):
-    """The flat output of raw accept slots ``acc (B, C)`` and spills
-    ``aover (B,)``: ``(matches (flat_cap,), n, mover, row_meta)``, as
-    :func:`flat_epilogue_plain` computes them.  CPU tensors run
-    :func:`flat_epilogue_plain`; CUDA tensors launch
-    ``csrc/flat_epilogue.cu`` on the current stream (outputs and one
-    int of scratch a tile allocated here) or raise."""
-    dev = acc.device
-    if dev.type == "cpu":
-        return flat_epilogue_plain(acc, aover, max_matches, flat_cap)
-    if dev.type != "cuda":
-        raise ValueError(f"flat_epilogue runs on cuda or cpu, not {dev}")
-    K, cap = int(max_matches), int(flat_cap)
-    if acc.dtype != torch.int32 or acc.dim() != 2 or not acc.is_contiguous():
-        raise ValueError("acc must be a contiguous 2-d int32 tensor")
-    B, C = acc.shape
-    if (aover.device != dev or aover.dtype != torch.int32
-            or tuple(aover.shape) != (B,) or not aover.is_contiguous()):
-        raise ValueError(f"aover must be a contiguous ({B},) int32 tensor "
-                         f"on {dev}")
-    if K < 0 or cap <= 0:
-        raise ValueError(f"max_matches {K} < 0 or flat_cap {cap} <= 0")
-    matches = torch.empty((cap,), dtype=torch.int32, device=dev)
-    n, mover, row_meta = (torch.empty((B,), dtype=torch.int32, device=dev)
-                          for _ in range(3))
-    tile_nk = torch.empty((max(1, -(-B // FLAT_TILE_ROWS)),),
-                          dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _flat_entry()(acc.data_ptr(), aover.data_ptr(), B, C, K, cap,
-                           matches.data_ptr(), n.data_ptr(),
-                           mover.data_ptr(), row_meta.data_ptr(),
-                           tile_nk.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"flat_epilogue launch failed: cudaError {rc}")
-    global flat_launches
-    flat_launches += 1
-    return matches, n, mover, row_meta
-
-
 def random_accepts(seed: int, B: int, C: int):
-    """Seeded raw accept slots for the flat epilogue's checks: ``(acc
+    """Seeded raw accept slots for the flat epilogue's plain checks: ``(acc
     (B, C), aover (B,))`` int32 numpy, rows of every density (empty,
     sparse, a fifth, half and all valid; ids in [0, 2**20)) and spills
     on about a quarter of the rows."""
@@ -244,13 +177,20 @@ def random_accepts(seed: int, B: int, C: int):
 def epilogue(acc, aover, max_matches: int, compact_output: bool,
              flat_cap: int) -> MatchResult:
     """The output of a walk's raw accept slots ``acc`` and spills
-    ``aover``: flat when ``flat_cap`` > 0 (:func:`flat_epilogue`, the
-    kernel on the card), else compact or raw.  Shared by every walk
-    backend."""
+    ``aover``: flat when ``flat_cap`` > 0, else compact or raw.  Shared
+    by every walk backend.  Flat mode here is :func:`flat_epilogue_plain`
+    on CPU tensors only: on the card it is fused into the walk, and a
+    flat call on CUDA accept slots raises."""
     K = max_matches
     row_meta = None
     if flat_cap:
-        matches, n, mover, row_meta = flat_epilogue(acc, aover, K, flat_cap)
+        if _on_card("epilogue", acc):
+            raise ValueError(
+                "a flat match on the card is one fused walk launch "
+                "(nfa_match / join_match with flat_cap); there is no "
+                "epilogue over raw accept slots on cuda")
+        matches, n, mover, row_meta = flat_epilogue_plain(acc, aover, K,
+                                                          flat_cap)
     else:
         n = (acc >= 0).sum(dim=1, dtype=torch.int32)
         if compact_output:
@@ -267,7 +207,14 @@ def nfa_match(words, lens, is_sys, node_tab, edge_tab, seeds, *,
               active_slots: int = 16, max_matches: int = 32,
               compact_output: bool = True, flat_cap: int = 0) -> MatchResult:
     """The hash walk over one encoded batch, then the flat
-    (``flat_cap`` > 0), compact or raw epilogue."""
+    (``flat_cap`` > 0), compact or raw epilogue.  Flat mode on CUDA
+    tensors is one launch of the walk with the epilogue fused
+    (:func:`~emqx_tpu_torch.ops.walk_kernel.nfa_walk_flat`)."""
+    if flat_cap and _on_card("nfa_match", words):
+        return MatchResult(*nfa_walk_flat(
+            words, lens, is_sys, node_tab, edge_tab, seeds,
+            active_slots=active_slots, max_matches=max_matches,
+            flat_cap=flat_cap))
     acc, aover = nfa_walk(words, lens, is_sys, node_tab, edge_tab, seeds,
                           active_slots=active_slots)
     return epilogue(acc, aover, max_matches, compact_output, flat_cap)

@@ -23,12 +23,23 @@ frontier width starts at 1 and doubles each step up to A; step t writes
 exceeds A the next frontier is the A largest candidate states in
 descending order (``top_k``).  Both kernels walk a row with one lane
 per frontier slot (:func:`launch_shape`).
+
+:func:`nfa_walk_flat` and :func:`join_walk_flat` are the flat mode of
+``nfa_match`` / ``join_match`` (``flat_cap`` > 0) in one launch: the same
+walks with the reference's flat epilogue (K3, the XLA function
+``match_kernel.flat_epilogue`` with ``_compact``) fused in, each row's
+ids placed by a single-pass scan with a decoupled look-back
+(``csrc/walk_common.cuh``).  Their plain version is the plain walk and
+``match_kernel.flat_epilogue_plain``.  The look-back's state words live
+in a :class:`FlatScratch` of the launch's stream.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import re
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -36,8 +47,11 @@ import torch
 from .compiler import BUCKET_SLOTS
 from . import cuda_build
 
-__all__ = ["accept_cols", "join_walk", "join_walk_plain", "launch_shape",
-           "nfa_walk", "nfa_walk_plain", "MAX_ACTIVE_SLOTS", "OVERLAY_CAP"]
+__all__ = ["FlatScratch", "accept_cols", "flat_smem_bytes", "join_walk",
+           "join_walk_flat", "join_walk_flat_plain", "join_walk_plain",
+           "launch_shape", "nfa_walk", "nfa_walk_flat",
+           "nfa_walk_flat_plain", "nfa_walk_plain", "MAX_ACTIVE_SLOTS",
+           "OVERLAY_CAP"]
 
 #: widest frontier the CUDA kernels take (one warp's lanes a row)
 MAX_ACTIVE_SLOTS = 32
@@ -49,6 +63,11 @@ launches = 0
 #: launches of the join-walk kernel, counted the same way
 join_launches = 0
 
+#: flat-mode launches of either walk kernel (the flat epilogue, K3, fused
+#: in), counted the same way; each also counts in ``launches`` or
+#: ``join_launches``
+flat_launches = 0
+
 #: rows of the join relation's sorted overlay, which the join kernel
 #: stages in shared memory; the walk searches them per slot, so the
 #: size rides every dispatch (log2 steps)
@@ -58,13 +77,17 @@ _U32 = 0xFFFFFFFF
 _entries: Dict[str, object] = {}
 
 
+@functools.lru_cache(maxsize=None)
+def _block_threads() -> int:
+    header = (cuda_build.CSRC / "walk_common.cuh").read_text()
+    return int(re.search(r"#define NFA_THREADS (\d+)", header).group(1))
+
+
 def launch_shape(active_slots: int) -> Tuple[int, int]:
     """``(threads per block, lanes per row)`` of both walk kernels: the
-    block size ``NFA_THREADS`` of ``csrc/walk_common.cuh`` and the
-    smallest power of two >= A, one lane per frontier slot."""
-    header = (cuda_build.CSRC / "walk_common.cuh").read_text()
-    threads = int(re.search(r"#define NFA_THREADS (\d+)", header).group(1))
-    return threads, 1 << (active_slots - 1).bit_length()
+    block size ``NFA_THREADS`` of ``csrc/walk_common.cuh`` (read once)
+    and the smallest power of two >= A, one lane per frontier slot."""
+    return _block_threads(), 1 << (active_slots - 1).bit_length()
 
 
 def accept_cols(depth: int, active_slots: int) -> int:
@@ -264,23 +287,35 @@ def join_walk_plain(words, lens, is_sys, node_tab, state_start, edge_word,
 
 # -- the kernels ------------------------------------------------------------
 
-#: C entry point of each kernel and its ctypes arguments: 6 or 8 operand
-#: pointers, the int shape arguments, the two output pointers and the
-#: stream
+#: C entry point of each kernel: its library (a ``cuda_build.SOURCES``
+#: name), its symbol and ctypes arguments: the operand pointers (6 hash,
+#: 8 join), the int shape arguments, then the raw mode's two output
+#: pointers, or flat mode's K and flat_cap, five output pointers, the
+#: state pointer and two unsigned ints (ticket base, epoch); the stream
 _ENTRY = {
-    "nfa_walk": ("nfa_walk_launch", [ctypes.c_void_p] * 6
+    "nfa_walk": ("nfa_walk", "nfa_walk_launch", [ctypes.c_void_p] * 6
                  + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3),
-    "nfa_join_walk": ("nfa_join_walk_launch", [ctypes.c_void_p] * 8
-                      + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3),
+    "nfa_join_walk": ("nfa_join_walk", "nfa_join_walk_launch",
+                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p] * 3),
+    "nfa_walk_flat": ("nfa_walk", "nfa_walk_flat_launch",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p] * 6 + [ctypes.c_uint] * 2
+                      + [ctypes.c_void_p]),
+    "nfa_join_walk_flat": ("nfa_join_walk", "nfa_join_walk_flat_launch",
+                           [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p] * 6 + [ctypes.c_uint] * 2
+                           + [ctypes.c_void_p]),
 }
 
 
 def _entry(name: str):
-    """The bound C entry point of kernel ``name``, built at first use."""
+    """The bound C entry point ``name`` of ``_ENTRY``, built at first
+    use."""
     fn = _entries.get(name)
     if fn is None:
-        sym, argtypes = _ENTRY[name]
-        fn = getattr(cuda_build.load(name), sym)
+        lib, sym, argtypes = _ENTRY[name]
+        fn = getattr(cuda_build.load(lib), sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _entries[name] = fn
@@ -429,3 +464,194 @@ def join_walk(words, lens, is_sys, node_tab, state_start, edge_word,
     global join_launches
     join_launches += 1
     return acc, aover
+
+
+# -- flat mode: the walk with the flat epilogue (K3) fused ------------------
+
+#: shared memory an H100 block may opt in to (bytes); flat mode's row
+#: lists and the kernels' static arrays must fit
+MAX_SHARED_BYTES = 232448
+
+#: the largest B * K a flat launch takes: a tile's state word keeps a sum
+#: of ids in 30 bits (``NFA_TILE_VALUE`` of ``csrc/walk_common.cuh``)
+FLAT_MAX_IDS = (1 << 30) - 1
+
+
+def flat_smem_bytes(active_slots: int, max_matches: int) -> int:
+    """Dynamic shared memory of a flat launch: a list of K ints for each
+    of a block's rows (``flat_list_bytes`` of ``csrc/walk_common.cuh``)."""
+    threads, lanes = launch_shape(active_slots)
+    return (threads // lanes) * max_matches * 4
+
+
+class FlatScratch:
+    """The look-back's state of the flat launches on one stream: an int64
+    buffer whose word 0 is the kernels' ticket counter and word 1 + t the
+    state of tile t, with the counter's value and the epoch that the next
+    launch gets.  The buffer is zeroed once, when it is made or grown (a
+    fill on the stream, ordered before every launch that uses it); a
+    launch then needs no memset, since its tiles read only words of its
+    own epoch.  A launch takes :meth:`reserve` and, once launched,
+    :meth:`commit` under :attr:`lock`, so launches on one stream from
+    several threads see the tickets in their launch order."""
+
+    def __init__(self, device) -> None:
+        self.device = torch.device(device)
+        self.lock = threading.Lock()
+        self.state: Optional[torch.Tensor] = None
+        self.epoch = 0
+        self.tickets = 0
+
+    def reserve(self, tiles: int) -> Tuple[torch.Tensor, int, int]:
+        """``(state, ticket base, epoch)`` of a launch of ``tiles``
+        blocks; makes or grows the buffer (zeroed) where it is too small
+        or the epochs have run out."""
+        if (self.state is None or self.state.numel() < 1 + tiles
+                or self.epoch == 0xFFFFFFFF):
+            size = max(1 + tiles, 0 if self.state is None
+                       else self.state.numel())
+            self.state = torch.zeros(size, dtype=torch.int64,
+                                     device=self.device)
+            self.epoch = 0
+            self.tickets = 0
+        return self.state, self.tickets, self.epoch + 1
+
+    def commit(self, tiles: int) -> None:
+        """A launch of ``tiles`` blocks went out with the last
+        :meth:`reserve`."""
+        self.epoch += 1
+        self.tickets = (self.tickets + tiles) & 0xFFFFFFFF
+
+
+_scratch: Dict[Tuple[int, int], FlatScratch] = {}
+_scratch_lock = threading.Lock()
+
+
+def flat_scratch(device, stream: int) -> FlatScratch:
+    """The :class:`FlatScratch` of CUDA ``stream`` (a ``cudaStream_t``)
+    on ``device``: launches on two streams never share one."""
+    key = (torch.device(device).index, int(stream))
+    with _scratch_lock:
+        sc = _scratch.get(key)
+        if sc is None:
+            sc = _scratch[key] = FlatScratch(device)
+        return sc
+
+
+def _flat_plain(walk_plain, args, A: int, K: int, cap: int):
+    from .match_kernel import flat_epilogue_plain
+
+    acc, aover = walk_plain(*args, active_slots=A)
+    matches, n, mover, row_meta = flat_epilogue_plain(acc, aover, K, cap)
+    return matches, n, aover, mover, row_meta
+
+
+def nfa_walk_flat_plain(words, lens, is_sys, node_tab, edge_tab, seeds, *,
+                        active_slots: int, max_matches: int, flat_cap: int):
+    """The plain version of :func:`nfa_walk_flat`, on any device:
+    :func:`nfa_walk_plain` and ``match_kernel.flat_epilogue_plain``."""
+    return _flat_plain(nfa_walk_plain, (words, lens, is_sys, node_tab,
+                                        edge_tab, seeds),
+                       active_slots, int(max_matches), int(flat_cap))
+
+
+def join_walk_flat_plain(words, lens, is_sys, node_tab, state_start,
+                         edge_word, edge_next, overlay, *, active_slots: int,
+                         max_matches: int, flat_cap: int):
+    """The plain version of :func:`join_walk_flat`, on any device:
+    :func:`join_walk_plain` and ``match_kernel.flat_epilogue_plain``."""
+    return _flat_plain(join_walk_plain, (words, lens, is_sys, node_tab,
+                                         state_start, edge_word, edge_next,
+                                         overlay),
+                       active_slots, int(max_matches), int(flat_cap))
+
+
+def _flat_launch(name: str, words, operands, ints, A: int, K: int,
+                 cap: int):
+    """One flat launch of entry ``name``: the five outputs allocated
+    here, the stream's scratch taken under its lock."""
+    B = words.shape[0]
+    dev = words.device
+    if K < 0 or cap <= 0:
+        raise ValueError(f"max_matches {K} < 0 or flat_cap {cap} <= 0")
+    if B * K > FLAT_MAX_IDS:
+        raise ValueError(f"flat mode takes B * K <= {FLAT_MAX_IDS}, got "
+                         f"{B} * {K}")
+    threads, lanes = launch_shape(A)
+    smem = flat_smem_bytes(A, K)
+    # beside the walk's static arrays (the join's overlay the largest)
+    if smem + (3 * OVERLAY_CAP + 2 * threads + 3) * 4 > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"flat mode at active_slots={A}, max_matches={K} needs {smem} "
+            f"bytes of shared memory a block for its row lists; a block may "
+            f"have at most {MAX_SHARED_BYTES} with the walk's own")
+    matches = torch.empty((cap,), dtype=torch.int32, device=dev)
+    n, aover, mover, row_meta = (torch.empty((B,), dtype=torch.int32,
+                                             device=dev) for _ in range(4))
+    if B == 0:
+        return matches.fill_(-1), n, aover, mover, row_meta
+    tiles = -(-B // (threads // lanes))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        sc = flat_scratch(dev, stream)
+        with sc.lock:
+            state, base, epoch = sc.reserve(tiles)
+            rc = _entry(name)(
+                *(t.data_ptr() for t in operands), *ints, K, cap,
+                matches.data_ptr(), n.data_ptr(), aover.data_ptr(),
+                mover.data_ptr(), row_meta.data_ptr(), state.data_ptr(),
+                base, epoch, stream)
+            if rc == 0:
+                sc.commit(tiles)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    global flat_launches
+    flat_launches += 1
+    return matches, n, aover, mover, row_meta
+
+
+def nfa_walk_flat(words, lens, is_sys, node_tab, edge_tab, seeds, *,
+                  active_slots: int, max_matches: int, flat_cap: int):
+    """The flat mode of the hash walk: ``(matches (flat_cap,), n, aover,
+    mover, row_meta)``, the fields of ``nfa_match(flat_cap=...)``'s
+    ``MatchResult`` in order.  CPU tensors run
+    :func:`nfa_walk_flat_plain`; CUDA tensors make one launch of
+    ``csrc/nfa_walk.cu``'s flat kernel on the current stream (outputs
+    allocated here; B = 0 launches nothing and gives a -1 buffer) or
+    raise."""
+    A, K, cap = active_slots, int(max_matches), int(flat_cap)
+    args = (words, lens, is_sys, node_tab, edge_tab, seeds)
+    if not _on_card("nfa_walk_flat", words):
+        return nfa_walk_flat_plain(*args, active_slots=A, max_matches=K,
+                                   flat_cap=cap)
+    _check(*args, A)
+    B, D = words.shape
+    out = _flat_launch("nfa_walk_flat", words, args,
+                       (B, D, A, int(edge_tab.shape[0])), A, K, cap)
+    if B:
+        global launches
+        launches += 1
+    return out
+
+
+def join_walk_flat(words, lens, is_sys, node_tab, state_start, edge_word,
+                   edge_next, overlay, *, active_slots: int,
+                   max_matches: int, flat_cap: int):
+    """The flat mode of the join walk, as :func:`nfa_walk_flat`: CPU
+    tensors run :func:`join_walk_flat_plain`; CUDA tensors make one
+    launch of ``csrc/nfa_join_walk.cu``'s flat kernel or raise."""
+    A, K, cap = active_slots, int(max_matches), int(flat_cap)
+    args = (words, lens, is_sys, node_tab, state_start, edge_word,
+            edge_next, overlay)
+    if not _on_card("join_walk_flat", words):
+        return join_walk_flat_plain(*args, active_slots=A, max_matches=K,
+                                    flat_cap=cap)
+    _check_join(*args, A)
+    B, D = words.shape
+    out = _flat_launch("nfa_join_walk_flat", words, args,
+                       (B, D, A, int(node_tab.shape[0]),
+                        int(edge_word.shape[0])), A, K, cap)
+    if B:
+        global join_launches
+        join_launches += 1
+    return out

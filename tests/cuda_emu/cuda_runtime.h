@@ -12,11 +12,18 @@
 // every thread of the block has arrived, and all of them leave in the
 // same round, so the warps' rounds line up again after it.  It checks the
 // kernels' logic (lane layout, shuffles, scans, ranks, searches, atomics
-// on shared words), not their speed or memory model.  A launch
+// on shared words, the flat mode's look-back over tile states), not their
+// speed or memory model.  Blocks run in order, so a look-back always
+// finds its predecessors published: one that would wait (a kernel's
+// __nanosleep) is a fault, which ends the launch and makes
+// cudaGetLastError() return cudaErrorLaunchFailure, with the reason in
+// emu_fault_message(), where spinning would hang the test.  A launch
 // `k<<<grid, block, smem, stream>>>(args)` is rewritten to
 // `emu_launch_smem(k, grid, block, smem, args)` by the test.
 #pragma once
 #include <ucontext.h>
+
+#define CUDA_EMU 1  // the sources' card-only helpers step aside
 
 #include <algorithm>
 #include <cstddef>
@@ -44,8 +51,20 @@ inline std::vector<unsigned> emu_dyn_smem;
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline int cudaGetLastError() { return 0; }
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorLaunchFailure = 719
+};
+// The fault that ended the last launch, or null.
+inline const char* emu_fault;
+inline int cudaGetLastError() {
+  const int e = emu_fault ? (int)cudaErrorLaunchFailure : 0;
+  return e;
+}
+extern "C" const char* emu_fault_message() {
+  return emu_fault ? emu_fault : "";
+}
 
 // The device queries of a launcher: a card of EMU_SMS multiprocessors, one
 // resident block each, with the H100's shared memory a block may opt in to.
@@ -77,6 +96,13 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
 template <class T>
 inline T __ldg(const T* p) {
   return *p;
+}
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+inline unsigned long long ld_relaxed(const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+inline void st_relaxed(unsigned long long* p, unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
@@ -139,6 +165,16 @@ inline unsigned __ballot_sync(unsigned mask, bool p) {
   });
 }
 
+// Whether `p` holds in every lane of the warp in `mask`.
+inline bool __all_sync(unsigned mask, bool p) {
+  return emu_exchange(p, [=](const int* posted, unsigned me) {
+           const int* warp = posted + (me & ~31u);
+           for (int i = 0; i < 32; ++i)
+             if ((mask >> i & 1u) && !warp[i]) return 0;
+           return 1;
+         }) != 0;
+}
+
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_yield(); }
 
 inline int emu_round;           // the scheduler's pass over the block
@@ -155,6 +191,22 @@ inline void __syncthreads() {
   do {
     emu_yield();
   } while (emu_barrier_gen == gen || emu_round < emu_release_round);
+}
+
+inline unsigned atomicAdd(unsigned* addr, unsigned v) {
+  const unsigned old = *addr;
+  *addr = old + v;
+  return old;
+}
+
+// A thread that would wait for another block: blocks run in order here,
+// so what it waits for never comes.  Ends the launch with a fault.
+inline void __nanosleep(unsigned) {
+  emu_fault =
+      "a look-back waited on a tile that has not published: blocks run "
+      "in order here, so a ticket ahead of its block's turn (or a tile "
+      "that never publishes) would wait forever";
+  for (;;) emu_yield();  // the scheduler does not resume a faulted launch
 }
 
 inline unsigned atomicOr(unsigned* addr, unsigned v) {
@@ -179,10 +231,11 @@ inline void emu_entry() {
 template <class Kernel, class... Args>
 void emu_launch(Kernel kernel, int grid, int block, Args... args) {
   emu_body = [=] { kernel(args...); };
+  emu_fault = nullptr;
   gridDim.x = grid;
   emu_threads = std::vector<EmuThread>(block);
   emu_posted.assign(block, 0);
-  for (int b = 0; b < grid; ++b) {
+  for (int b = 0; b < grid && !emu_fault; ++b) {
     blockIdx.x = b;
     for (auto& t : emu_threads) {
       t.stack.assign(1 << 16, 0);
@@ -194,8 +247,8 @@ void emu_launch(Kernel kernel, int grid, int block, Args... args) {
       makecontext(&t.ctx, emu_entry, 0);
     }
     emu_arrived = 0;
-    for (int live = block; live > 0; ++emu_round) {
-      for (int t = 0; t < block; ++t) {
+    for (int live = block; live > 0 && !emu_fault; ++emu_round) {
+      for (int t = 0; t < block && !emu_fault; ++t) {
         if (emu_threads[t].done) continue;
         threadIdx.x = t;
         swapcontext(&emu_scheduler, &emu_threads[t].ctx);

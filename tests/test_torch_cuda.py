@@ -1,5 +1,5 @@
-"""The port's CUDA walk kernels (hash and join) and the flat epilogue
-against their plain PyTorch versions, and the asyncio serve loop on them
+"""The port's CUDA walk kernels (hash and join, raw and flat mode: the
+flat epilogue fused in) against their plain PyTorch versions, and the asyncio serve loop on them
 (the fixed-window path, the overlapped pipeline with its two-phase
 readback, the deadline loop's dispatch timeout over a real hang, grow in
 place and a compaction swap); the dense walk against its plain version,
@@ -101,74 +101,142 @@ def test_flat_match_on_card_equals_cpu(table):
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
 
 
-#: (D, A) of the flat epilogue's cases: C = 446, 190, 62 and 18 columns
-FLAT_SHAPES = [(16, 16), (8, 16), (4, 16), (8, 1)]
+#: (D, A) of the flat cases: C = 446, 190, 62, 190 and 18 accept slots a
+#: row; A = 1 puts 128 rows in a block (64 KB of row lists at K = 128)
+FLAT_SHAPES = [(16, 16), (8, 16), (4, 16), (8, 32), (8, 1)]
+FIELDS = ("matches", "n_matches", "active_overflow", "match_overflow",
+          "row_meta")
 
 
 def _flat_caps(n, K: int, B: int):
-    """A roomy cap, one that ends inside a row's segment (whole rows and
-    part of a row dropped) and a cap of one id."""
+    """A roomy cap, one at every id, one that ends inside a row's segment
+    (that row cut, the later ones dropped) and a cap of one id."""
     nk = torch.clamp(n, max=K)
     offs = torch.cumsum(nk, 0) - nk
-    caps = [8 * max(B, 1), 1]
+    caps = [8 * max(B, 1), max(1, int(nk.sum())), 1]
     inside = torch.nonzero(nk >= 2).flatten()
     if len(inside):
         caps.append(int(offs[inside[len(inside) // 3]]) + 1)
     return caps
 
 
+def _flat_plain(backend, args, A, K, cap):
+    """The plain walk and ``flat_epilogue_plain`` on the same card
+    tensors: the five fields."""
+    plain = (walk_kernel.nfa_walk_flat_plain if backend == "hash"
+             else walk_kernel.join_walk_flat_plain)
+    return plain(*args, active_slots=A, max_matches=K, flat_cap=cap)
+
+
+def _flat_args(backend, table, join_table, depth, B):
+    if backend == "hash":
+        inc, topics = table
+        return _operands(inc, topics, depth, B), nfa_match
+    inc, jarrs, topics = join_table
+    return _join_operands(inc, jarrs, topics[::-1], depth, B), join_match
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [32, 64, 128])
+@pytest.mark.parametrize("K", [4, 128])
 @pytest.mark.parametrize("depth,A", FLAT_SHAPES)
-def test_flat_epilogue_kernel_equals_plain(depth, A, K):
-    """``flat_epilogue.cu`` against ``flat_epilogue_plain``, every output
-    bit for bit: rows past K, spills, caps that drop whole rows and part
-    of a row, all-empty batches, B = 1000 (no whole number of tiles) and
-    B = 0."""
-    _skip_without_card()
-    from emqx_tpu_torch.ops import match_kernel as mk
-    from emqx_tpu_torch.ops.walk_kernel import accept_cols
+@pytest.mark.parametrize("backend", ["hash", "join"])
+def test_flat_walk_kernel_equals_plain(table, join_table, backend, depth, A,
+                                       K):
+    """The flat mode of both walks (K3 fused) against the plain walk and
+    ``flat_epilogue_plain``, all five fields bit for bit: rows past K,
+    caps that cut a row and drop the later ones, the -1 tail, B = 2048,
+    1000 (no whole number of tiles), 1 and 0; one launch a call."""
+    for B in (2048, 1000, 1, 0):
+        args, match = _flat_args(backend, table, join_table, depth, B)
+        n = _flat_plain(backend, args, A, K, 1)[1]
+        for cap in _flat_caps(n, K, B):
+            before = walk_kernel.flat_launches
+            got = match(*args, active_slots=A, max_matches=K, flat_cap=cap)
+            assert walk_kernel.flat_launches == before + (B > 0)
+            want = _flat_plain(backend, args, A, K, cap)
+            for f, w in zip(FIELDS, want):
+                assert torch.equal(getattr(got, f), w), (f, B, cap)
 
-    C = accept_cols(depth, A)
-    mk.flat_launches = 0
-    calls = 0
-    for B in (2048, 1000, 0):
-        acc, aover = (torch.from_numpy(a) for a in mk.random_accepts(
-            depth * 1000 + A * 10 + K + B, B, C))
-        for a in (acc, torch.full_like(acc, -1)):
-            n = (a >= 0).sum(dim=1, dtype=torch.int32)
-            for cap in _flat_caps(n, K, B):
-                got = mk.flat_epilogue(a.cuda(), aover.cuda(), K, cap)
-                want = mk.flat_epilogue_plain(a, aover, K, cap)
-                calls += 1
-                for f, g, w in zip(("matches", "n", "mover", "row_meta"),
-                                   got, want):
-                    assert torch.equal(g.cpu(), w), (f, B, cap)
-    assert mk.flat_launches == calls
+
+def _wide_batch(table, B):
+    """``B`` topics of the table's, cycled: a grid of B / 8 blocks at
+    A = 16, wider than the card holds at once."""
+    inc, topics = table
+    return _operands(inc, (topics * (B // len(topics) + 1))[:B], 16, B)
 
 
 @pytest.mark.cuda
-def test_flat_match_launches_the_epilogue_kernel(table, join_table):
+def test_flat_walk_kernel_wide_grid_and_two_streams(table, join_table):
+    """B = 65,536 (8,192 blocks: later tiles' look-backs wait for tiles
+    that are still walking) on one stream while a 2048-topic join match
+    and a hash match run on a second, all at once; each equals its plain
+    version, and the two streams have their own look-back state."""
+    K, cap = 128, 8 * 65536
+    wide = _wide_batch(table, 65536)
+    jargs, _ = _flat_args("join", table, join_table, 16, 2048)
+    hargs, _ = _flat_args("hash", table, join_table, 4, 2048)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    got = {}
+    for rep in range(3):
+        with torch.cuda.stream(s1):
+            got["wide"] = nfa_match(*wide, active_slots=16, max_matches=K,
+                                    flat_cap=cap)
+        with torch.cuda.stream(s2):
+            got["join"] = join_match(*jargs, active_slots=16, max_matches=K,
+                                     flat_cap=8 * 2048)
+            got["hash"] = nfa_match(*hargs, active_slots=16, max_matches=K,
+                                    flat_cap=8 * 2048)
+        torch.cuda.synchronize()
+        for name, (backend, args, c) in {
+                "wide": ("hash", wide, cap),
+                "join": ("join", jargs, 8 * 2048),
+                "hash": ("hash", hargs, 8 * 2048)}.items():
+            want = _flat_plain(backend, args, 16, K, c)
+            for f, w in zip(FIELDS, want):
+                assert torch.equal(getattr(got[name], f), w), (rep, name, f)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    assert (walk_kernel.flat_scratch(dev, s1.cuda_stream)
+            is not walk_kernel.flat_scratch(dev, s2.cuda_stream))
+
+
+@pytest.mark.cuda
+def test_flat_match_is_one_launch(table, join_table):
     """On the card the flat mode of both walks (and ``DeviceNfa.match``)
-    runs the epilogue kernel, once a walk; compact and raw modes do
-    not."""
-    from emqx_tpu_torch.ops import match_kernel as mk
+    is one launch of the walk's flat kernel, counted in ``flat_launches``
+    and in the walk's own count, and no other kernel runs (a profiler
+    trace); compact and raw modes launch the raw walk."""
+    from torch.profiler import ProfilerActivity, profile
 
     inc, topics = table
     args = _operands(inc, topics, 16, 2048)
-    mk.flat_launches = 0
-    nfa_match(*args, active_slots=16, max_matches=128, flat_cap=8 * 2048)
+    kw = dict(active_slots=16, max_matches=128, flat_cap=8 * 2048)
+    nfa_match(*args, **kw)   # the stream's look-back state is made
+    torch.cuda.synchronize()
+    walk_kernel.flat_launches = walk_kernel.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        nfa_match(*args, **kw)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "flat" in kernels[0], kernels
+    assert (walk_kernel.flat_launches, walk_kernel.launches) == (1, 1)
     nfa_match(*args, active_slots=16, max_matches=128)
     nfa_match(*args, active_slots=16, compact_output=False)
-    assert mk.flat_launches == 1
+    assert (walk_kernel.flat_launches, walk_kernel.launches) == (1, 3)
     jinc, jarrs, jtopics = join_table
+    walk_kernel.join_launches = 0
     join_match(*_join_operands(jinc, jarrs, jtopics, 8, 512),
                active_slots=16, max_matches=128, flat_cap=8 * 512)
-    assert mk.flat_launches == 2
+    assert (walk_kernel.flat_launches, walk_kernel.join_launches) == (2, 1)
     dev = DeviceNfa(inc, device="cuda")
     enc = encode_batch(inc, topics[:256], batch=256, depth=16)
     dev.match(*dev.put_batch(*enc), flat_cap=8 * 256)
-    assert mk.flat_launches == 3
+    assert walk_kernel.flat_launches == 3
+    acc, aover = nfa_walk(*args, active_slots=16)
+    from emqx_tpu_torch.ops.match_kernel import epilogue
+    with pytest.raises(ValueError, match="one fused walk launch"):
+        epilogue(acc, aover, 128, True, 8 * 2048)
 
 
 @pytest.mark.cuda

@@ -16,11 +16,17 @@ dense walk (``dense_walk.cu``) is held to ``dense_match_plain`` on
 filters with rows past K, random tables with several parents a column
 (one too large to stage in shared memory), a state with 30 children
 under one label, frontiers of dozens of states, and batches that leave
-the last block partly filled.  The flat epilogue (``flat_epilogue.cu``)
-is held to ``flat_epilogue_plain`` at C of (D, A) = (16, 16), (8, 16),
-(4, 16) and (8, 1) with K 32, 64 and 128: rows past K, spills, a cap
-that drops whole rows and part of one, an all-empty batch, B = 101 (no
-whole number of tiles).  It says nothing of speed, and
+the last block partly filled.  The flat mode of both walk sources (the
+flat epilogue, K3, fused into the walk: per-row lists in shared memory,
+a block scan and a decoupled look-back over tile states) is held to the
+plain walk and ``flat_epilogue_plain`` on all five ``MatchResult``
+fields at (D, A) = (16, 16), (8, 16), (4, 16), (8, 32) and (8, 1) (row
+lists past 48 KB of shared memory): rows past K, a cap that cuts one
+row mid-way and drops the later ones, a cap past every id (the -1 tail),
+B = 1, B = 101 (no whole number of tiles, several tiles), ``$`` topics,
+one state buffer across launches (no memset between them).  A
+look-back that would wait for a tile that never publishes ends the
+launch with the stand-in's fault.  It says nothing of speed, and
 ``tests/test_torch_cuda.py`` remains the test on the card.  Skips where
 g++ is missing."""
 
@@ -42,19 +48,18 @@ from emqx_tpu_torch.ops.dense_match import (
     _LABEL_NONE, DenseTable, _layout, bench_dense_workload, build_dense,
     dense_match_plain, dense_table, random_dense, random_dense_batch)
 from emqx_tpu_torch.ops.dense_match import launch_shape as dense_launch_shape
-from emqx_tpu_torch.ops.match_kernel import (
-    FLAT_ENTRY, FLAT_TILE_ROWS, flat_epilogue_plain, random_accepts)
 from emqx_tpu_torch.ops.walk_kernel import (
-    _ENTRY, OVERLAY_CAP, _hash_plain, accept_cols, join_walk_plain,
-    launch_shape, nfa_walk_plain)
+    _ENTRY, OVERLAY_CAP, FlatScratch, _hash_plain, accept_cols,
+    join_walk_flat_plain, join_walk_plain, launch_shape, nfa_walk_flat_plain,
+    nfa_walk_plain)
 from emqx_tpu_torch.workload import build_workload
 
 SHIM = cuda_build.CSRC.parents[2] / "tests" / "cuda_emu"
 LAUNCH = re.compile(r"(\w+)<<<\s*(.*?),\s*(\w+),\s*(\w+),\s*"
                     r"\(cudaStream_t\)stream>>>\(", re.S)
 DYN_SMEM = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
-ENTRIES = {**_ENTRY, "dense_walk": dense_mod._ENTRY,
-           "flat_epilogue": FLAT_ENTRY}
+#: each C entry point: (library, symbol, ctypes arguments)
+ENTRIES = {**_ENTRY, "dense_walk": ("dense_walk", *dense_mod._ENTRY)}
 #: each level of w/a/b/c/d/e/f literal or '+': that topic's frontier
 #: doubles each level, so its walk spills at every A below 64
 FAN_FILTERS = ["w/" + "/".join("+" if m >> k & 1 else c
@@ -73,7 +78,8 @@ CASES = [(8, 1), (8, 2), (8, 3), (16, 12), (4, 16), (16, 16), (8, 32)]
 def emu_kernels(tmp_path_factory):
     """Every kernel source, launches and dynamic shared memory rewritten
     for the stand-in, built into shared libraries (one g++ each, started
-    together); returns the bound C entry points by kernel name."""
+    together); returns the bound C entry points by name, and each
+    library's ``emu_fault_message`` as ``fault.<library>``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
@@ -91,12 +97,16 @@ def emu_kernels(tmp_path_factory):
             [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-x", "c++",
              f"-I{SHIM}", f"-I{src}", "-o", str(out), str(src / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
+    libs, fns = {}, {}
     for name, (out, proc) in procs.items():
         log, _ = proc.communicate()
         assert proc.returncode == 0, log
-        sym, argtypes = ENTRIES[name]
-        fn = getattr(ctypes.CDLL(str(out)), sym)
+        libs[name] = ctypes.CDLL(str(out))
+        fault = libs[name].emu_fault_message
+        fault.restype = ctypes.c_char_p
+        fns[f"fault.{name}"] = fault
+    for name, (lib, sym, argtypes) in ENTRIES.items():
+        fn = getattr(libs[lib], sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -412,70 +422,160 @@ def test_dense_kernel_source_equals_plain_on_a_wide_frontier(emu_kernels, S,
     assert int(want.n_matches.sum()) > 0
 
 
-# -- the flat epilogue (K3) ---------------------------------------------------
+# -- flat mode: the flat epilogue (K3) fused into both walks -----------------
 
-#: (D, A) of the flat epilogue's cases: C = 446, 190, 62 and 18 columns
-FLAT_SHAPES = [(16, 16), (8, 16), (4, 16), (8, 1)]
-
-
-def _flat_emu(fn, acc, aover, K, cap):
-    """``flat_epilogue.cu`` through the stand-in: ``(matches, n, mover,
-    row_meta)``."""
-    rows, C = acc.shape
-    matches = torch.full((cap,), -7, dtype=torch.int32)
-    n, mover, meta = (torch.full((rows,), -7, dtype=torch.int32)
-                      for _ in range(3))
-    tiles = torch.full((max(1, -(-rows // FLAT_TILE_ROWS)),), -7,
-                       dtype=torch.int32)
-    rc = fn(acc.data_ptr(), aover.data_ptr(), rows, C, K, cap,
-            matches.data_ptr(), n.data_ptr(), mover.data_ptr(),
-            meta.data_ptr(), tiles.data_ptr(), None)
-    assert rc == 0
-    return matches, n, mover, meta
+FIELDS = ("matches", "n_matches", "active_overflow", "match_overflow",
+          "row_meta")
+#: (D, A) of the flat cases: C = 446, 190, 62 and 190 accept slots a row;
+#: 8, 8, 8 and 4 rows a block (13, 13, 13 and 26 tiles at B = 101)
+FLAT_SHAPES = [(16, 16), (8, 16), (4, 16), (8, 32)]
 
 
-def _flat_equal(fn, acc, aover, K, cap):
-    want = flat_epilogue_plain(acc, aover, K, cap)
-    for f, g, w in zip(("matches", "n", "mover", "row_meta"),
-                       _flat_emu(fn, acc, aover, K, cap), want):
-        assert torch.equal(g, w), f
-    return want
+def _flat_emu(emu, name, ops, ints, A, K, cap, scratch, base_shift=0):
+    """Flat entry ``name`` through the stand-in on ``ops``: the five
+    fields, or the stand-in's fault as an AssertionError.  The launch
+    takes ``scratch`` as the wrapper does (``base_shift`` moves the ticket
+    base it is given)."""
+    B = ops[0].shape[0]
+    outs = [torch.full((cap,), -7, dtype=torch.int32)] + [
+        torch.full((B,), -7, dtype=torch.int32) for _ in range(4)]
+    threads, lanes = launch_shape(A)
+    tiles = -(-B // (threads // lanes))
+    state, base, epoch = scratch.reserve(tiles)
+    rc = emu[name](*(t.data_ptr() for t in ops), *ints, K, cap,
+                   *(o.data_ptr() for o in outs), state.data_ptr(),
+                   (base + base_shift) & 0xFFFFFFFF, epoch, None)
+    lib = ENTRIES[name][0]
+    assert rc == 0, (rc, emu[f"fault.{lib}"]().decode())
+    scratch.commit(tiles)
+    return outs
 
 
-def test_flat_tile_rows_is_the_kernels():
-    """The wrapper sizes its scratch by the source's tile."""
-    src = (cuda_build.CSRC / "flat_epilogue.cu").read_text()
-    rows = int(re.search(r"#define EPI_ROWS (\d+)", src).group(1))
-    assert rows == FLAT_TILE_ROWS
+def _flat_inputs(table, backend, depth, rows):
+    """The entry name, operands and int arguments of a flat launch of the
+    ``table`` fixture's first ``rows`` topics, and its plain version."""
+    inc, dev, topics = table
+    enc = encode_batch(inc, topics[:rows], batch=rows, depth=depth)
+    batch = [torch.from_numpy(np.ascontiguousarray(a)) for a in enc]
+    if backend == "hash":
+        ops = batch + [torch.from_numpy(a) for a in (
+            inc.node_tab, inc.edge_tab, inc.seeds)]
+        return ("nfa_walk_flat", ops,
+                (rows, depth, None, inc.edge_tab.shape[0]),
+                nfa_walk_flat_plain)
+    ops = batch + [dev.arrays()[0], *dev._jarrs]
+    return ("nfa_join_walk_flat", ops,
+            (rows, depth, None, ops[3].shape[0], ops[5].shape[0]),
+            join_walk_flat_plain)
 
 
-@pytest.mark.parametrize("K", [32, 64, 128])
+def _flat_equal(emu, table, backend, depth, A, K, caps, rows=B,
+                scratch=None):
+    """The flat entry of ``backend`` against its plain version at each
+    cap of ``caps(n)`` (n the plain rows' counts), all five fields bit
+    for bit, on one state buffer; returns the plain results."""
+    name, ops, ints, plain = _flat_inputs(table, backend, depth, rows)
+    ints = tuple(A if x is None else x for x in ints)
+    scratch = scratch or FlatScratch("cpu")
+    roomy = plain(*ops, active_slots=A, max_matches=K, flat_cap=1)
+    wants = []
+    for cap in caps(roomy[1]):
+        got = _flat_emu(emu, name, ops, ints, A, K, cap, scratch)
+        want = plain(*ops, active_slots=A, max_matches=K, flat_cap=cap)
+        for f, g, w in zip(FIELDS, got, want):
+            assert torch.equal(g, w), (f, cap)
+        wants.append(want)
+    return wants
+
+
+def _caps(K):
+    """Caps of a batch whose rows count ``n``: past every id by 37 (the -1
+    tail starts off a 16 B boundary), exactly every id, one inside a row
+    of two or more ids (it cuts that row and drops the later ones), one
+    id."""
+    def caps(n):
+        nk = torch.clamp(n, max=K)
+        offs = torch.cumsum(nk, 0) - nk
+        total = int(nk.sum())
+        inside = torch.nonzero(nk >= 2).flatten()
+        return [total + 37, max(total, 1),
+                int(offs[inside[len(inside) // 3]]) + 1, 1]
+    return caps
+
+
 @pytest.mark.parametrize("depth,A", FLAT_SHAPES)
-def test_flat_epilogue_source_equals_plain(emu_kernels, depth, A, K):
-    """Every field bit for bit: rows past K (where C > K), rows with
-    spills, B = 101
-    (no whole number of tiles), a roomy cap, a cap that ends inside a
-    row's segment (whole rows and part of a row dropped), a cap of one
-    id, and an all-empty batch."""
-    fn = emu_kernels["flat_epilogue"]
-    C = accept_cols(depth, A)
-    acc, aover = (torch.from_numpy(a) for a in random_accepts(
-        depth * 1000 + A * 10 + K, B, C))
-    want = _flat_equal(fn, acc, aover, K, 8 * B)
-    n = want[1]
-    nk = torch.clamp(n, max=K)
-    assert bool((n > K).any()) == (C > K) and bool((aover > 0).any())
-    offs = torch.cumsum(nk, 0) - nk
-    inside = int(torch.nonzero(nk >= 2)[len(nk) // 3 % int(
-        (nk >= 2).sum())])
-    cap = int(offs[inside]) + 1
-    got = _flat_equal(fn, acc, aover, K, cap)
-    dropped = (offs >= cap) & (nk > 0)
-    assert bool(dropped.any()) and int(got[2][inside]) == 1
-    _flat_equal(fn, acc, aover, K, 1)
-    empty = torch.full_like(acc, -1)
-    got = _flat_equal(fn, empty, aover, K, 2 * B)
-    assert int(got[1].sum()) == 0 and bool((got[0] == -1).all())
+@pytest.mark.parametrize("backend", ["hash", "join"])
+def test_flat_walk_source_equals_plain(emu_kernels, table, backend, depth,
+                                       A):
+    """Both K (4: rows past K; 128, the serve K) and each cap of
+    :func:`_caps`, eight launches on one state buffer; the batch holds
+    ``$`` topics and spills at A = 16 and 32 are checked as found."""
+    scratch = FlatScratch("cpu")
+    for K in (4, 128):
+        got = _flat_equal(emu_kernels, table, backend, depth, A, K,
+                          _caps(K), scratch=scratch)
+        roomy, exact, cut, _one = got
+        n = roomy[1]
+        nk = torch.clamp(n, max=K)
+        offs = torch.cumsum(nk, 0) - nk
+        assert int(nk.sum()) > 0
+        assert bool((roomy[0][int(nk.sum()):] == -1).all())
+        if K == 4:
+            assert bool((n > K).any()), "no row past K"
+        cap = int(cut[0].shape[0])
+        assert bool(((offs >= cap) & (nk > 0)).any()), "no row dropped"
+        assert bool(((offs < cap) & (offs + nk > cap)).any()), "no row cut"
+    assert scratch.epoch == 8
+
+
+@pytest.mark.parametrize("backend", ["hash", "join"])
+def test_flat_walk_source_one_row(emu_kernels, table, backend):
+    """B = 1: one tile, which is also the last and fills the tail."""
+    _flat_equal(emu_kernels, table, backend, 8, 16, 128,
+                lambda n: [8, 1, 3], rows=1)
+
+
+@pytest.mark.parametrize("backend", ["hash", "join"])
+def test_flat_walk_source_row_lists_past_48k(emu_kernels, table, backend):
+    """A = 1: 128 rows a block, so K = 128 needs 64 KB of row lists (the
+    opt-in past 48 KB); B = 300 is three tiles, the last partly filled."""
+    from emqx_tpu_torch.ops.walk_kernel import flat_smem_bytes
+
+    assert flat_smem_bytes(1, 128) > 48 * 1024
+    _flat_equal(emu_kernels, table, backend, 8, 1, 128, _caps(128),
+                rows=300)
+
+
+def test_flat_lookback_that_would_wait_is_a_fault(emu_kernels, table):
+    """A ticket base one short makes the first block tile 1, whose
+    look-back would wait for tile 0 forever: the stand-in ends the launch
+    with a fault and its reason, where a spin would hang the suite."""
+    name, ops, ints, _plain = _flat_inputs(table, "hash", 8, B)
+    ints = tuple(16 if x is None else x for x in ints)
+    with pytest.raises(AssertionError, match="look-back waited"):
+        _flat_emu(emu_kernels, name, ops, ints, 16, 128, 8 * B,
+                  FlatScratch("cpu"), base_shift=-1)
+
+
+def test_flat_scratch_tickets_and_epochs():
+    """The wrapper's bookkeeping: each launch a new epoch and the tickets
+    of the launches before; a buffer grown or out of epochs is a new
+    zeroed one, counted from zero."""
+    sc = FlatScratch("cpu")
+    state, base, epoch = sc.reserve(13)
+    assert (state.numel(), base, epoch) == (14, 0, 1)
+    sc.commit(13)
+    state.fill_(5)
+    again, base, epoch = sc.reserve(4)
+    assert again is state and (base, epoch) == (13, 2)
+    sc.commit(4)
+    grown, base, epoch = sc.reserve(40)
+    assert grown.numel() == 41 and not bool(grown.any())
+    assert (base, epoch) == (0, 1)
+    sc.commit(40)
+    sc.epoch = 0xFFFFFFFF
+    fresh, base, epoch = sc.reserve(40)
+    assert fresh is not grown and (base, epoch) == (0, 1)
 
 
 def test_dense_launch_shape_is_the_kernels():

@@ -214,9 +214,13 @@ def test_flag_off_pipeline_inert_and_slab_readback(monkeypatch):
 
 
 async def _hints_with(kit, pipeline, mode="chunked"):
+    # the batch is each service's first dispatch: the reference compiles
+    # its XLA executables (with the pipeline, the readback slices too)
+    # while the waiters wait, which on a loaded CPU outlasts the 0.5 s
+    # prefetch timeout; the waiters here wait for the answers
     b, ms = await started(
         kit, [f"room/+/k{i}" for i in range(8)] + ["deep/#"],
-        pipeline=pipeline, readback_mode=mode)
+        pipeline=pipeline, readback_mode=mode, prefetch_timeout_s=30.0)
     topics = [f"room/{i}/k{i % 8}" for i in range(20)] + ["deep/a/b"]
     await ms.prefetch_many({t: 1 for t in topics})
     out = {t: hint_of(ms, t) for t in topics}

@@ -471,15 +471,22 @@ def test_hint_freshness_preserved_across_segment_swap(tmp_path, table):
     async def main():
         b = Broker()
         subscribe_many(b, [f"room/+/k{i}" for i in range(30)])
-        ms = make_service(b, tmp_path, table=table)
+        m = Metrics()
+        ms = make_service(b, tmp_path, table=table, metrics=m)
         await ms.start()
         try:
             assert await settle(lambda: ms.ready)
+            # with no segment yet, the first compaction swaps as soon as
+            # the service is ready: it lands before the hints are minted
+            assert await settle(lambda: m.get("tpu.table.compact_runs") >= 1)
             topics = [f"room/{i}/k{i % 30}" for i in range(12)]
             await asyncio.gather(*[ms.prefetch(t) for t in topics])
             for t in topics:
                 assert ms._hint_fresh(t, ms._hints[t][0])
             gen0 = ms._table_gen
+            # one mutation on a filter none of the topics match: the next
+            # compaction swaps after gen0
+            b.subscribe("s0", "other/+/x")
             assert await settle(lambda: ms._table_gen > gen0, timeout=30)
             for t in topics:
                 assert t in ms._hints

@@ -231,29 +231,39 @@ def test_cpu_walk_runs_plain_and_counts_no_launch():
 @pytest.mark.parametrize("K,flat_cap", [(32, 8 * 101), (8, 120), (128, 1)])
 def test_flat_epilogue_plain_equals_reference(K, flat_cap):
     """The flat epilogue alone on seeded accept slots (rows of every
-    density, spills, rows past K, caps that drop rows): the port's wrapper
-    on the CPU (its plain version, no launch) against the reference's
-    ``flat_epilogue``."""
+    density, spills, rows past K, caps that drop rows): the port's
+    ``epilogue`` on the CPU (its plain version, no launch) against the
+    reference's ``flat_epilogue``."""
     from emqx_tpu.ops.match_kernel import flat_epilogue as ref_flat
     from emqx_tpu_torch.ops import match_kernel as mk
 
     acc, aover = mk.random_accepts(K + flat_cap, 101, accept_cols(16, 16))
     n = (acc >= 0).sum(axis=1).astype(np.int32)
-    before = mk.flat_launches
-    got = mk.flat_epilogue(torch.from_numpy(acc), torch.from_numpy(aover),
-                           K, flat_cap)
-    assert mk.flat_launches == before
+    before = walk_kernel.flat_launches
+    got = mk.epilogue(torch.from_numpy(acc), torch.from_numpy(aover), K,
+                      True, flat_cap)
+    assert walk_kernel.flat_launches == before
     matches, mover, meta = ref_flat(jnp.asarray(acc), jnp.asarray(n),
                                     jnp.asarray(aover), K, flat_cap)
-    for g, w in zip(got, (matches, n, mover, meta)):
+    for g, w in zip((got.matches, got.n_matches, got.match_overflow,
+                     got.row_meta), (matches, n, mover, meta)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert (n > K).any() and (aover > 0).any()
 
 
 def test_flat_epilogue_wrapper_rejects_other_devices():
+    """The flat wrappers (the fused walks and the epilogue over raw
+    slots) take cuda or cpu tensors and nothing else."""
     from emqx_tpu_torch.ops import match_kernel as mk
 
+    args = [a.to("meta") for a in _good_args()]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        walk_kernel.nfa_walk_flat(*args, active_slots=8, max_matches=4,
+                                  flat_cap=16)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        walk_kernel.join_walk_flat(*args, None, None, active_slots=8,
+                                   max_matches=4, flat_cap=16)
     acc = torch.zeros((4, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        mk.flat_epilogue(acc, torch.zeros((4,), dtype=torch.int32,
-                                          device="meta"), 4, 16)
+        mk.epilogue(acc, torch.zeros((4,), dtype=torch.int32,
+                                     device="meta"), 4, True, 16)
