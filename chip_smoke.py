@@ -72,21 +72,34 @@ phases, one JSON line each; any failure exits non-zero:
    (one relation rebuild, no table re-upload without growth) and 4
    batches.  Join-kernel launches over this path must equal its join
    dispatches, and the hash kernel must not launch on it;
+   multichip — after times, on phase 4's service: its 1M filters and
+   accept ids sharded into a ``MultichipMatcher`` on ``[cuda:0] * 4``
+   (tp = 4, dp = 1, native shard tables); 20 batches of 2048 served
+   topics in each form (replicated, routed, routed+compact; default
+   slack), every row (spilled rows re-run on the host) equal to the
+   oracle (with phase 4's churn) and to the single-card flat path, each
+   row the mesh answered equal to the flat path's; the step with the
+   hash-walk kernel equal to the step with the plain walk on every
+   field for 2 batches a form; 2·tp kernel launches a dispatch; the
+   step's device ms (CUDA events on the mesh stream), the dispatch's
+   host ms, readback bytes a batch, spilled rows, the bytes bound, the
+   shards' filters and states;
 7. times_join — phase 5's readings for the join kernel and service
-   (phases 4 and 6 and exhook_sidecar share one 1M workload and its
-   trie oracle, built once: each phase undoes its churn in the oracle);
+   (phases 4 and 6 and multichip share one 1M workload and its trie
+   oracle, built once: each phase undoes its churn in the oracle);
 
 then the exhook boundary, each sidecar in a spawned child
 process that calls ``serve()``, as in a deployment, its counters and
 walk launches read over a pipe:
 
-* exhook_sidecar — BASELINE config 2's 1M filters through the sidecar's
+* exhook_sidecar — the first 250k of BASELINE config 2's 1M filters
+  (with their own trie oracle) through the sidecar's
   defaults (depth 8, A = 16, K = ``tpu.max_matches``, ``annotate``):
   ``OnProviderLoaded``, ``InstallSnapshot`` in chunks of 1,024 (the
   seconds to the ack and to a synced mirror; filters, aliases, states,
   table bytes); 20 ``MatchBatch`` calls of 2048 topics (topics/s, the
   RPC's p50/p99, the sidecar's batch p50/p99, every row against the
-  oracle, the rows re-run on spill); 16,384 ``OnMessagePublish`` calls
+  oracle, the rows re-run on spill); 8,192 ``OnMessagePublish`` calls
   at 256 in flight, each ``matched_filters`` header against the
   oracle's count (calls/s, the mean micro-batch); ``ApplyDeltas`` of
   1,000 removes and 1,000 adds (seconds until a ``MatchBatch`` answers
@@ -98,12 +111,12 @@ walk launches read over a pipe:
   clients (one fleet process) subscribe 100 filters each at QoS 1;
   then the sidecar starts, the reconnect loop loads it and pushes the
   snapshot, and its mirror must equal the node's filter set; 100
-  subscribes and 100 unsubscribes follow through the hooks; 5 × 2048
+  subscribes and 100 unsubscribes follow through the hooks; 3 × 2048
   QoS 1 publishes, each riding an ``OnMessagePublish`` round trip: every
   delivery owed arrives once, the sidecar matched every publish with
   no host row; PUBACKed publishes/s and publish → PUBACK p50/p99;
 * exhook_checkpoint — a sidecar with ``checkpoint_path`` installs the
-  Python table's 100k filters and writes its checkpoint; a new sidecar
+  Python table's 50k filters and writes its checkpoint; a new sidecar
   process restores it at start: the seconds to the first
   ``MatchBatch`` served by the card after each, 0 mismatches;
 8. slice_python — phase 4 on the Python ``IncrementalNfa`` table (the
@@ -149,7 +162,7 @@ Between phases 8 and 9 it drives the broker's own publish path
   the warm-up that builds the kernels) and the table sizes;
 * slice_node — 2048 publisher tasks take the workload's Zipfian topic
   stream in turn, each ``await ms.prefetch(topic)`` then
-  ``broker.publish``: 10 × 2048 publishes of warm-up, then 10 × 2048
+  ``broker.publish``: 4 × 2048 publishes of warm-up, then 5 × 2048
   timed while a churn subscribes 1,000 fresh filters and unsubscribes
   1,000 others through the broker, 100 of each a second whatever the
   service's state (the relation rebuilds it causes are counted).  Every route list a hint gave equals
@@ -158,7 +171,7 @@ Between phases 8 and 9 it drives the broker's own publish path
   prefetch timed out, launches equal dispatches, hints served at least
   half the timed publishes.  Publishes/s, p50/p99 (each less its route
   check), the shares of the publishes, batch sizes and rate, the
-  collector's pauses, the card's busy share over 10 × 2048 more
+  collector's pauses, the card's busy share over 5 × 2048 more
   publishes (``torch.profiler``), and the same timed publishes on the
   host trie alone (``device_match = None``, no prefetch);
 * segments_1m — the slice_node service stopped; a service with
@@ -203,6 +216,14 @@ Between phases 8 and 9 it drives the broker's own publish path
   the tuner's picks per shape with each backend's measured µs (each
   the device time of one flat match, under 1 ms), the join dispatches, and the same checks (launches equal the
   dispatches plus the tuner's measurement walks);
+* slice_node_multichip — a node-default service with
+  ``match.multichip.enable`` (tp = 4, ``device = [cuda:0] * 4``) on the
+  same broker: 2 × 2048 warm-up and 5 × 2048 timed publishes with a
+  churn beside, the same checks with 2·tp launches a dispatch and
+  ``tpu.match.shard_dispatches`` equal to the dispatches; then one
+  batch with shard 1 killed: it fails over to the host trie (a
+  failover, no dispatch through the mesh) and every route owed is
+  delivered;
 * slice_node_fanout, slice_node_pipeline, slice_node_fanout_host — the
   batched fanout (``FanoutPipeline`` at the reference node's
   ``broker.fanout.*`` defaults) on the same broker, each with its own
@@ -251,7 +272,7 @@ Last on that broker, BASELINE config 3's co-batched rules:
 
 Then ``acl_batch``: 1,000 static ACL rules (a ``FileSource`` and a
 ``BuiltinDbSource``'s global rows) compiled by ``compile_acl_batch``;
-``batch_authorize`` walks 8 × 2048 Zipfian topics on the card for
+``batch_authorize`` walks 4 × 2048 Zipfian topics on the card for
 ``publish`` and for ``subscribe``, every verdict equal to the host
 ``Authz`` pipeline's, one launch a batch.  Phase 10 registers the same
 rules in the 10M table before its churn, and ``slice_10m_rules`` holds
@@ -260,8 +281,8 @@ the rule filters.
 
 After ``acl_batch``, the hot tier and the retained replay (PR 10):
 
-* tiered — ``bench_tiered``'s workload at its defaults (seed 5: 200,000
-  cold draws + 320 hot filters, 5,000 cold and 40 hot roots, B = 8192,
+* tiered — ``bench_tiered``'s workload at half its cold size (seed 5:
+  100,000 cold draws + 320 hot filters, 5,000 cold and 40 hot roots, B = 8192,
   D = 8, hot_mass 0.8): ``TieredMatcher(hot_engine="auto")`` on the card
   (one dense and one hash launch a batch) against a host
   ``FilterTrie``, 0 mismatches; the rows the host served; the hot
@@ -270,21 +291,21 @@ After ``acl_batch``, the hot tier and the retained replay (PR 10):
   field, to the two calls made apart, with ``torch.cuda``'s sync debug
   mode set to raise inside it; the dense kernel timed at the matcher's
   hot shape (four batches of the same stream), as dense_kernel;
-* retained_replay — BASELINE config 5 cut to 100,000 retained names
+* retained_replay — BASELINE config 5 cut to 50,000 retained names
   (the first distinct topics of the workload generator, seed 0) and
-  100,000 new filters: ``Retainer.replay_batch`` on the card, one walk,
+  50,000 new filters: ``Retainer.replay_batch`` on the card, one walk,
   no filter served by the host walk, each filter's topics equal to the
   inverse of a host ``FilterTrie``'s per-name matches.
 
 Then it drives the port's MQTT front door over TCP:
 
-* slice_mqtt_fleet — 10,000 MQTT clients (the port's client) in
+* slice_mqtt_fleet — 7,500 MQTT clients (the port's client) in
   ``MQTT_PROCS`` child processes (spawned), and 100 churn clients; each
   process raises its RLIMIT_NOFILE soft limit to the hard one;
 * slice_mqtt — the port's ``BrokerNode`` at the reference's node
   defaults (``tpu.enable``, ``tpu.table=auto``, ``match.backend=hash``,
   the fast-path TCP listener, fanout off) on 127.0.0.1:0, started
-  empty; the fleet connects and each client subscribes its 100 of the 1M
+  empty; the fleet connects and each client subscribes its 100 of the 750k
   filters in one SUBSCRIBE at QoS 1; the seconds from the last
   SUBACK until the mirror routes all of them (the service freezes the
   heap as the mirror grows); then ``MQTT_PUBLISHERS``
@@ -353,9 +374,9 @@ SMALL_CHURN = (100, 40)     # join path: removes, adds within the overlay
 JOIN_SMALL_BATCHES = 2      # join path: batches served after SMALL_CHURN
 SESSIONS = 10_000           # slice_node: clients, each with an equal share
 STORM_TASKS = 2048          # slice_node: concurrent publishers (one batch)
-WARM_STORM = 10             # slice_node: warm-up publishes, in batches ...
-STORM_BATCHES = 10          # ... and timed publishes, in batches of 2048
-BUSY_BATCHES = 10           # slice_node: publishes under torch.profiler
+WARM_STORM = 4              # slice_node: warm-up publishes, in batches ...
+STORM_BATCHES = 5           # ... and timed publishes, in batches of 2048
+BUSY_BATCHES = 5            # slice_node: publishes under torch.profiler
 NODE_CHURN = 1000           # slice_node: subscribes and unsubscribes ...
 NODE_CHURN_RATE = 100.0     # ... of each a second, on the wall clock
 CHURN_CLIENTS = 100         # slice_mqtt: the churn's own clients
@@ -381,6 +402,10 @@ DRAIN_MAX_S = 40.0
 DELIVERY_TRAIL_MAX_S = 40.0
 MQTT_STORM = 5
 MQTT_BUSY = 2
+#: slice_mqtt: the fleet's clients and the workload's filters they hold,
+#: 100 a client (cut from 10,000 x 1M to fit the call's limit)
+MQTT_CLIENTS = 7_500
+MQTT_FILTERS = 750_000
 MQTT_PROCS = 6              # slice_mqtt: the fleet's child processes
 NODE_LOGGER = "emqx_tpu_torch.broker.match_service"
 FANOUT_LOGGER = "emqx_tpu_torch.broker.fanout"
@@ -418,7 +443,7 @@ RULE_BATCHES_10M = 4            # slice_10m_rules: batches of 2048 checked
 #: global rows only) over ACL_BATCHES batches of 2048 topics
 ACL_RULES = 1000
 ACL_DB_RULES = 100
-ACL_BATCHES = 8
+ACL_BATCHES = 4
 ACL_SEED = 31
 #: name, source and replaced TPU kernel of each walk kernel
 KERNELS = {
@@ -438,9 +463,9 @@ DENSE_RANDOM = ((128, 3), (512, 1), (4096, 2))
 #: cores (67 TFLOP/s of float32 counts a fused multiply-add as two; one
 #: compare is one operation here, so this bounds from below)
 SCALAR_OPS_PER_S = 67e12
-TIERED_FILTERS = 200_000    # tiered: bench_tiered's defaults
+TIERED_FILTERS = 100_000    # tiered: half bench_tiered's default
 TIERED_BATCH = 8192
-REPLAY_SIZE = 100_000       # retained_replay: retained names and filters
+REPLAY_SIZE = 50_000        # retained_replay: retained names and filters
 REPLAY_SEED = 0
 #: a fan of 64 filters, each level of w/a/b/c/d/e/f literal or '+': the
 #: topic w/a/b/c/d/e/f has 2**k live states after k levels, so its walk
@@ -1156,7 +1181,231 @@ def phase_slice(torch, device, n_filters: int, table: str = "native",
     emit(info)
     return {"svc": svc, "topics": topics, "launches": launches,
             "spill_share": svc.fallback_host / svc.topics,
-            "build_s": svc.host_build_s}
+            "build_s": svc.host_build_s, "churn": (gone, fresh)}
+
+
+#: multichip: the mesh's table shards, all on the one card ([cuda:0] *
+#: MC_TP: dp = 1), the batches served in each form and the batches that
+#: also run the step with the walk's plain version
+MC_TP = 4
+MC_BATCHES = 20
+MC_PLAIN_BATCHES = 2
+#: multichip: the forms of the step, as the matcher's flags
+MC_FORMS = (("replicated", False, False), ("routed", True, False),
+            ("routed_compact", True, True))
+#: slice_node_multichip: warm-up and timed publishes, in batches of 2048
+MC_WARM = 2
+MC_STORM = 5
+
+
+def _mc_bytes(mc, routed: bool, compact: bool, B: int, D: int) -> Dict:
+    """The bytes a step must move: each shard's node, edge and aid-map
+    tables and the micro-table's on each shard, read once; the batch
+    read by every shard; with ``routed`` the (tp, C, D + 3) grid each
+    shard writes and its owner reads; the outputs written once."""
+    tp = mc.tp
+    tabs = sum(x.numel() * 4 for s in mc._arrs.shard[0]
+               for x in (s[0], s[1], s[3]))
+    micro = tp * sum(x.numel() * 4 for x in mc._arrs.repl[0][0][:4])
+    batch = tp * B * (D + 2) * 4
+    W = mc.max_matches + mc.ep_micro_matches
+    grid = 0
+    if routed:
+        C = mc.ep_capacity(B)
+        grid = 2 * tp * tp * C * (D + 3) * 4
+    segs = 1 if compact else tp
+    out = B * (segs * W + 2 * segs + 3) * 4
+    return {"tables": tabs, "micro": micro, "batch": batch, "grid": grid,
+            "outputs": out, "total": tabs + micro + batch + grid + out}
+
+
+def phase_multichip(torch, device, s: Dict, shared: Dict, card: str):
+    """The multichip serve path (K8a around the hash walk, K1) at 1M
+    filters: config 2's table, with the accept ids of the hash service
+    of ``slice`` (``s["svc"]``), sharded into a ``MultichipMatcher`` on
+    ``MC_TP`` shards of the one card, native subtables; ``MC_BATCHES``
+    batches of 2048 served topics in each form of ``MC_FORMS`` at the
+    default capacity slack.  Each decoded row (spilled rows re-run on the
+    host, as the service does) equals the oracle's filters and the
+    single-device flat path's accept ids, and each row the mesh answered
+    equals the flat path's; the step with the kernel equals the step
+    with the plain walk on every field for ``MC_PLAIN_BATCHES`` batches;
+    the kernel's launches on the served batches are 2·tp a dispatch.
+    Reports each form's step device ms (CUDA events on the mesh stream)
+    and host ms a dispatch, readback bytes a batch, spilled rows and the
+    bytes bound; the shards' filters and states.  Returns the kernel's
+    launches on the main path and the plain comparison's largest
+    difference."""
+    from emqx_tpu_torch.ops import walk_kernel
+    from emqx_tpu_torch.parallel import MultichipMatcher, build_multichip_step
+
+    t_start = time.perf_counter()
+    svc, trie, topics = s["svc"], shared["trie"], shared["topics"]
+    batches = [topics[i * BATCH:(i + 1) * BATCH] for i in
+               range(min(MC_BATCHES, len(topics) // BATCH))]
+    # the oracle's filters (with the table's churn of ``slice``) and the
+    # single-device flat path's rows
+    gone, fresh = s["churn"]
+    for f in gone:
+        trie.delete(f)
+    for f in fresh:
+        trie.insert(f)
+    want = [[sorted(trie.match(t)) for t in b] for b in batches]
+    _undo_churn(trie, gone, fresh)
+    single = []
+    for b in batches:
+        groups = svc._depth_groups(b)
+        res, _nb, _trips = svc._readback_groups(svc._encode_dispatch(b,
+                                                                     groups))
+        rows = [None] * len(b)
+        spilled = set()
+        for (idx, _d), (grows, gsp) in zip(groups, res):
+            for j, i in enumerate(idx):
+                rows[i] = grows[j]
+            spilled.update(idx[j] for j in gsp)
+        single.append((rows, spilled))
+    t1 = time.perf_counter()
+    pairs = svc._mc_pairs()
+    mc = MultichipMatcher(depth=svc.depth, tp=MC_TP,
+                          devices=[device] * MC_TP,
+                          active_slots=svc.dev.active_slots,
+                          max_matches=svc.dev.max_matches, native=True)
+    mc.rebuild(pairs)
+    _check(mc.apply_pending(), "the partition did not apply")
+    mc.warm(batches=(BATCH,), depths=(svc.depth,))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    fo = svc._filter_of
+    line = {"phase": "multichip", "ok": True, "card": card,
+            "filters": len(pairs), "mesh": {"dp": mc.dp, "tp": mc.tp},
+            "devices": [str(d) for row in mc.mesh.devices for d in row],
+            "build_s": build_s,
+            "shard_filters": [x.n_filters for x in mc._subs],
+            "shard_states": [x.n_states for x in mc._subs],
+            "micro_filters": len(mc._micro_filters),
+            "micro_states": mc._micro.n_states,
+            "stacked_shape": dict(zip(
+                ("S", "Hb", "A", "micro_S", "micro_Hb", "micro_A",
+                 "word_owner"), mc._stacked_shape)),
+            "forms": {}}
+    failed: List[str] = []
+    launches_total = 0
+    max_err = 0
+    stream = mc.mesh.stream_of.get(device)
+    for form, ep, compact in MC_FORMS:
+        mc.ep, mc.ep_compact = ep, compact
+        # -- the main path: counts zeroed just before, read just after --
+        _reset_launches()
+        d0 = mc.dispatches
+        bad_oracle = bad_single = bad_device = spilled = 0
+        nbytes = []
+        host_ms = []
+        for b, w, (srows, _ssp) in zip(batches, want, single):
+            enc = mc.encode(b, batch=BATCH)
+            t2 = time.perf_counter()
+            h = mc.dispatch(enc)
+            host_ms.append((time.perf_counter() - t2) * 1e3)
+            rows, sp, nb = mc.readback(h, len(b))
+            nbytes.append(nb)
+            spilled += len(sp)
+            spset = set(sp)
+            for i, t in enumerate(b):
+                row = rows[i]
+                if i in spset:
+                    row = svc._host_ids(t)
+                else:
+                    bad_device += sorted(row) != sorted(srows[i])
+                bad_single += sorted(row) != sorted(srows[i])
+                bad_oracle += sorted(fo[a] for a in row) != w[i]
+        launches = walk_kernel.launches
+        dispatches = mc.dispatches - d0
+        # ----------------------------------------------------------------
+        launches_total += launches
+        if device.type == "cuda":
+            if launches != 2 * mc.tp * mc.dp * dispatches:
+                failed.append(f"{form}: {launches} walk launches for "
+                              f"{dispatches} dispatches, want 2·tp each")
+        # the step alone, device ms from events on the mesh stream
+        step = mc._step_for((BATCH, svc.depth), routed=mc._routed_for(BATCH))
+        dev_ms = []
+        for b in batches:
+            enc = mc.encode(b, batch=BATCH)
+            if stream is not None:
+                with mc.mesh.streams():
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record(stream)
+                    step(*enc, mc._arrs)
+                    e1.record(stream)
+                dev_ms.append((e0, e1))
+        if stream is not None:
+            torch.cuda.synchronize()
+            dev_ms = [e0.elapsed_time(e1) for e0, e1 in dev_ms]
+        # the kernel against the plain walk, field by field
+        plain = build_multichip_step(
+            mc.mesh, mc.active_slots, mc.max_matches,
+            micro_matches=mc.ep_micro_matches, routed=mc._routed_for(BATCH),
+            capacity=mc.ep_capacity(BATCH) if ep else 0, compact=compact,
+            plain=True)
+        err = 0
+        plain_ms = []
+        for b in batches[:MC_PLAIN_BATCHES]:
+            enc = mc.encode(b, batch=BATCH)
+            with mc.mesh.streams():
+                got = step(*enc, mc._arrs)
+                if stream is not None:
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record(stream)
+                ref = plain(*enc, mc._arrs)
+                if stream is not None:
+                    e1.record(stream)
+                    plain_ms.append((e0, e1))
+            for x, y in zip(got, ref):
+                err = max(err, int((x.long() - y.long()).abs().max()))
+        if stream is not None:
+            torch.cuda.synchronize()
+            plain_ms = [e0.elapsed_time(e1) for e0, e1 in plain_ms]
+        max_err = max(max_err, err)
+        bounds = _mc_bytes(mc, mc._routed_for(BATCH), compact, BATCH,
+                           svc.depth)
+        line["forms"][form] = {
+            "routed": mc._routed_for(BATCH), "compact": compact,
+            "capacity": mc.ep_capacity(BATCH) if ep else None,
+            "dispatches": dispatches, "kernel_launches": launches,
+            "launches_per_dispatch": launches / max(1, dispatches),
+            "step_device_ms": (float(np.mean(dev_ms)) if dev_ms
+                               else "not measured"),
+            "step_device_ms_p99": (_pct(dev_ms, 99) if dev_ms
+                                   else "not measured"),
+            "dispatch_host_ms": float(np.mean(host_ms)),
+            "readback_bytes_per_batch": float(np.mean(nbytes)),
+            "spilled_rows": spilled,
+            "rows_checked": len(batches) * BATCH,
+            "mismatches_oracle": bad_oracle,
+            "mismatches_single_device": bad_single,
+            "device_rows_differing_from_single_device": bad_device,
+            "plain_batches": MC_PLAIN_BATCHES, "max_abs_err": err,
+            "plain_step_device_ms": (float(np.mean(plain_ms)) if plain_ms
+                                     else "not measured"),
+            "bound_bytes": bounds,
+            "bound_ms": bounds["total"] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+        for what, n in (("oracle", bad_oracle),
+                        ("single-device flat path", bad_single),
+                        ("single-device rows (device-served)", bad_device)):
+            if n:
+                failed.append(f"{form}: {n} rows differ from the {what}")
+        if err:
+            failed.append(f"{form}: the kernel's step differs from the "
+                          f"plain walk's by {err}")
+    rep = line["forms"]["replicated"]["readback_bytes_per_batch"]
+    line["compact_readback_over_replicated"] = (
+        line["forms"]["routed_compact"]["readback_bytes_per_batch"] / rep)
+    line["wall_s"] = time.perf_counter() - t_start
+    _emit_checked(line, failed)
+    return {"launches": launches_total, "max_abs_err": max_err}
 
 
 def phase_slice_join(torch, device, n_filters: int, shared=None) -> Dict:
@@ -1859,10 +2108,11 @@ def _count_batches(ms) -> None:
 
 
 async def _start_node_service(torch, device, broker, metrics, backend,
-                              **kw):
-    """A node-default ``MatchService`` on ``broker`` (with ``kw``),
-    started; returns it with the seconds from ``start()`` to ready and
-    synced."""
+                              devices=None, **kw):
+    """A node-default ``MatchService`` on ``broker`` (with ``kw``) on
+    ``device`` (the mesh ``devices`` when given), started; returns it
+    with the seconds from ``start()`` to ready and synced (with the
+    multichip backend, its partition built and applied too)."""
     from emqx_tpu_torch.broker.match_service import MatchService
 
     # the plain walks on the CPU (rehearsal) take longer than the node's
@@ -1872,11 +2122,13 @@ async def _start_node_service(torch, device, broker, metrics, backend,
         if kw.get("deadline"):
             kw["dispatch_timeout_s"] = 60.0
     sup = kw.pop("supervisor", None)
-    ms = MatchService(broker, metrics, device=device, backend=backend, **kw)
+    ms = MatchService(broker, metrics, backend=backend,
+                      device=device if devices is None else devices, **kw)
     ms.supervisor = sup
     t0 = time.perf_counter()
     await ms.start()
-    while not (ms.ready and ms._synced_epoch == broker.router.epoch):
+    while not (ms.ready and ms._synced_epoch == broker.router.epoch
+               and (ms.mc is None or (ms.mc.ready and not ms.mc.dirty))):
         _check(time.perf_counter() - t0 < 600, "the service never got ready")
         await asyncio.sleep(0.005)
     ready_s = time.perf_counter() - t0
@@ -1888,7 +2140,8 @@ async def _start_node_service(torch, device, broker, metrics, backend,
 async def _node_storms(torch, device, ms, broker, metrics, topics, card,
                        churn, storm_batches: int, name: str,
                        payloads=None, warm: bool = True,
-                       before_timed=None, waits=None, warm_batches=None):
+                       before_timed=None, waits=None, warm_batches=None,
+                       mesh_tp: int = 0):
     """Warm-up (unless ``warm`` is false) and the timed storm (with
     ``churn`` running beside it) through ``ms``, with ``payloads`` (see
     :func:`_storm`); ``before_timed()`` runs just before the timed
@@ -1896,7 +2149,10 @@ async def _node_storms(torch, device, ms, broker, metrics, topics, card,
     ``slice_node`` that failed.  ``join_rebuilds`` counts the relation
     rebuilds the churn caused (each sorted and uploaded on the sync
     thread while the loop serves; ``batch_ms.max`` would show a
-    stall)."""
+    stall).  With ``mesh_tp`` the service serves through its multichip
+    backend: each dispatch launches the hash walk twice a shard (compact
+    mode: no flat launch), and ``tpu.match.shard_dispatches`` counts
+    every dispatch."""
     from emqx_tpu_torch.ops import walk_kernel
 
     check = _RouteLog(ms, broker.router)
@@ -1923,7 +2179,8 @@ async def _node_storms(torch, device, ms, broker, metrics, topics, card,
     m1 = metrics.all()
     launches = walk_kernel.launches
     join_launches = walk_kernel.join_launches
-    flat = _flat_launches(device, name, launches + join_launches)
+    flat = _flat_launches(device, name,
+                          0 if mesh_tp else launches + join_launches)
     dispatches = ms.dispatches - d0
     join_dispatches = ms.join_dispatches - j0
     measure_launches = ms.autotune_launches - a0
@@ -1949,16 +2206,26 @@ async def _node_storms(torch, device, ms, broker, metrics, topics, card,
         (line["checked"] >= line["hint_served"],
          "a device route list escaped the check"))
         if not ok]
+    if mesh_tp:
+        shard = (m1["tpu.match.shard_dispatches"]
+                 - m0["tpu.match.shard_dispatches"])
+        line["shard_dispatches"] = shard
+        failed += [what for ok, what in (
+            (shard == dispatches,
+             f"shard dispatches {shard} != dispatches {dispatches}"),)
+            if not ok]
     if device.type == "cuda":
         # on the CPU (rehearsal) the plain walks are slow enough that a
         # churn overlaps nearly every batch: no duty-cycle bound there
         joins = (join_dispatches + measure_launches // 2
                  if ms.backend == "auto" else 0)
+        per = 2 * mesh_tp if mesh_tp else 1
         failed += [what for ok, what in (
             (line["hint_served"] >= n / 2,
              f"hints served {line['hint_served']} of {n} publishes"),
-            (launches + join_launches == dispatches + measure_launches,
-             f"launches {launches}+{join_launches} != dispatches "
+            (launches + join_launches
+             == per * dispatches + measure_launches,
+             f"launches {launches}+{join_launches} != {per} x dispatches "
              f"{dispatches} + measurement walks {measure_launches}"),
             (join_launches == joins,
              f"join launches {join_launches}, want {joins}"))
@@ -2356,6 +2623,70 @@ def _log_checks(logs: "_LogCount") -> List[str]:
     return out
 
 
+async def _node_multichip(torch, device, broker, metrics, filters, topics,
+                          card, logs) -> tuple:
+    """slice_node_multichip: a node-default service with
+    ``match.multichip.enable`` (tp = ``MC_TP``, ``device = [card] *
+    MC_TP``) on the 1M broker; ``MC_WARM`` warm-up and ``MC_STORM``
+    timed batches of publishes with a churn beside (0 route mismatches,
+    hints on at least half the publishes, every dispatch through the
+    mesh: ``tpu.match.shard_dispatches`` equal to the dispatches and
+    2·tp walk launches each); then one batch with shard 1 killed: it
+    fails over to the host trie, and every route owed is delivered.
+    Returns the walk launches of the timed storm."""
+    t0 = time.perf_counter()
+    ms, ready_s = await _start_node_service(
+        torch, device, broker, metrics, "hash", multichip=True,
+        multichip_tp=MC_TP, devices=[device] * MC_TP)
+    try:
+        add, drop, _hit = _node_churn(broker, filters, 17, ())
+        line, failed = await _node_storms(
+            torch, device, ms, broker, metrics, topics, card, (add, drop),
+            MC_STORM, "slice_node_multichip", warm_batches=MC_WARM,
+            mesh_tp=MC_TP)
+        failed += _log_checks(logs)
+        # one batch with a shard dead: the whole plane fails over
+        lo = (MC_WARM + MC_STORM) * BATCH
+        batch = topics[lo:lo + BATCH]
+        check = _RouteLog(ms, broker.router)
+        broker.device_match = check
+        f0 = metrics.get("tpu.match.shard_failover")
+        d0 = ms.mc.dispatches
+        ms.mc.kill_shard(1)
+        try:
+            res = await _storm(ms, broker, topics, lo, lo + BATCH, [])
+        finally:
+            ms.mc.revive_shard(1)
+        subs = broker.subscribers
+        owed = sum(len(subs.get(r.filter, ()))
+                   for t in batch for r in broker.router.match_routes(t))
+        kill = {"publishes": len(batch), "delivered": res["delivered"],
+                "owed": owed, "undelivered": owed - res["delivered"],
+                "failovers": metrics.get("tpu.match.shard_failover") - f0,
+                "mesh_dispatches": ms.mc.dispatches - d0,
+                "hints_served": len(check.topics),
+                "mismatches": _verify_routes(broker.router, check)}
+        line["shard_kill"] = kill
+        failed += [what for ok, what in (
+            (kill["failovers"] >= 1, "the killed shard failed no batch over"),
+            (kill["mesh_dispatches"] == 0,
+             "a dispatch went through the mesh with a shard dead"),
+            (kill["undelivered"] == 0,
+             f"{kill['undelivered']} routes undelivered across the kill"),
+            (kill["mismatches"] == 0,
+             f"{kill['mismatches']} hinted routes differ across the kill"))
+            if not ok]
+        line.update(start_to_ready_s=ready_s,
+                    stale_race_batches=logs.stale_races,
+                    multichip=ms.mc.info(),
+                    wall_s=time.perf_counter() - t0)
+        _emit_checked(line, failed)
+        return line["kernel_launches"], line["join_kernel_launches"]
+    finally:
+        broker.device_match = None
+        await ms.stop()
+
+
 async def _slice_node(torch, device, n_filters, card, storm_batches):
     from emqx_tpu_torch.broker.broker import Broker
     from emqx_tpu_torch.observe import Metrics
@@ -2483,6 +2814,15 @@ async def _slice_node(torch, device, n_filters, card, storm_batches):
                "auto_launches": (auto["kernel_launches"],
                                  auto["join_kernel_launches"]),
                **lifecycle}
+        # the multichip serve backend on the same broker: the table
+        # sharded over MC_TP shards of the card
+        ms = auto = None
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        logs.reset()
+        out["node_multichip"] = await _node_multichip(
+            torch, device, broker, metrics, filters, topics, card, logs)
         # the batched fanout, on the card and on the host trie alone
         ms = auto = None
         fan_log = logging.getLogger(FANOUT_LOGGER)
@@ -4560,7 +4900,8 @@ async def _busy_result(torch, device, storm) -> Dict:
 
 def phase_slice_mqtt(torch, device, n_filters: int, card: str,
                      storm_batches: int, n_clients: int) -> Dict:
-    """The MQTT front door at 1M subscriptions (BASELINE config 2): the
+    """The MQTT front door at ``n_filters`` subscriptions of BASELINE
+    config 2's workload (``MQTT_FILTERS``, 750k, by default): the
     port's ``BrokerNode`` at the reference's node defaults over TCP,
     driven by a fleet of ``n_clients`` MQTT clients in ``MQTT_PROCS``
     child processes and ``CHURN_CLIENTS`` churn clients
@@ -4632,14 +4973,16 @@ async def _slice_mqtt(torch, device, n_filters, card, storm_batches,
 # launches.
 
 EXHOOK_MATCH_CALLS = 20      # exhook_sidecar: MatchBatch calls of BATCH
-EXHOOK_PUBLISHES = 16384     # exhook_sidecar: OnMessagePublish burst ...
+EXHOOK_PUBLISHES = 8192      # exhook_sidecar: OnMessagePublish burst ...
 EXHOOK_INFLIGHT = 256        # ... calls in flight
 EXHOOK_CHUNK = 1024          # InstallSnapshot chunk (the manager's)
 EXHOOK_CHURN = 1000          # exhook_sidecar: ApplyDeltas adds and removes
 EXHOOK_NODE_CLIENTS = 100    # exhook_node: MQTT clients ...
 EXHOOK_NODE_FILTERS = 100    # ... with this many filters each
 EXHOOK_NODE_CHURN = 100      # exhook_node: subscribes and unsubscribes
-EXHOOK_NODE_STORM = 5        # exhook_node: QoS 1 publishes, in BATCHes
+EXHOOK_NODE_STORM = 3        # exhook_node: QoS 1 publishes, in BATCHes
+EXHOOK_FILTERS = 250_000     # exhook_sidecar: the shared workload's first
+CHECKPOINT_FILTERS = 50_000  # exhook_checkpoint: the Python table's size
 EXHOOK_WAIT_S = 900.0        # the longest wait for a mirror to sync
 EXHOOK_DIR = os.path.join("trace", "chip_smoke_exhook")
 
@@ -4845,15 +5188,22 @@ def phase_exhook_sidecar(torch, device, shared, card: str) -> Dict:
 
 
 async def _exhook_sidecar(torch, device, shared, card: str) -> Dict:
-    """BASELINE config 2 at 1M filters through the sidecar at its
-    defaults (depth 8, A = 16, K = ``tpu.max_matches``): the snapshot
+    """The first ``EXHOOK_FILTERS`` of BASELINE config 2's 1M filters
+    through the sidecar at its defaults (depth 8, A = 16, K = ``tpu.max_matches``): the snapshot
     install, MatchBatch calls, an OnMessagePublish burst and an
     ApplyDeltas churn, every answer against the trie oracle."""
     from emqx_tpu_torch.exhook.rpc import pb
 
+    from emqx_tpu_torch.broker.trie import FilterTrie
+
     t_start = time.perf_counter()
-    filters, topics, trie = shared["filters"], shared["topics"], \
-        shared["trie"]
+    # the first EXHOOK_FILTERS of the shared workload (the install of
+    # the sidecar's Python table is the phase's cost), with their oracle
+    filters, topics = shared["filters"][:EXHOOK_FILTERS], shared["topics"]
+    trie = FilterTrie()
+    for f in filters:
+        trie.insert(f)
+    oracle_s = time.perf_counter() - t_start
     proc = _SidecarProc(_free_port(), device, annotate=True)
     chan = None
     try:
@@ -4872,7 +5222,8 @@ async def _exhook_sidecar(torch, device, shared, card: str) -> Dict:
         table = list((await mirror.FilterTable(
             pb.FilterTableRequest())).filters)
         line = {"phase": "exhook_sidecar", "ok": True, "card": card,
-                "filters": len(filters), "snapshot_ack_s": ack_s,
+                "filters": len(filters), "oracle_build_s": oracle_s,
+                "snapshot_ack_s": ack_s,
                 "snapshot_to_ready_s": ready_s,
                 "aliases": c_ready["aliases"], "states": c_ready["states"],
                 "table_filters": c_ready["table_filters"],
@@ -4954,7 +5305,6 @@ async def _exhook_sidecar(torch, device, shared, card: str) -> Dict:
         c3 = await proc.synced()
         _rows, _ms, churn_bad = await _match_checked(mirror, probes, trie)
         churn_s = time.perf_counter() - t1
-        _undo_churn(trie, gone, fresh)
         grew = c3["shape_key"] != c_ready["shape_key"]
         line["apply_deltas"] = {
             "removed": len(gone), "added": len(fresh),
@@ -5676,7 +6026,7 @@ def main(argv=None) -> int:
                     "them at 10M)")
     ap.add_argument("--storm-batches", type=int, default=STORM_BATCHES,
                     help="slice_node: timed publishes, in batches of 2048")
-    ap.add_argument("--mqtt-clients", type=int, default=SESSIONS,
+    ap.add_argument("--mqtt-clients", type=int, default=MQTT_CLIENTS,
                     help="slice_mqtt: the fleet's MQTT clients")
     ap.add_argument("--tiered-filters", type=int, default=TIERED_FILTERS,
                     help="tiered: bench_tiered's cold filters")
@@ -5755,8 +6105,13 @@ def main(argv=None) -> int:
         shapes, flat_d8 = phase_times(torch, device, s, card,
                                       timed=args.timed_batches)
         launches["hash"]["1m"] = s["launches"]
+        phase = "multichip"
+        mc = phase_multichip(torch, device, s, shared, card)
+        launches["hash"]["multichip"] = mc["launches"]
+        launches["join"]["multichip"] = 0
+        max_err["hash"] = max(max_err["hash"], mc["max_abs_err"])
         # one table in host memory at a time
-        s = None
+        s = mc = None
         gc.collect()
         phase = "slice_join"
         s = phase_slice_join(torch, device, args.filters, shared=shared)
@@ -5778,7 +6133,7 @@ def main(argv=None) -> int:
         launches["join"]["exhook_node"] = ex["join_launches"]
         phase = "exhook_checkpoint"
         ex = phase_exhook_checkpoint(torch, device, card,
-                                     args.python_filters)
+                                     CHECKPOINT_FILTERS)
         launches["hash"]["exhook_checkpoint"] = ex["launches"]
         launches["join"]["exhook_checkpoint"] = ex["join_launches"]
         phase = "slice_python"
@@ -5800,7 +6155,7 @@ def main(argv=None) -> int:
             path = name[len("slice_"):]
             launches["hash"][path], launches["join"][path] = node[name]
         for path in ("node_rules", "node_rules_host", "segments_1m",
-                     "node_deadline", "deadline_faults"):
+                     "node_deadline", "deadline_faults", "node_multichip"):
             launches["hash"][path], launches["join"][path] = node[path]
         rules = node["rules"]
         node = None
@@ -5819,7 +6174,8 @@ def main(argv=None) -> int:
         launches["hash"]["retained_replay"] = phase_retained_replay(
             torch, device, card, args.replay_size)["launches"]
         phase = "slice_mqtt"
-        mqtt = phase_slice_mqtt(torch, device, args.filters, card,
+        mqtt = phase_slice_mqtt(torch, device,
+                                min(args.filters, MQTT_FILTERS), card,
                                 MQTT_STORM, args.mqtt_clients)
         for name in ("slice_mqtt", "slice_mqtt_fanout"):
             path = name[len("slice_"):]

@@ -178,9 +178,28 @@ The node's seams are the reference's: ``hists`` (a ``HistSet``: the
 ``match_readback`` histograms), ``flightrec`` (the ``match.serve``,
 ``match.encode`` and ``match.readback`` rings, and the dumps), ``alarms``
 and ``olp``, and a ``supervisor`` attribute set before :meth:`start`,
-under which the loops run as restartable children.  The reference's
-multichip plane is not ported: its parameters raise
-NotImplementedError when set to anything but their defaults.
+under which the loops run as restartable children.
+
+**The multichip serve backend** (``multichip=True``, the reference's
+``match.multichip.*``; off, ``self.mc`` stays None and every seam below
+is one None test): the table shards by topic prefix over a mesh of
+devices (``parallel/multichip_serve.py``: ``device`` may be a list of
+devices, the mesh's; a single device is a list of one, and no device
+every visible card).  The router's mutations are noted into the
+per-shard host tables by ``_table_add``/``_table_del`` and applied by
+the sync loop (on the loop for deltas, on a worker thread for a
+repartition, which the start, a compaction swap and a restored segment
+set); a batch serves through the mesh once its tables are up
+(``_mc_active``), encoded against the shards' shared vocab, its readback
+waiting on the dispatch's events between rounds of the loop; a shard
+failure fails the batch over to the host like any device failure.  With
+``multichip_degraded`` the ladder's alarm, the supervised
+``mesh.rebuild`` child and the canary gate re-admission
+(``_mesh_watch``); with ``segments`` the per-shard segments persist
+beside the table's; with ``multichip_ep_autotune`` the compaction
+stages the popularity placement that its swap applies.  Where the
+reference logs a matcher that cannot be built and serves the single
+device, the port raises.
 """
 
 from __future__ import annotations
@@ -210,6 +229,7 @@ from ..ops.join_match import BackendAutotuner
 from ..ops.match_kernel import (SERVE_FLAT_MULT, decode_flat,
                                 decode_row_meta, fetch_flat_prefix,
                                 fetch_flat_ragged, ragged_capacity)
+from ..parallel.multichip_serve import McHandle, MultichipMatcher
 from ..storage.segments import (SegmentError, load_segment,
                                 restore_incremental, save_segment)
 from .trie import FilterTrie
@@ -231,20 +251,6 @@ _SID_WAIT = _FR_STAGES.index("match_wait")
 _SID_ENCODE = _FR_STAGES.index("match_encode")
 _SID_DISPATCH = _FR_STAGES.index("match_dispatch")
 _SID_READBACK = _FR_STAGES.index("match_readback")
-
-#: reference parameters of features this port does not serve, with the
-#: default each must keep
-_UNPORTED = {
-    "multichip": False, "multichip_tp": 0, "multichip_native": True,
-    "multichip_ep": False, "multichip_ep_slack": 2.0,
-    "multichip_ep_micro": 8, "multichip_ep_compact": False,
-    "multichip_degraded": False, "multichip_degraded_threshold": 3,
-    "multichip_ep_overflow_warn": 0.5, "multichip_ep_autotune": False,
-    "multichip_ep_grow_threshold": 0.05,
-    "multichip_ep_shrink_threshold": 0.01, "multichip_ep_max_cap_class": 3,
-    "multichip_balance_budget": 64,
-}
-
 
 class _StaleRace(RuntimeError):
     """A benign serving race (an accept id reused while the batch was in
@@ -436,6 +442,12 @@ async def _await_answers(futs: Sequence[asyncio.Future], timeout: float,
         timer.cancel()
 
 
+async def _events_done(events: Sequence[Any]) -> None:
+    """:func:`_event_done` of each of ``events``."""
+    for ev in events:
+        await _event_done(ev)
+
+
 async def _event_done(ev) -> None:
     """Wait for ``ev`` without blocking the event loop: poll it between
     rounds of the loop (a busy loop polls once a round; an idle one
@@ -598,16 +610,21 @@ class MatchService:
                  dirty_threshold: float = 0.5, prewarm: bool = True,
                  alarms: Any = None, olp: Any = None, hists: Any = None,
                  flightrec: Any = None,
-                 device: Union[None, str, torch.device] = None,
-                 **unported: Any) -> None:
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"unexpected keyword argument {name!r}")
-            if value != _UNPORTED[name]:
-                raise NotImplementedError(
-                    f"MatchService({name}={value!r}) is not ported; the "
-                    f"port serves the reference's default "
-                    f"{_UNPORTED[name]!r} only")
+                 multichip: bool = False, multichip_tp: int = 0,
+                 multichip_native: bool = True, multichip_ep: bool = False,
+                 multichip_ep_slack: float = 2.0, multichip_ep_micro: int = 8,
+                 multichip_ep_compact: bool = False,
+                 multichip_degraded: bool = False,
+                 multichip_degraded_threshold: int = 3,
+                 multichip_ep_overflow_warn: float = 0.5,
+                 multichip_ep_autotune: bool = False,
+                 multichip_ep_grow_threshold: float = 0.05,
+                 multichip_ep_shrink_threshold: float = 0.01,
+                 multichip_ep_max_cap_class: int = 3,
+                 multichip_balance_budget: int = 64,
+                 device: Union[None, str, torch.device,
+                               Sequence[Union[str, torch.device]]] = None
+                 ) -> None:
         if backend not in SERVICE_BACKENDS:
             check_backend(backend)      # raises ValueError
         if table not in TABLES:
@@ -718,8 +735,34 @@ class MatchService:
         self.table_kind = "python" if table == "python" else "native"
         self.inc = (IncrementalNfa(depth=depth) if self.table_kind == "python"
                     else NativeNfa(depth=depth))
-        self.dev = self._bind_device(self.inc, active_slots, max_matches,
-                                     device)
+        # a device list is the mesh's; the single-device table takes its
+        # first
+        mesh_devices = (list(device) if isinstance(device, (list, tuple))
+                        else None if device is None else [device])
+        self.dev = self._bind_device(
+            self.inc, active_slots, max_matches,
+            mesh_devices[0] if mesh_devices else device)
+        # the multichip serve backend (module docstring)
+        self.mc: Optional[MultichipMatcher] = None
+        if multichip:
+            self.mc = MultichipMatcher(
+                depth=depth, tp=multichip_tp, devices=mesh_devices,
+                active_slots=active_slots, max_matches=max_matches,
+                metrics=metrics, native=multichip_native, ep=multichip_ep,
+                ep_slack=multichip_ep_slack,
+                ep_micro_matches=multichip_ep_micro,
+                ep_compact=multichip_ep_compact,
+                degraded=multichip_degraded,
+                degraded_fail_threshold=multichip_degraded_threshold,
+                ep_overflow_warn=multichip_ep_overflow_warn,
+                ep_autotune=multichip_ep_autotune,
+                ep_grow_threshold=multichip_ep_grow_threshold,
+                ep_shrink_threshold=multichip_ep_shrink_threshold,
+                ep_max_cap_class=multichip_ep_max_cap_class,
+                balance_budget=multichip_balance_budget)
+        # the degraded mesh's alarm latch and its rebuild child's flag
+        self._mesh_alarmed = False
+        self._mesh_rebuilding = False
         self._deep: Dict[str, int] = {}    # too-deep filter -> alias aid
         self._deep_trie = FilterTrie()     # host match for too-deep filters
         # accept id -> its routing filter (None: a free id, or one that
@@ -827,6 +870,9 @@ class MatchService:
             try:
                 self.inc.add(flt)
                 aid = self.inc.aid_of(flt)
+                if self.mc is not None:
+                    # too-deep aliases stay with the host trie
+                    self.mc.note_add(flt, aid)
             except ValueError:   # deeper than the table
                 aid = self.inc.alloc_alias(flt)
                 self._deep[flt] = aid
@@ -855,6 +901,8 @@ class MatchService:
             self.inc.free_alias(aid)
         else:
             self.inc.remove(flt)
+            if self.mc is not None:
+                self.mc.note_del(flt)
         self._note_mutation(flt)
 
     def _note_mutation(self, flt: str) -> None:
@@ -955,7 +1003,17 @@ class MatchService:
         """Apply the host mutations to the device table (rows written in
         place, or a whole upload after the table grew)."""
         self._no_broker("sync")
-        return self.dev.sync()
+        changed = self.dev.sync()
+        mc = self.mc
+        if mc is not None:
+            if not mc.ready and not mc.heavy:
+                # the first sync partitions the whole table (notes
+                # queued before it are in the table too)
+                mc.rebuild(self._mc_pairs())
+            if mc.dirty:
+                self._mc_apply()
+                changed = True
+        return changed
 
     # -- the synchronous core: serving ---------------------------------------
 
@@ -974,7 +1032,7 @@ class MatchService:
             self._topic_sample.extend(batch[:8])
             groups = self._depth_groups(batch)
             results, _nbytes, _trips = self._readback_groups(
-                self._encode_dispatch(batch, groups))
+                self._encode_dispatch(batch, groups, self._mc_active()))
             rows = self._collect_rows(batch, groups, results)
             out.extend(map(self._split_row, rows))
             self._autotune_queued()
@@ -996,23 +1054,31 @@ class MatchService:
         long_ = [i for i in range(len(topics)) if i not in sset]
         return [(short, sd), (long_, self.depth)]
 
-    def _encode_dispatch(self, topics: List[str], groups):
+    def _encode_dispatch(self, topics: List[str], groups,
+                         mc: Optional[MultichipMatcher] = None):
         """Encode every depth group and dispatch its walk on the backend
-        :meth:`_backend_for` picks.  Returns ``[(MatchResult, rows in
-        group)]``; the results are still being computed on the device
+        :meth:`_backend_for` picks, or with ``mc`` through the mesh
+        (encoded against the shards' shared vocab; the rows come back as
+        service accept ids).  Returns ``[(MatchResult or McHandle, rows
+        in group)]``; the results are still being computed on the device
         when this returns."""
         handles = []
         dev = self.dev
         gen = self._table_gen
         for idx, d in groups:
             B = _bucket(len(idx))
-            be = self._backend_for(B, d)
+            be = "hash" if mc is not None else self._backend_for(B, d)
             t0 = time.perf_counter_ns()
-            enc = encode_batch(self.inc, [topics[i] for i in idx], batch=B,
-                               depth=d)
-            t1 = time.perf_counter_ns()
-            res = dev.match(*dev.put_batch(*enc),
-                            flat_cap=self.FLAT_MULT * B, backend=be)
+            names = [topics[i] for i in idx]
+            if mc is not None:
+                enc = mc.encode(names, batch=B, depth=d)
+                t1 = time.perf_counter_ns()
+                res = mc.dispatch(enc)
+            else:
+                enc = encode_batch(self.inc, names, batch=B, depth=d)
+                t1 = time.perf_counter_ns()
+                res = dev.match(*dev.put_batch(*enc),
+                                flat_cap=self.FLAT_MULT * B, backend=be)
             t2 = time.perf_counter_ns()
             self.dispatches += 1
             if be in JOIN_BACKENDS:
@@ -1079,20 +1145,36 @@ class MatchService:
             o += c
         return rows, np.flatnonzero(sp[:n]).tolist()
 
-    def _readback_groups(self, handles):
+    def _readback_groups(self, handles, t0: Optional[int] = None):
         """Every group's slab readback (the flat buffer, the counts and
         both overflow vectors, as the reference reads them on its
-        fixed-window ``chunked`` path): ``([(rows, spilled)...], bytes
-        copied, copies waited on)``."""
+        fixed-window ``chunked`` path; a mesh dispatch's dense compact
+        result, in one wait): ``([(rows, spilled)...], bytes copied,
+        copies waited on)``.  ``t0`` (ns) starts the readback span."""
         out = []
         nbytes = 0
         k = self.dev.max_matches
-        t0 = time.perf_counter_ns()
+        t0 = time.perf_counter_ns() if t0 is None else t0
         for res, n in handles:
+            if isinstance(res, McHandle):
+                rows, sp, b = self.mc.readback(res, n)
+                out.append((rows, sp))
+                nbytes += b
+                continue
             out.append(self._readback_rows(res, n, k))
             nbytes += 4 * (res.matches.numel() + 3 * res.n_matches.numel())
         self._rec_readback(t0, handles)
         return out, nbytes, len(handles)
+
+    async def _mc_readback(self, handles):
+        """The readback of mesh dispatches: each handle's events polled
+        between rounds of the loop, then :meth:`_readback_groups`.
+        Returns ``([(rows, spilled)...], bytes, seconds, waits)``."""
+        t0 = time.perf_counter_ns()
+        for h, _n in handles:
+            await _events_done(h.events)
+        out, nbytes, trips = self._readback_groups(handles, t0)
+        return out, nbytes, (time.perf_counter_ns() - t0) * 1e-9, trips
 
     def _rec_readback(self, t0: int, handles) -> None:
         """Record a batch's readback span, from ``t0`` (ns) to now."""
@@ -1135,8 +1217,27 @@ class MatchService:
         for r in spilled:
             rows[r] = self._host_ids(topics[r])
         self._inc("tpu.match.fallback_host", len(spilled))
+        spset = set(spilled)
+        mc = self.mc
+        if mc is not None and mc.degraded_serving:
+            # replicated rows lost the dead shard's segment: add exactly
+            # its filters from the host (a routed row never holds one:
+            # the dead owner's rows were spilled)
+            fill = mc.dead_aids()
+            if fill:
+                filled = 0
+                for r, t in enumerate(topics):
+                    if r in spset:
+                        continue
+                    add = [a for a in self._host_ids(t) if a in fill]
+                    if add:
+                        rows[r].extend(add)
+                        filled += 1
+                if filled:
+                    mc.cpu_filled_rows += filled
+                    self._inc("tpu.mesh.cpu_filled_rows", filled)
+            self._mesh_watch()
         if self._deep:
-            spset = set(spilled)
             for r, t in enumerate(topics):
                 if r not in spset:
                     rows[r].extend(self._deep_ids(t))
@@ -1250,6 +1351,14 @@ class MatchService:
             raise RuntimeError("start() needs MatchService(broker, ...)")
         self._running = True
         self._bootstrap()
+        if self.mc is not None:
+            # seed the partition: the per-shard segments when the table
+            # cold-started from its segment and the epochs agree, else a
+            # repartition from the live accept ids
+            if not (self.segments and self._segment_loaded
+                    and self.mc.load_segments(self.segments_dir,
+                                              self.inc.epoch)):
+                self.mc.rebuild(self._mc_pairs())
         # what is live now stays live for the node's life: spare the
         # full collections the walk over it (objects made later are
         # collected as usual; stop() leaves the heap frozen)
@@ -1514,6 +1623,16 @@ class MatchService:
             log.warning("table compaction abandoned: %d filters changed "
                         "during the build", len(self._compact_dirty))
             return False
+        mc = self.mc
+        if mc is not None and mc.ep_autotune:
+            # the popularity pass stages a placement that the swap's
+            # repartition applies; a failure (an injected ep.rebalance
+            # fault too) keeps the old placement
+            try:
+                await asyncio.to_thread(mc.plan_rebalance)
+            except Exception:
+                log.warning("EP balance pass failed; placement unchanged",
+                            exc_info=True)
         self._swap_in(built)
         return True
 
@@ -1578,6 +1697,11 @@ class MatchService:
         self._mut_count = len(self._compact_dirty)
         self._compact_dirty = set()
         self.ready = True
+        if self.mc is not None:
+            # every accept id was reassigned: repartition from the fresh
+            # space (the single device serves until it applies)
+            self.mc.rebuild(self._mc_pairs())
+            self._mark_dirty()
         self._inc("tpu.table.compact_runs")
         log.info("compacted table swapped in (gen %d, %d filters)",
                  self._table_gen, fresh.n_filters)
@@ -1632,6 +1756,15 @@ class MatchService:
                     # switch interval, and the mirror fell past
                     # max_stale_deltas under a steady churn)
                     self.dev.apply_pending(pending)
+                if self.mc is not None:
+                    if self.mc.dirty:
+                        # the partition applies in step with the table;
+                        # a repartition builds every table: off the loop
+                        if self.mc.heavy:
+                            await asyncio.to_thread(self._mc_apply)
+                        else:
+                            self._mc_apply()
+                    self._mesh_watch()
                 self.ready = True
                 self._synced_epoch = router_epoch
                 self._synced_rule_gen = rule_gen
@@ -1698,6 +1831,156 @@ class MatchService:
                 res = dev.match(*dev.put_batch(words, lens, is_sys),
                                 flat_cap=self.FLAT_MULT * 64, backend=be)
                 res.n_matches.cpu()
+
+    # -- the multichip serve backend (multichip=True) ---------------------------
+
+    def _mc_pairs(self) -> List[Tuple[str, int]]:
+        """``(filter, accept id)`` of every filter the table holds
+        (routing and rules; too-deep aliases stay with the host trie):
+        the repartition's input."""
+        out = [(f, aid) for aid, f in enumerate(self._filter_of)
+               if f is not None and f not in self._deep]
+        ruled = {f for refs in self._rule_refs.values() for f in refs}
+        for f in ruled:
+            aid = self.inc.aid_of(f)
+            if aid >= 0 and f not in self._deep and \
+                    self._filter_of[aid] is None:
+                out.append((f, aid))
+        return out
+
+    def _mc_apply(self) -> None:
+        """Fold the noted mutations (or a queued repartition) into the
+        shard tables; after the first, warm the mesh's serve shapes;
+        with segments, persist the partition when it changed.  A failure
+        leaves the single device serving; the next sync tries again."""
+        mc = self.mc
+        try:
+            first = not mc.ready
+            if mc.apply_pending() and first:
+                depths = ((self.short_depth, self.depth)
+                          if self.short_depth
+                          and self.short_depth < self.depth
+                          else (self.depth,))
+                mc.warm(batches=(64,), depths=depths)
+            if self.segments and mc._persist_due:
+                mc.save_segments(self.segments_dir, self.inc.epoch)
+        except Exception:
+            log.exception("multichip apply failed; the single device "
+                          "serves")
+
+    def _mc_active(self) -> Optional[MultichipMatcher]:
+        """The matcher when it may serve the next dispatch, else None."""
+        mc = self.mc
+        return mc if mc is not None and mc.ready else None
+
+    def _mesh_watch(self) -> None:
+        """Reconcile the degraded mesh's ladder with the alarm, the
+        flight recorder and the rebuild child: called after a shard
+        failure surfaces and from the sync loop; one attribute walk when
+        healthy."""
+        mc = self.mc
+        if mc is None or not mc.degraded:
+            return
+        dead = mc.dead_shards
+        if self.metrics is not None:
+            self.metrics.set("tpu.mesh.state", mc.mesh_state())
+        if dead and not self._mesh_alarmed:
+            self._mesh_alarmed = True
+            if self.alarms is not None:
+                self.alarms.activate(
+                    "mesh_degraded", {"dead_shards": list(dead),
+                                      "tp": mc.tp},
+                    "mesh shard(s) dead; degraded serving with host fill")
+            if self.flightrec is not None:
+                self.flightrec.dump("mesh_degraded")
+        elif not dead and self._mesh_alarmed:
+            self._mesh_alarmed = False
+            if self.alarms is not None:
+                self.alarms.deactivate("mesh_degraded")
+        if dead and not self._mesh_rebuilding:
+            self._mesh_rebuilding = True
+            sup = self.supervisor
+            if sup is not None:
+                # a crashing rebuild restarts instead of leaving the
+                # shard out for good
+                sup.start_child("mesh.rebuild", self._mesh_rebuild_loop,
+                                restart="transient")
+            else:
+                try:
+                    self._tasks.append(
+                        asyncio.ensure_future(self._mesh_rebuild_loop()))
+                except RuntimeError:
+                    # no running loop: the next watch on the loop starts it
+                    self._mesh_rebuilding = False
+
+    async def _mesh_rebuild_loop(self) -> None:
+        """Online shard rebuild (a transient supervised child): lowest
+        dead shard first, rebuilt off the serve path, canaried against
+        the host tables and re-admitted only on bit parity.  A crash (an
+        injected ``mesh.rebuild`` fault too) restarts the child, and the
+        rebuild starts over; a clean return means every shard is live."""
+        mc = self.mc
+        while self._running and mc is not None and mc.dead_shards:
+            t = mc.dead_shards[0]
+            await asyncio.to_thread(
+                mc.rebuild_shard, t, self._mc_pairs(),
+                self.segments_dir if self.segments else None,
+                self.inc.epoch)
+            if not await self._mesh_canary(t):
+                mc.readmit_canary_fails += 1
+                self._inc("tpu.mesh.readmit_canary_fails")
+                log.error("mesh shard %d rebuild canary failed; the shard "
+                          "stays out", t)
+                await asyncio.sleep(0.05)
+                continue
+            mc.revive_shard(t)
+            # slots dispatched on the degraded plane are answered by the
+            # host (the table-generation guard), with no breaker strike
+            self._table_gen += 1
+            log.warning("mesh shard %d rebuilt and re-admitted (canary "
+                        "passed)", t)
+        self._mesh_rebuilding = False
+        self._mesh_watch()
+
+    async def _mesh_canary(self, t: int) -> bool:
+        """The bit-parity canary of shard ``t``'s re-admission: topics
+        of its own filters through the mesh with ``t`` live, each row
+        against the host tables (the other dead shards' filters, which
+        the degraded plane fills in from the host, credited).  True only
+        when at least one row was checked and every checked row
+        matched."""
+        mc = self.mc
+        topics = mc.canary_topics(t)
+        if not topics:
+            return True     # the shard owns nothing
+        try:
+            rows, spilled = await asyncio.to_thread(
+                mc.canary_rows, topics, _bucket(len(topics)), t)
+        except Exception:
+            log.exception("mesh canary dispatch for shard %d failed", t)
+            return False
+        fill = mc.dead_aids(exclude=t)
+        sp = set(spilled)
+        checked = 0
+        for i, topic in enumerate(topics):
+            if i in sp:
+                continue
+            host = set(self._host_ids(topic))
+            if set(rows[i]) | (host & fill) != host:
+                log.error("mesh canary mismatch on %r (shard %d)", topic, t)
+                return False
+            checked += 1
+        return checked > 0
+
+    def mesh_info(self) -> Optional[Dict[str, Any]]:
+        """The mesh's health snapshot; None without the backend."""
+        mc = self.mc
+        if mc is None:
+            return None
+        out = mc.info()
+        out["alarmed"] = self._mesh_alarmed
+        out["rebuilding"] = self._mesh_rebuilding
+        return out
 
     # -- rule co-batching ------------------------------------------------------
 
@@ -2207,6 +2490,13 @@ class MatchService:
         self._reclaim()
         if self._timed_out:
             raise RuntimeError("a timed-out batch still runs on the card")
+        mc = self._mc_active()
+        if mc is not None:
+            # through the mesh: a dead shard keeps the breaker open
+            h = mc.dispatch(mc.encode(["probe/health"], batch=64))
+            await _events_done(h.events)
+            mc.readback(h, 1)
+            return
         dev = self.dev
         res = dev.match(*dev.put_batch(*encode_batch(
             self.inc, ["probe/health"], batch=64, depth=self.depth)),
@@ -2317,11 +2607,14 @@ class MatchService:
         reuses0, gen0 = self.inc.aid_reuses, self._table_gen
         groups = self._depth_groups(topics)
         self._topic_sample.extend(topics[:8])
+        mc = self._mc_active()
         t0 = time.perf_counter()
-        handles = self._encode_dispatch(topics, groups)
+        handles = self._encode_dispatch(topics, groups, mc)
         t1 = time.perf_counter()
         await self._readback_gate()
-        if self.readback_mode == "chunked" and not self.deadline:
+        if mc is not None:
+            results, nbytes, rb_s, trips = await self._mc_readback(handles)
+        elif self.readback_mode == "chunked" and not self.deadline:
             t2 = time.perf_counter()
             results, nbytes, trips = self._readback_groups(handles)
             rb_s = time.perf_counter() - t2
@@ -2399,6 +2692,8 @@ class MatchService:
         self._evict()
         self._inc("broker.match.cpu_fallback", len(pending))
         self._count_misses(pending)
+        # a shard failure lands here: reconcile the mesh ladder
+        self._mesh_watch()
 
     def _count_misses(self, pending: List[Any]) -> None:
         """Count the waiters answered past their deadline (a deadline
@@ -2482,10 +2777,12 @@ class MatchService:
                 await self._fault_gate()
             groups = self._depth_groups(topics)
             self._topic_sample.extend(topics[:8])
+            mc = self._mc_active()
             t0 = time.perf_counter()
-            handles = self._encode_dispatch(topics, groups)
+            handles = self._encode_dispatch(topics, groups, mc)
             slot = self._make_slot(pending, topics, groups, handles,
-                                   reuses0, gen0, epoch, rule_gen)
+                                   reuses0, gen0, epoch, rule_gen,
+                                   mesh=mc is not None)
             slot.dispatch_s = time.perf_counter() - t0
             slot.deadline = self.deadline
             await self._inflight_q.put(slot)   # backpressure at the depth
@@ -2504,13 +2801,18 @@ class MatchService:
 
     def _make_slot(self, pending, topics, groups, handles, reuses0: int,
                    gen0: int, epoch: int, rule_gen: int,
-                   slab: bool = False) -> _Slot:
+                   slab: bool = False, mesh: bool = False) -> _Slot:
         """The slot of dispatched ``handles``: phase 1 of its readback
         (each group's ``row_meta`` into a borrowed pinned buffer; with
         ``slab``, each group's whole slab into pinned buffers of its own)
-        is enqueued behind the walks, and the event after it recorded.
+        is enqueued behind the walks, and the event after it recorded;
+        mesh dispatches (``mesh``) carry their own copies and events.
         The slot holds the table's freed accept ids until
         :meth:`_release_slot`."""
+        if mesh:
+            self.dev.hold_ids()
+            return _Slot(pending, topics, groups, handles, reuses0, gen0,
+                         epoch, rule_gen, held=self.dev)
         if slab:
             pin = self.dev.device.type == "cuda"
             copies = []
@@ -2627,6 +2929,8 @@ class MatchService:
         for a ``slab`` slot, one wait for the slabs (the bytes and the
         one trip a group of the reference's ``chunked`` slab read).
         Returns ``([(rows, spilled)...], bytes, seconds, waits)``."""
+        if slot.handles and isinstance(slot.handles[0][0], McHandle):
+            return await self._mc_readback(slot.handles)
         t0 = time.perf_counter_ns()
         await _event_done(slot.event)
         k = self.dev.max_matches
@@ -2737,6 +3041,7 @@ class MatchService:
             "join_rebuilds": self.dev.join_rebuilds,
             "autotune": (self.tuner.info()
                          if self.tuner is not None else None),
+            "multichip": (self.mc.info() if self.mc is not None else None),
             "segments": ({
                 "dir": self.segments_dir,
                 "loaded": self._segment_loaded,

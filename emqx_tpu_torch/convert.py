@@ -9,6 +9,12 @@ port's walk.  With ``join``, the reference's join relation (its
 overlay``) is mirrored as it is, tombstones and overlay rows included,
 so that a relation the reference built and churned answers through the
 port's join kernel.  The layouts are the same, so nothing is converted.
+
+:func:`multichip_arrays_from_reference` does the same for a reference
+``MultichipMatcher``: its stacked arrays (``_arrs``: the per-shard
+tables, aid maps, micro-table and ``word_owner``), read as numpy, become
+the port's per-shard tensors on a mesh, so that both packages' steps
+run on the very same tables.
 """
 
 from __future__ import annotations
@@ -21,8 +27,11 @@ import torch
 from .ops.device_table import DeviceNfa
 from .ops.join_match import JoinRelation
 from .ops.incremental import NfaDelta
+from .parallel.mesh import Mesh
+from .parallel.multichip_serve import MeshTables, mesh_tables
 
-__all__ = ["FrozenTable", "from_reference"]
+__all__ = ["FrozenTable", "from_reference",
+           "multichip_arrays_from_reference"]
 
 
 class FrozenTable:
@@ -72,3 +81,16 @@ def from_reference(node_tab, edge_tab, seeds, accept_filters, vocab,
             int(table.node_tab.shape[0]), table.edge_tab,
             arrays=tuple(np.asarray(a) for a in join)))
     return dev
+
+
+def multichip_arrays_from_reference(mc, mesh: Mesh) -> MeshTables:
+    """A reference ``MultichipMatcher``'s stacked arrays (``mc._arrs``,
+    any array type numpy reads: ``node_stk``, ``edge_stk``,
+    ``seeds_stk``, ``aid_stk``, the micro-table's node, edge, seeds and
+    aid map, ``word_owner``) as the port's :class:`MeshTables` on
+    ``mesh``, whose ``tp`` must be the reference's."""
+    arrays = [np.asarray(a) for a in mc._arrs]
+    if arrays[0].shape[0] != mesh.shape["tp"]:
+        raise ValueError(f"reference tables hold {arrays[0].shape[0]} "
+                         f"shards; the mesh has tp={mesh.shape['tp']}")
+    return mesh_tables(mesh, *arrays)

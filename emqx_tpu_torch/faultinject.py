@@ -31,6 +31,8 @@ Named injection points:
 ``match.readback``   MatchService d2h readback boundary (raise / delay /
                      hang; a hang parks until the waiters' prefetch
                      timeout, or in deadline mode the per-dispatch one)
+``match.shard``      MultichipMatcher dispatch gate (raise: the batch
+                     fails over to the host like a dead shard; delay)
 ``table.load``       MatchService segment cold-start load (raise: treated
                      like a corrupt segment, the full rebuild serves)
 ``table.swap``       MatchService compacted-table swap, fired before any
@@ -44,6 +46,12 @@ Named injection points:
 ``inflight.retry``   Inflight.older_than retry scan (raise)
 ``exhook.call``      ExHookManager advisory gRPC call (raise: the
                      server's failure_action path; delay)
+``ep.route``         MultichipMatcher routed front end (raise: the
+                     routed dispatch is refused; delay)
+``mesh.rebuild``     MultichipMatcher.rebuild_shard (raise: the
+                     supervised rebuild child restarts; delay)
+``ep.rebalance``     MultichipMatcher.plan_rebalance, before anything is
+                     staged (raise: the pass is a no-op; delay)
 ==================  =====================================================
 
 Rule fields: ``point`` (required), ``action`` (``raise`` | ``drop`` |
@@ -67,9 +75,10 @@ __all__ = [
 ]
 
 POINTS = ("transport.write", "frame.parse", "match.dispatch",
-          "match.compile", "match.readback", "table.load", "table.swap",
-          "fanout.drain", "inflight.insert", "inflight.retry",
-          "exhook.call")
+          "match.compile", "match.readback", "match.shard", "table.load",
+          "table.swap", "fanout.drain", "inflight.insert",
+          "inflight.retry", "exhook.call", "ep.route", "mesh.rebuild",
+          "ep.rebalance")
 
 _ACTIONS = ("raise", "drop", "delay", "dup", "hang")
 

@@ -119,6 +119,8 @@ def _load() -> ctypes.CDLL:
         "nfa_remove": (i32, by_name),
         "nfa_bulk_add": (i64, [vp, ctypes.c_char_p, i64]),
         "nfa_intern": (i32, by_name),
+        "nfa_bulk_intern": (i64, [vp, ctypes.c_char_p, i64]),
+        "nfa_grow_edges_to": (i64, [vp, i64]),
         "nfa_aid_of": (i32, by_name),
         "nfa_bulk_aid_of": (i64, [vp, ctypes.c_char_p, i64, i32p]),
         "nfa_alloc_alias": (i32, by_name),
@@ -255,6 +257,22 @@ class NativeNfa:
         if word not in self._vocab:
             self._vocab[word] = wid
         return wid
+
+    def bulk_intern(self, words: Sequence[str]) -> int:
+        """Intern many words in order with one native call (NUL framing:
+        words may hold '\\n', never NUL); returns the words read."""
+        blob = "\x00".join(words).encode()
+        n = int(self._lib.nfa_bulk_intern(self._h, blob, len(blob)))
+        for w in words:
+            if w not in self._vocab:
+                self._vocab[w] = len(self._vocab) + 1
+        return n
+
+    def grow_edges_to(self, hb_target: int) -> int:
+        """Grow the cuckoo edge table until Hb >= ``hb_target`` (lookups
+        hash modulo Hb, so the shard tables of one mesh share one real
+        bucket count).  Marks the table resized; returns the new Hb."""
+        return int(self._lib.nfa_grow_edges_to(self._h, int(hb_target)))
 
     # -- introspection -----------------------------------------------------
 

@@ -21,7 +21,10 @@ and exhook, listeners last); stop order is the reverse.
 
 ``BrokerNode(config, auth_chain=None, authz=None, device=None)`` serves
 its match service on the card unless ``device`` names another (``"cpu"``
-runs the kernels' plain versions).  Where the reference logs a match
+runs the kernels' plain versions).  ``device`` may be a list of devices:
+with ``match.multichip.enable`` the mesh the table shards over (a
+device may repeat, so ``["cpu"] * 8`` is an eight-shard mesh on the
+CPU); the single-device table takes the first.  Where the reference logs a match
 service that cannot start and serves from the host trie,
 :meth:`BrokerNode.start` raises.
 
@@ -44,7 +47,7 @@ import asyncio
 import logging
 import os
 import time
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -117,7 +120,9 @@ class BrokerNode:
     def __init__(self, config: Optional[Config] = None,
                  auth_chain: Optional[AuthChain] = None,
                  authz: Optional[Authz] = None, *,
-                 device: Union[None, str, torch.device] = None) -> None:
+                 device: Union[None, str, torch.device,
+                               Sequence[Union[str, torch.device]]] = None
+                 ) -> None:
         self.config = config if config is not None else Config()
         cfg = self.config
         _check_ported(cfg)

@@ -15,7 +15,8 @@ from typing import Dict, Iterable, List, Optional
 __all__ = ["Metrics", "METRIC_NAMES", "TPU_METRIC_NAMES",
            "BROKER_METRIC_NAMES", "FANOUT_METRIC_NAMES",
            "CONNPLANE_METRIC_NAMES", "ROBUSTNESS_METRIC_NAMES",
-           "MATCH_SERVE_METRIC_NAMES", "TABLE_METRIC_NAMES"]
+           "MATCH_SERVE_METRIC_NAMES", "TABLE_METRIC_NAMES",
+           "MULTICHIP_METRIC_NAMES", "MESH_METRIC_NAMES"]
 
 # -- the reference's fixed counter names, grouped as in emqx_metrics.erl [U]
 METRIC_NAMES: List[str] = [
@@ -160,6 +161,40 @@ TABLE_METRIC_NAMES: List[str] = [
 ]
 
 
+# -- the multichip serve backend (parallel/multichip_serve.py, with
+# match.multichip.enable): shard_devices the mesh size dp·tp (set),
+# shard_dispatches the batches served from the sharded table (one a
+# depth group), shard_failover the dispatches refused (a dead or
+# fault-injected shard, a shard whose launch raised, an ep.route fault),
+# shard_restacks the full uploads of the shard tables (set).  The EP
+# routed front end: ep_dispatches, ep_overflow_rows (rows it failed open
+# to the host), ep_shard_width (tp·C of the last routed dispatch, set),
+# ep_ici_bytes (the routing all_to_all's bytes, by formula),
+# ep_overflow_ewma (set, 0..1); the load-adaptive plane: ep_cap_class
+# (set), ep_resizes, ep_rebalances, ep_moved_roots (set)
+MULTICHIP_METRIC_NAMES: List[str] = [
+    "tpu.match.shard_devices", "tpu.match.shard_dispatches",
+    "tpu.match.shard_failover", "tpu.match.shard_restacks",
+    "tpu.match.ep_dispatches", "tpu.match.ep_overflow_rows",
+    "tpu.match.ep_shard_width", "tpu.match.ep_ici_bytes",
+    "tpu.match.ep_overflow_ewma",
+    "tpu.match.ep_cap_class", "tpu.match.ep_resizes",
+    "tpu.match.ep_rebalances", "tpu.match.ep_moved_roots",
+]
+
+# -- the degraded mesh (match.multichip.degraded.enable): state the
+# ladder's rung (set: 0 healthy, 1 degraded, 2 cpu-only),
+# degraded_batches the dispatches served with a dead shard,
+# cpu_filled_rows the rows the host filled in or answered under the
+# scoped failover, rebuild_s the last shard rebuild's seconds (set),
+# readmit_canary_fails the re-admissions a canary refused
+MESH_METRIC_NAMES: List[str] = [
+    "tpu.mesh.state", "tpu.mesh.degraded_batches",
+    "tpu.mesh.cpu_filled_rows", "tpu.mesh.rebuild_s",
+    "tpu.mesh.readmit_canary_fails",
+]
+
+
 class Metrics:
     """A counter table with the fixed name set.
 
@@ -174,7 +209,8 @@ class Metrics:
         for names in (METRIC_NAMES, TPU_METRIC_NAMES, BROKER_METRIC_NAMES,
                       FANOUT_METRIC_NAMES, CONNPLANE_METRIC_NAMES,
                       ROBUSTNESS_METRIC_NAMES, MATCH_SERVE_METRIC_NAMES,
-                      TABLE_METRIC_NAMES, extra or ()):
+                      TABLE_METRIC_NAMES, MULTICHIP_METRIC_NAMES,
+                      MESH_METRIC_NAMES, extra or ()):
             self._c.update({n: 0 for n in names})
 
     def inc(self, name: str, n: int = 1) -> None:

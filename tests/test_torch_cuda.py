@@ -4,6 +4,7 @@ flat epilogue fused in) against their plain PyTorch versions, and the asyncio se
 readback, the deadline loop's dispatch timeout over a real hang, grow in
 place and a compaction swap); the dense walk against its plain version,
 the two-tier matcher and the retained replay; the exhook match sidecar;
+the multichip step and matcher on a mesh of four shards of one card;
 on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
 module imports neither JAX nor the reference package, so it also runs
 where only the port is installed:
@@ -1315,3 +1316,76 @@ def test_match_sidecar_on_card_equals_cpu():
     # micro-batches; the warm-up's walk came before the window)
     assert card[2] == card[3] >= 2
     assert card[4] == cpu[4] == 0 and card[5] == cpu[5] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ep,compact", [(False, False), (True, False),
+                                        (True, True)],
+                         ids=["replicated", "routed", "routed_compact"])
+def test_multichip_step_on_card_equals_plain_and_cpu(ep, compact):
+    """The multichip step (K8a) on ``[cuda:0] * 4``: each shard's walk is
+    the hash-walk kernel, two launches a shard a dispatch; every field
+    equals the step with the plain walk on the same card tables, and the
+    matcher's rows equal a CPU mesh's on the same filters (through a
+    churn scattered in place and a dead shard's failover)."""
+    _skip_without_card()
+    from emqx_tpu_torch.parallel import (MultichipMatcher, ShardDead,
+                                         build_multichip_step)
+
+    filters, topics = build_workload(np.random.default_rng(8), 20000, 4096)
+    inc = IncrementalNfa(depth=16)
+    pairs = []
+    for f in filters:
+        inc.add(f)
+        pairs.append((f, inc.aid_of(f)))
+    mcs = {}
+    for dev in ("cuda", "cpu"):
+        mc = MultichipMatcher(depth=16, tp=4,
+                              devices=[torch.device(dev)] * 4,
+                              active_slots=16, max_matches=32, ep=ep,
+                              ep_compact=compact, ep_slack=4.0)
+        mc.rebuild(pairs)
+        assert mc.apply_pending()
+        mcs[dev] = mc
+    card = mcs["cuda"]
+    assert card.mesh.devices[0][0].type == "cuda"
+    enc = card.encode(topics[:2048], batch=2048)
+    kw = dict(routed=card._routed_for(2048),
+              capacity=card.ep_capacity(2048) if ep else 0,
+              compact=compact)
+    walk_kernel.launches = 0
+    with card.mesh.streams():
+        got = build_multichip_step(card.mesh, 16, 32, **kw)(*enc,
+                                                             card._arrs)
+        want = build_multichip_step(card.mesh, 16, 32, plain=True,
+                                    **kw)(*enc, card._arrs)
+    assert walk_kernel.launches == 2 * card.tp
+    for name, g, w in zip(got._fields, got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w), name
+
+    def rows(mc, names):
+        out, sp, nb = mc.readback(mc.dispatch(mc.encode(names, batch=2048)),
+                                  len(names))
+        return [sorted(r) for r in out], sp, nb
+
+    for lo in (0, 2048):
+        assert rows(card, topics[lo:lo + 2048]) == \
+            rows(mcs["cpu"], topics[lo:lo + 2048])
+    for i, f in enumerate(["fresh/+/x", "+/fresh", filters[3]]):
+        if f == filters[3]:
+            inc.remove(f)
+            for mc in mcs.values():
+                mc.note_del(f)
+        else:
+            inc.add(f)
+            for mc in mcs.values():
+                mc.note_add(f, inc.aid_of(f))
+    for mc in mcs.values():
+        assert mc.apply_pending()
+    names = topics[:2000] + ["fresh/q/x", "q/fresh"]
+    assert rows(card, names) == rows(mcs["cpu"], names)
+    card.kill_shard(1)
+    with pytest.raises(ShardDead):
+        card.dispatch(card.encode(names, batch=2048))
+    assert card.failovers == 1

@@ -19,7 +19,9 @@ with a broker attached) on the CPU, where the plain walks serve.
   is kept, and a late wake runs the sync without a second debounce;
 * (e) the autotuner against the reference class, and ``auto`` routing;
 * (f) the encoder lock under concurrent encodes;
-* (g) the parameters that are not ported raise.
+* (g) every reference parameter is taken (the multichip plane's, the
+  last once refused, build the matcher; ``tests/test_torch_multichip*``
+  hold it to the reference); an unknown one raises.
 """
 
 import asyncio
@@ -1071,11 +1073,25 @@ def test_encoder_serialises_concurrent_encodes(table):
     ("multichip_ep_autotune", True), ("multichip_balance_budget", 8),
     ("multichip_ep_compact", True)])
 def test_unported_parameters_raise(name, value):
-    """Only the multichip plane's parameters are left unported."""
-    assert set(match_service._UNPORTED) == {
-        k for k in match_service._UNPORTED if k.startswith("multichip")}
-    with pytest.raises(NotImplementedError, match=name):
-        MatchService(device="cpu", **{name: value})
+    """The multichip plane's parameters, the last left unported, are now
+    taken: nothing is refused any more, and the matcher gets the value
+    (on a mesh of four CPU devices)."""
+    assert not hasattr(match_service, "_UNPORTED")
+    kw = {name: value, "device": [torch.device("cpu")] * 4}
+    if name != "multichip":
+        kw["multichip"] = True
+    ms = MatchService(**kw)
+    mc = ms.mc
+    assert mc is not None and mc.n_devices == 4
+    got = {"multichip": True, "multichip_tp": mc.tp,
+           "multichip_native": mc.native, "multichip_ep": mc.ep,
+           "multichip_ep_slack": mc.ep_slack,
+           "multichip_ep_micro": mc.ep_micro_matches,
+           "multichip_degraded": mc.degraded,
+           "multichip_ep_autotune": mc.ep_autotune,
+           "multichip_balance_budget": mc.balance_budget,
+           "multichip_ep_compact": mc.ep_compact}[name]
+    assert got == value
 
 
 @pytest.mark.parametrize("name,value", [

@@ -257,7 +257,10 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     # every subpackage, the rule engine and access control among them
     scanned = {p.parent.name for p in files}
     assert {"rule_engine", "auth", "broker", "ops", "native", "exhook",
-            "storage"} <= scanned
+            "storage", "parallel"} <= scanned
+    for mod in ("mesh", "collectives", "sharded_match", "prefix_ep",
+                "multichip_serve"):
+        assert REPO / "emqx_tpu_torch" / "parallel" / f"{mod}.py" in files
     assert REPO / "emqx_tpu_torch" / "storage" / "checkpoint.py" in files
     # the kernels' wrappers, the flat epilogue's and the dense walk's
     # among them
