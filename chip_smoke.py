@@ -84,6 +84,22 @@ phases, one JSON line each; any failure exits non-zero:
    step's device ms (CUDA events on the mesh stream), the dispatch's
    host ms, readback bytes a batch, spilled rows, the bytes bound, the
    shards' filters and states;
+   multichip_fanout — the fan-out library (K8b-K8f) on that service's
+   table: its 1M filters as 1M subscriptions of 10,000 clients (filter
+   i to client i % 10,000), the ``(F+1, 316)`` accept bitmap built on
+   the card; on ``[cuda:0] * 4`` meshes, 5 batches of 2048 through the
+   sharded matcher and its compact twin (tp 4, cap 64), the ``$share``
+   selector (16 groups of seed 7, the last empty), the ring and its
+   compact twin (ring 4), the EP matcher (ep 4 over native partitions of
+   the filters) and the Ulysses step with the unreshard: each step's
+   launches of the walk and of the four bitmap kernels
+   (``bitmap_fanout.cu``: ``accept_or``, ``bitmap_compact``,
+   ``group_count``, ``group_pick``) as it states them, each equal to its
+   plain build on every field for 2 batches, every unflagged row equal
+   to the trie oracle; each step's device and host ms a dispatch, each
+   kernel alone at the served shape (rotating, L2 flushed) with its
+   bound and its plain version's ms; then dryrun_multichip — the
+   reference's dry run of every step on ``[cuda:0] * 4``;
 7. times_join — phase 5's readings for the join kernel and service
    (phases 4 and 6 and multichip share one 1M workload and its trie
    oracle, built once: each phase undoes its churn in the oracle);
@@ -332,7 +348,8 @@ The line before the last names every kernel with its numbers (and its
 launch shape, ``ptxas`` register count, launches on each path, the
 exhook paths' among them, and its 10M readings; the dense walk's at the
 tiered hot shape, with ``bench_dense``'s beside; the flat epilogue's on
-the 1M hash walks at D = 16, its other shapes beside); the last line is
+the 1M hash walks at D = 16, its other shapes beside; the four bitmap
+kernels' at multichip_fanout's served shape); the last line is
 ``{"ok": true, "device": {...}}``.
 With no CUDA device the script prints no result and exits 2.
 ``--rehearse-cpu`` runs phases 4-11, the slice_node, tiered,
@@ -1406,6 +1423,478 @@ def phase_multichip(torch, device, s: Dict, shared: Dict, card: str):
     line["wall_s"] = time.perf_counter() - t_start
     _emit_checked(line, failed)
     return {"launches": launches_total, "max_abs_err": max_err}
+
+
+#: multichip_fanout: config 2's 1M filters as 1M subscriptions of
+#: FANOUT_CLIENTS clients (filter i of the workload, and the churn's
+#: j-th new filter as 1M + j, to client i % FANOUT_CLIENTS), on
+#: [cuda:0] * 4 meshes; each step serves FANOUT_BATCHES batches of
+#: 2048, of which FANOUT_PLAIN also run with the plain versions
+FANOUT_CLIENTS = SESSIONS
+FANOUT_BATCHES = 5
+FANOUT_PLAIN = 2
+FANOUT_CAP = 64             # cap_row of the compact forms
+FANOUT_GROUPS = 16          # $share groups of 2-4,000 members, the last empty
+FANOUT_SEED = 7             # the groups and the selector hashes
+FANOUT_PICK_STRIDE = 97     # rows whose picks are held to host_pick
+#: the bitmap kernels: the reference function each replaces
+BITMAP_SOURCE = "emqx_tpu_torch/ops/csrc/bitmap_fanout.cu"
+BITMAP_KERNELS = {
+    "accept_or": "emqx_tpu/parallel/sharded_match.py:88",
+    "bitmap_compact": "emqx_tpu/parallel/sharded_match.py:100",
+    "group_count": "emqx_tpu/parallel/shared_group.py:92",
+    "group_pick": "emqx_tpu/parallel/shared_group.py:105"}
+
+
+def _fields(out) -> List:
+    """A step's outputs as a list of tensors (a ``Sharded`` whole)."""
+    from emqx_tpu_torch.parallel import Sharded
+
+    if isinstance(out, Sharded):
+        return [out.full()]
+    if isinstance(out, tuple):
+        return [t for x in out for t in _fields(x)]
+    return [out]
+
+
+def _max_err(got, want) -> int:
+    err = 0
+    for x, y in zip(_fields(got), _fields(want)):
+        _check(x.shape == y.shape, f"field shapes {x.shape} != {y.shape}")
+        if x.numel():
+            err = max(err, int((x.long() - y.long()).abs().max()))
+    return err
+
+
+def _fanout_oracle(trie, topics, client_of, W: int) -> np.ndarray:
+    """``(len(topics), W)`` uint32: each topic's OR of the clients of the
+    oracle's matching filters."""
+    out = np.zeros((len(topics), W), np.uint32)
+    for r, t in enumerate(topics):
+        for f in trie.match(t):
+            c = client_of[f]
+            out[r, c >> 5] |= np.uint32(1 << (c & 31))
+    return out
+
+
+def _bitmap_bound(in_bytes: List[float], out_bytes: int, ops: float) -> Dict:
+    """A bitmap kernel's bound: each input it needs read once and each
+    output written once over the memory rate, against ``ops`` 32-bit
+    operations over the scalar rate; the larger."""
+    nbytes = sum(in_bytes) + out_bytes
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return {"bound_bytes": nbytes, "bound_ops": ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _time_bitmap(torch, device, calls, plain, flush) -> Dict:
+    """One bitmap kernel alone: device ms rotating over ``calls`` (one a
+    served batch), the same with the L2 flushed before each launch, and
+    ``plain()`` (its plain version on the first batch's inputs) as a host
+    loop of events."""
+    time_ms = timer(torch, device)
+    turn = [0]
+
+    def rotate():
+        turn[0] += 1
+        calls[turn[0] % len(calls)]()
+
+    card = device.type == "cuda"
+    rot = time_ms(rotate, 20 * len(calls) if card else 1)
+    cold = time_ms(rotate, 4 * len(calls) if card else 1,
+                   before=flush if card else None)
+    pt = time_ms(plain, 3 if card else 1)
+    return {"ms": rot["ms"], "ms_cold": cold["ms"],
+            "call_ms": rot["call_ms"], "covered": rot["covered"]
+            and cold["covered"], "plain_ms": pt["ms"],
+            "plain_covered": pt["covered"],
+            "plain_timing": "events over a host loop"}
+
+
+def phase_multichip_fanout(torch, device, s: Dict, shared: Dict,
+                           card: str) -> Dict:
+    """The fan-out library (K8b-K8f) at config 2's 1M subscriptions: the
+    ``slice`` service's table (with its churn) and accept ids, each
+    filter one client's subscription (``FANOUT_CLIENTS`` clients), the
+    accept bitmap ``(F+1, W)`` built on the card (W = 313 words padded to
+    316 for four shards).  On ``[cuda:0] * 4`` meshes, each of
+    ``FANOUT_BATCHES`` served batches of 2048 (D = 16, A = 16, K = 128)
+    goes through ``build_sharded_matcher`` and its compact twin (dp 1, tp
+    4, cap 64), ``build_shared_selector`` (tp 4, 16 groups of seed 7, the
+    last empty), ``build_ring_fanout`` and its compact twin (dp 1, ring
+    4), ``build_ep_matcher`` (ep 4, capacity max(32, B / E² · 4), over
+    ``build_partitions`` of the service's filters as native tables) and
+    ``build_ulysses_step`` (u 4) with ``build_unreshard``.  Checks: each
+    step's kernel launches a dispatch as the step states; each step equal
+    to its plain build (the plain walk and the plain bitmap functions) on
+    every field for ``FANOUT_PLAIN`` batches; every row not flagged
+    (active or match overflow, compact or ring truncation, EP overflow)
+    equal to the trie oracle (the OR of its filters' clients; EP: the
+    filters; the pick: ``host_pick`` on every 97th row); the Ulysses
+    dispatch equal to the sharded bitmap and ``unreshard(reshard(x)) ==
+    x``.  Readings: each step's device ms (CUDA events on the mesh
+    stream) and host ms a dispatch; each kernel alone at the served shape
+    (rotating, L2 flushed), its bound and its plain version's ms; the
+    bitmap's bytes.  Returns each kernel's line entry numbers."""
+    from emqx_tpu_torch import parallel as P
+    from emqx_tpu_torch.ops import bitmap_kernel as bk
+    from emqx_tpu_torch.ops import encode_batch, nfa_match, walk_kernel
+    from emqx_tpu_torch.ops.encode import TopicEncoder
+
+    t_start = time.perf_counter()
+    svc, trie, topics = s["svc"], shared["trie"], shared["topics"]
+    depth, A, K = svc.depth, svc.dev.active_slots, svc.dev.max_matches
+    n_subs = FANOUT_CLIENTS
+    gone, fresh = s["churn"]
+    client_of = {f: i % n_subs for i, f in enumerate(shared["filters"])}
+    for j, f in enumerate(fresh):
+        client_of[f] = (len(shared["filters"]) + j) % n_subs
+    batches = [topics[i * BATCH:(i + 1) * BATCH]
+               for i in range(FANOUT_BATCHES)]
+    # the oracle with the table's churn, as the service holds it
+    for f in gone:
+        trie.delete(f)
+    for f in fresh:
+        trie.insert(f)
+    t0 = time.perf_counter()
+    W = (n_subs + 31) // 32
+    W += (-W) % 4
+    want_bm = [_fanout_oracle(trie, b, client_of, W) for b in batches]
+    want_f = [[sorted(trie.match(t)) for t in b] for b in batches]
+    _undo_churn(trie, gone, fresh)
+    oracle_s = time.perf_counter() - t0
+
+    # -- the accept bitmap on the card: one client's bit a filter --------
+    t0 = time.perf_counter()
+    fo = svc._filter_of
+    F = max(len(fo), int(svc.inc.n_accepts))
+    aids = np.array([a for a, f in enumerate(fo) if f is not None], np.int64)
+    live = [fo[a] for a in aids.tolist()]
+    subs = np.array([client_of[f] for f in live], np.int64)
+    rows_pad = F + 1 + (-(F + 1)) % 4
+    bm = torch.zeros((rows_pad, W), dtype=torch.int32, device=device)
+    bit = (np.int64(1) << (subs & 31))
+    bit = np.where(bit >= 1 << 31, bit - (1 << 32), bit).astype(np.int32)
+    bm[torch.from_numpy(aids).to(device),
+       torch.from_numpy(subs >> 5).to(device)] = torch.from_numpy(bit).to(
+        device)
+    bm_main = bm[:F + 1]            # (F+1, W): row F the zero sentinel
+    tabs = svc.dev.arrays()
+    enc = [[torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in encode_batch(svc.inc, b, batch=BATCH, depth=depth)]
+           for b in batches]
+    rng = np.random.default_rng(FANOUT_SEED)
+    groups = [rng.choice(n_subs, size=int(rng.integers(2, 4000)),
+                         replace=False)
+              for _ in range(FANOUT_GROUPS - 1)] + [[]]
+    masks = P.make_group_masks(groups, n_subs, W)
+    masks_t = torch.from_numpy(masks.view(np.int32)).to(device)
+    sel = rng.integers(0, 2**31 - 1, (FANOUT_BATCHES, BATCH)).astype(
+        np.int32)
+    sel_t = [torch.from_numpy(x).to(device) for x in sel]
+    bitmap_s = time.perf_counter() - t0
+    # the EP partitions of the service's filters (native tables at 1M)
+    t0 = time.perf_counter()
+    E = 4
+    ep_tabs = P.build_partitions(live, E, depth=depth)
+    ep_t = [torch.from_numpy(a).to(device) for a in (
+        ep_tabs.node_tabs, ep_tabs.edge_tabs, ep_tabs.seeds)]
+    ep_enc = [[torch.from_numpy(np.ascontiguousarray(a)).to(device)
+               for a in TopicEncoder(ep_tabs.vocab).encode(
+                   b, depth, batch=BATCH)] for b in batches]
+    ep_build_s = time.perf_counter() - t0
+    capacity = max(32, BATCH // (E * E) * 4)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+    devs = [device] * 4
+    mesh = {k: P.make_mesh(shape, devs) for k, shape in (
+        ("tp", {"dp": 1, "tp": 4}), ("ring", {"dp": 1, "ring": 4}),
+        ("ep", {"ep": E}), ("u", {"u": 4}))}
+    kw = dict(active_slots=A, max_matches=K)
+    built = {}
+    for plain in (False, True):
+        built[plain] = {
+            "sharded": P.build_sharded_matcher(mesh["tp"], plain=plain, **kw),
+            "sharded_compact": P.build_sharded_matcher_compact(
+                mesh["tp"], cap_row=FANOUT_CAP, plain=plain, **kw),
+            "selector": P.build_shared_selector(mesh["tp"], plain=plain),
+            "ring": P.build_ring_fanout(mesh["ring"], plain=plain, **kw),
+            "ring_compact": P.build_ring_fanout_compact(
+                mesh["ring"], cap_row=FANOUT_CAP, plain=plain, **kw),
+            "ep": P.build_ep_matcher(mesh["ep"], capacity, plain=plain,
+                                     **kw),
+            "ulysses": P.build_ulysses_step(mesh["u"], plain=plain, **kw)}
+    bitmaps: List = []      # the sharded step's bitmaps, the selector's input
+
+    def call(step, i, plain):
+        fn = built[plain][step]
+        if step == "selector":
+            return fn(bitmaps[i], masks_t, sel_t[i])
+        if step == "ep":
+            return fn(*ep_enc[i], *ep_t)
+        return fn(*enc[i], *tabs, bm if step.startswith("ring") else bm_main)
+
+    # (walks, accept_or, bitmap_compact, group_count, group_pick) a
+    # dispatch, as each step states them for four positions on one card
+    per_dispatch = {
+        "sharded": (1, 4, 0, 0, 0), "sharded_compact": (1, 4, 4, 0, 0),
+        "selector": (0, 0, 0, 4, 4), "ring": (1, 4, 0, 0, 0),
+        "ring_compact": (1, 4, 4, 0, 0), "ep": (E, 0, 0, 0, 0),
+        "ulysses": (1, 4, 0, 0, 0)}
+    names = ("accept_or", "bitmap_compact", "group_count", "group_pick")
+    launches = {k: 0 for k in names}
+    walks = 0
+    failed: List[str] = []
+    steps: Dict[str, Dict] = {}
+    outs: Dict[str, List] = {}
+    for step, want_n in per_dispatch.items():
+        m = mesh["u" if step == "ulysses" else "ep" if step == "ep" else
+                 "ring" if step.startswith("ring") else "tp"]
+        stream = m.stream_of.get(device)
+        host_ms, marks, res = [], [], []
+        with m.streams():
+            call(step, 0, False)        # warm-up: first-call costs
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        # -- the main path: counts zeroed just before, read just after --
+        _reset_launches()
+        bk.reset_launches()
+        with m.streams():
+            for i in range(FANOUT_BATCHES):
+                if stream is not None:
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record(stream)
+                t1 = time.perf_counter()
+                res.append(call(step, i, False))
+                host_ms.append((time.perf_counter() - t1) * 1e3)
+                if stream is not None:
+                    e1.record(stream)
+                    marks.append((e0, e1))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        got_n = (walk_kernel.launches, *(bk.launches[k] for k in names))
+        # ----------------------------------------------------------------
+        dev_ms = [a.elapsed_time(b) for a, b in marks]
+        walks += got_n[0]
+        for k, n in zip(names, got_n[1:]):
+            launches[k] += n
+        if device.type == "cuda" and got_n != tuple(
+                FANOUT_BATCHES * x for x in want_n):
+            failed.append(f"{step}: launches (walk, accept_or, compact, "
+                          f"count, pick) {got_n}, want "
+                          f"{FANOUT_BATCHES} x {want_n}")
+        if step == "sharded":
+            bitmaps[:] = [r.bitmap for r in res]
+        err = 0
+        with m.streams():
+            for i in range(FANOUT_PLAIN):
+                err = max(err, _max_err(call(step, i, False),
+                                        call(step, i, True)))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        if err:
+            failed.append(f"{step}: kernels differ from the plain versions "
+                          f"by {err}")
+        outs[step] = res
+        steps[step] = {
+            "launches_per_dispatch": dict(zip(("walk",) + names, want_n)),
+            "step_device_ms": (float(np.mean(dev_ms)) if dev_ms
+                               else "not measured"),
+            "step_device_ms_p99": (_pct(dev_ms, 99) if dev_ms
+                                   else "not measured"),
+            "dispatch_host_ms": float(np.mean(host_ms)),
+            "plain_batches": FANOUT_PLAIN, "max_abs_err": err}
+
+    # -- every unflagged row against the oracle ---------------------------
+    bad = {k: 0 for k in steps}
+    flagged = 0
+    picks = 0
+    for i in range(FANOUT_BATCHES):
+        sh = outs["sharded"][i]
+        flag = ((sh.active_overflow > 0) | (sh.match_overflow > 0)).cpu() \
+            .numpy()
+        flagged += int(flag.sum())
+        ok = ~flag
+        want = want_bm[i]
+        got = sh.bitmap.cpu().numpy().view(np.uint32)
+        bad["sharded"] += int((got != want).any(axis=1)[ok].sum())
+        popc = np.unpackbits(want.view(np.uint8), axis=1).sum(1)
+        bad["sharded"] += int((sh.n_subscribers.cpu().numpy() != popc)[ok]
+                              .sum())
+        cres = outs["sharded_compact"][i]
+        cover = cres.overflow.cpu().numpy().any(axis=1)
+        rows = P.decode_compact_rows(cres.ids.cpu().numpy(),
+                                     cres.counts.cpu().numpy(), FANOUT_CAP)
+        wbits = np.unpackbits(want.view(np.uint8), axis=1, bitorder="little")
+        for r in np.flatnonzero(ok & ~cover):
+            bad["sharded_compact"] += sorted(rows[r].tolist()) != \
+                np.flatnonzero(wbits[r]).tolist()
+        picked = outs["selector"][i].cpu().numpy()
+        for r in range(0, BATCH, FANOUT_PICK_STRIDE):
+            if flag[r]:
+                continue
+            for g in range(FANOUT_GROUPS):
+                picks += 1
+                bad["selector"] += int(picked[r, g]) != P.host_pick(
+                    want[r], masks[g], int(sel[i, r]))
+        bad["selector"] += int((picked[:, -1] != -1).sum())
+        ring = outs["ring"][i].cpu().numpy().view(np.uint32)
+        bad["ring"] += int((ring != want).any(axis=1)[ok].sum())
+        racc, rtr = (x.cpu().numpy() for x in outs["ring_compact"][i])
+        rok = ok & (rtr == 0)
+        bad["ring_compact"] += int(
+            (racc.view(np.uint32) != want).any(axis=1)[rok].sum())
+        ep = outs["ep"][i]
+        em, en, eo, eov = (x.cpu().numpy() for x in (
+            ep.matches, ep.n_matches, ep.owners, ep.overflow))
+        for r in np.flatnonzero(ok & (eov == 0)):
+            gotf = sorted(ep_tabs.accept_filters[eo[r]][a]
+                          for a in em[r][:en[r]])
+            bad["ep"] += gotf != want_f[i][r]
+        uly = outs["ulysses"][i]
+        disp = uly.dispatch_bitmap.full()
+        bad["ulysses"] += int((disp != sh.bitmap).any(dim=1).sum())
+        dbits = np.unpackbits(disp.cpu().numpy().view(np.uint8), axis=1,
+                              bitorder="little").sum(0)
+        bad["ulysses"] += int((uly.sub_deliveries.full().cpu().numpy()
+                               != dbits).sum())
+        back = P.build_unreshard(mesh["u"])(P.build_reshard(mesh["u"])(
+            sh.bitmap))
+        bad["ulysses"] += int((back.full() != sh.bitmap).any(dim=1).sum())
+        steps["ep"].setdefault("overflow_rows", 0)
+        steps["ep"]["overflow_rows"] += int(eov.sum())
+        steps["sharded_compact"].setdefault("overflow_rows", 0)
+        steps["sharded_compact"]["overflow_rows"] += int(cover.sum())
+        steps["ring_compact"].setdefault("truncated_rows", 0)
+        steps["ring_compact"]["truncated_rows"] += int((rtr > 0).sum())
+    for step, n in bad.items():
+        steps[step]["rows_differing_from_oracle"] = n
+        if n:
+            failed.append(f"{step}: {n} rows differ from the oracle")
+
+    # -- each kernel alone at the served shape ----------------------------
+    flush = (torch.empty(64 << 20, dtype=torch.int32, device=device).zero_
+             if device.type == "cuda" else None)
+    Wl = W // 4
+    cols = bm_main[:, :Wl]
+    ms = [nfa_match(*e, *tabs, active_slots=A, max_matches=K).matches
+          for e in enc]
+    ors = [bk.accept_or(cols, m_)[0] for m_ in ms]
+    bl = [b[:, :Wl] for b in bitmaps]
+    ml = masks_t[:, :Wl]
+    counts = [bk.group_count_plain(b, masks_t) for b in bitmaps]
+    loc = [bk.group_count(b, ml) for b in bl]
+    zero = torch.zeros_like(loc[0])
+    G = FANOUT_GROUPS
+    valid = [int(torch.unique(m_[m_ >= 0]).numel()) for m_ in ms]
+    n_valid = [int((m_ >= 0).sum()) for m_ in ms]
+    kern = {
+        "accept_or": (
+            [lambda m_=m_: bk.accept_or(cols, m_) for m_ in ms],
+            lambda: bk.accept_or_plain(cols, ms[0]),
+            _bitmap_bound([BATCH * K * 4,
+                                        float(np.mean(valid)) * Wl * 4],
+                          BATCH * (Wl + 1) * 4,
+                          float(np.mean(n_valid)) * Wl + BATCH * Wl)),
+        "bitmap_compact": (
+            [lambda o=o: bk.bitmap_compact(o, FANOUT_CAP) for o in ors],
+            lambda: bk.bitmap_compact_plain(ors[0], FANOUT_CAP),
+            _bitmap_bound([BATCH * Wl * 4],
+                          BATCH * (FANOUT_CAP + 2) * 4, 3.0 * BATCH * Wl)),
+        "group_count": (
+            [lambda b=b: bk.group_count(b, ml) for b in bl],
+            lambda: bk.group_count_plain(bl[0], ml),
+            _bitmap_bound([BATCH * Wl * 4, G * Wl * 4],
+                          BATCH * G * 4, 3.0 * BATCH * G * Wl)),
+        "group_pick": (
+            [lambda i=i: bk.group_pick(bl[i], ml, sel_t[i], counts[i], zero,
+                                       loc[i], 0)
+             for i in range(FANOUT_BATCHES)],
+            lambda: bk.group_pick_plain(bl[0], ml, sel_t[0], counts[0],
+                                        zero, loc[0], 0),
+            _bitmap_bound([BATCH * Wl * 4, G * Wl * 4,
+                                         BATCH * 4, 3 * BATCH * G * 4],
+                          BATCH * G * 4, 3.0 * BATCH * G * Wl))}
+    timing = {}
+    for name, (calls, plain, bound) in kern.items():
+        timing[name] = {**_time_bitmap(torch, device, calls, plain, flush),
+                        **bound}
+    if device.type == "cuda":
+        _check(all(t["covered"] for t in timing.values()),
+               "a bitmap kernel's time was not covered by the sleep")
+    line = {"phase": "multichip_fanout", "card": card,
+            "subscriptions": len(live), "clients": n_subs,
+            "accept_ids": F, "bitmap_shape": [F + 1, W],
+            "bitmap_bytes": (F + 1) * W * 4, "batch": BATCH, "D": depth,
+            "A": A, "K": K, "batches": FANOUT_BATCHES,
+            "mesh": "[cuda:0] * 4" if device.type == "cuda" else "[cpu] * 4",
+            "flagged_rows": flagged, "picks_checked": picks,
+            "ep": {"parts": E, "capacity": capacity,
+                   "partition_filters": [sum(f is not None for f in a)
+                                         for a in ep_tabs.accept_filters],
+                   "S": int(ep_tabs.node_tabs.shape[1]),
+                   "Hb": int(ep_tabs.edge_tabs.shape[1]),
+                   "native": len(live) >= P.prefix_ep.NATIVE_FROM,
+                   "build_s": ep_build_s},
+            "oracle_s": oracle_s, "bitmap_build_s": bitmap_s,
+            "steps": steps, "kernels": timing, "launches": launches,
+            "walk_launches": walks}
+    line["wall_s"] = time.perf_counter() - t_start
+    _emit_checked(line, failed)
+    return {"launches": launches, "walk_launches": walks, "timing": timing,
+            "max_abs_err": max(x["max_abs_err"] for x in steps.values())}
+
+
+def phase_dryrun_multichip(torch, device, card: str) -> Dict:
+    """``dryrun_multichip([device] * 4)``: the reference's dry run of
+    every fan-out step (4,096 topics, 65,536 subscribers, K = 16), each
+    checked against the single-device walk and the host oracles."""
+    from emqx_tpu_torch.ops import bitmap_kernel as bk
+    from emqx_tpu_torch.ops import walk_kernel
+    from emqx_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    bk.reset_launches()
+    out = dryrun_multichip([device] * 4, verbose=False)
+    line = {"phase": "dryrun_multichip", "ok": True, "card": card,
+            "devices": [str(device)] * 4, **out,
+            "walk_launches": walk_kernel.launches,
+            "bitmap_launches": dict(bk.launches),
+            "wall_s": time.perf_counter() - t0}
+    if device.type == "cuda":
+        # no compact form in the dry run: every other kernel launches
+        _check(walk_kernel.launches > 0 and bk.launches["bitmap_compact"]
+               == 0 and all(n for k, n in bk.launches.items()
+                            if k != "bitmap_compact"),
+               f"dryrun_multichip launched {dict(bk.launches)}")
+    emit(line)
+    return {"launches": dict(bk.launches),
+            "walk_launches": walk_kernel.launches}
+
+
+def _bitmap_entries(fan: Dict, dry: Dict) -> List[Dict]:
+    """The four bitmap kernels' entries of the kernels line: launches on
+    the multichip_fanout main path (and the dry run's), their times at
+    the served shape, bounds and plain versions' times."""
+    out = []
+    for name, replaces in BITMAP_KERNELS.items():
+        t = fan["timing"][name]
+        out.append({
+            "name": name, "route": "cuda", "source": BITMAP_SOURCE,
+            "replaces": replaces, "launches": fan["launches"][name],
+            "launches_by_path": {"multichip_fanout": fan["launches"][name],
+                                 "dryrun_multichip": dry["launches"][name]},
+            "registers": _registers("bitmap_fanout", f"{name}_kernel"),
+            "max_abs_err": fan["max_abs_err"], "ms": t["ms"],
+            "ms_cold": t["ms_cold"], "plain_ms": t["plain_ms"],
+            "plain_timing": t["plain_timing"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+    return out
 
 
 def phase_slice_join(torch, device, n_filters: int, shared=None) -> Dict:
@@ -6110,6 +6599,12 @@ def main(argv=None) -> int:
         launches["hash"]["multichip"] = mc["launches"]
         launches["join"]["multichip"] = 0
         max_err["hash"] = max(max_err["hash"], mc["max_abs_err"])
+        phase = "multichip_fanout"
+        fan = phase_multichip_fanout(torch, device, s, shared, card)
+        phase = "dryrun_multichip"
+        dry = phase_dryrun_multichip(torch, device, card)
+        launches["hash"]["multichip_fanout"] = fan["walk_launches"]
+        launches["hash"]["dryrun_multichip"] = dry["walk_launches"]
         # one table in host memory at a time
         s = mc = None
         gc.collect()
@@ -6218,7 +6713,8 @@ def main(argv=None) -> int:
         _dense_entry(launches["dense"], dense_check, tiered["shape"]),
         _flat_entry(max_err["flat"], {
             "1m_hash": shapes, "1m_join": join_shapes,
-            "10m_hash": shapes_10m, "10m_join": join_shapes_10m}, flat_d8)]})
+            "10m_hash": shapes_10m, "10m_join": join_shapes_10m}, flat_d8),
+        *_bitmap_entries(fan, dry)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -15,6 +15,12 @@ port's join kernel.  The layouts are the same, so nothing is converted.
 tables, aid maps, micro-table and ``word_owner``), read as numpy, become
 the port's per-shard tensors on a mesh, so that both packages' steps
 run on the very same tables.
+
+The fan-out's operands carry across too: the reference's uint32 accept
+bitmaps and ``$share`` group masks become the port's int32 bit patterns
+(:func:`accept_bitmap_from_reference`, :func:`group_masks_from_reference`),
+and its prefix partitions the port's ``EpTables``
+(:func:`ep_tables_from_reference`).
 """
 
 from __future__ import annotations
@@ -24,14 +30,16 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .ops.device_table import DeviceNfa
+from .ops.device_table import DeviceNfa, resolve_device
 from .ops.join_match import JoinRelation
 from .ops.incremental import NfaDelta
 from .parallel.mesh import Mesh
 from .parallel.multichip_serve import MeshTables, mesh_tables
+from .parallel.prefix_ep import EpTables
 
-__all__ = ["FrozenTable", "from_reference",
-           "multichip_arrays_from_reference"]
+__all__ = ["FrozenTable", "accept_bitmap_from_reference",
+           "ep_tables_from_reference", "from_reference",
+           "group_masks_from_reference", "multichip_arrays_from_reference"]
 
 
 class FrozenTable:
@@ -94,3 +102,39 @@ def multichip_arrays_from_reference(mc, mesh: Mesh) -> MeshTables:
         raise ValueError(f"reference tables hold {arrays[0].shape[0]} "
                          f"shards; the mesh has tp={mesh.shape['tp']}")
     return mesh_tables(mesh, *arrays)
+
+
+def _bits(a, device) -> torch.Tensor:
+    """A uint32 bitmap (numpy or any array type numpy reads) as the port's
+    int32 bit patterns on ``device`` (default: the card; the caller names
+    the CPU)."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype != np.uint32:
+        raise ValueError(f"want a uint32 bitmap, got {a.dtype}")
+    return torch.from_numpy(a.view(np.int32).copy()).to(
+        resolve_device(device))
+
+
+def accept_bitmap_from_reference(bitmap, device=None) -> torch.Tensor:
+    """The reference's accept→subscriber bitmap (``make_accept_bitmap``,
+    ``shard_bitmap_rows``: ``(F+1, W)`` uint32) as the port's int32 bit
+    patterns on ``device`` (the card unless the caller names another)."""
+    return _bits(bitmap, device)
+
+
+def group_masks_from_reference(masks, device=None) -> torch.Tensor:
+    """The reference's ``$share`` group masks (``make_group_masks``: ``(G,
+    W)`` uint32) as the port's int32 bit patterns on ``device``."""
+    return _bits(masks, device)
+
+
+def ep_tables_from_reference(tabs) -> EpTables:
+    """The reference's ``EpTables`` (``build_partitions``) as the port's:
+    the stacked tables, the shared vocab and the per-partition accept
+    filters copied."""
+    return EpTables(
+        node_tabs=np.array(tabs.node_tabs, np.int32),
+        edge_tabs=np.array(tabs.edge_tabs, np.int32),
+        seeds=np.array(tabs.seeds, np.int32), vocab=dict(tabs.vocab),
+        accept_filters=[list(a) for a in tabs.accept_filters],
+        depth=int(tabs.depth))

@@ -76,6 +76,10 @@ class NfaTable:
     def Hb(self) -> int:
         return int(self.edge_tab.shape[0])
 
+    @property
+    def n_accepts(self) -> int:
+        return len(self.accept_filters)
+
     def device_arrays(self):
         """The arrays the walk consumes, in argument order."""
         return (self.node_tab, self.edge_tab, self.seeds)

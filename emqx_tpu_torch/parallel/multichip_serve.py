@@ -85,6 +85,7 @@ from .. import topic as T
 from .collectives import all_gather, all_to_all, psum
 from .mesh import Mesh, default_devices, make_mesh, pick_shape
 from .sharded_match import CompactFanoutResult, decode_compact_rows
+from .steps import walk_match as _walk_match
 
 log = logging.getLogger(__name__)
 
@@ -192,26 +193,6 @@ def _scatter_rows(tabs: Sequence[torch.Tensor], idx: np.ndarray,
         keep = last[idx[last] < tab.shape[0]]
         tab.index_copy_(0, _put(idx[keep], tab.device),
                         _put(rows[keep], tab.device))
-
-
-def _walk_match(active_slots: int, plain: bool):
-    """``match(w, l, s, node, edge, seeds, K) -> MatchResult`` in
-    compact mode: the port's ``nfa_match`` (the hash-walk kernel on CUDA
-    tensors), or with ``plain`` the walk's plain version on any device
-    (what the kernel is held to)."""
-    from ..ops.match_kernel import epilogue, nfa_match
-    from ..ops.walk_kernel import nfa_walk_plain
-
-    if plain:
-        def match(w, l, s, node, edge, seeds, K):
-            acc, aover = nfa_walk_plain(w, l, s, node, edge, seeds,
-                                        active_slots=active_slots)
-            return epilogue(acc, aover, K, True, 0)
-    else:
-        def match(w, l, s, node, edge, seeds, K):
-            return nfa_match(w, l, s, node, edge, seeds,
-                             active_slots=active_slots, max_matches=K)
-    return match
 
 
 def _translate(matches: torch.Tensor, amap: torch.Tensor) -> torch.Tensor:

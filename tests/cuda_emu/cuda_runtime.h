@@ -1,4 +1,4 @@
-// A CPU stand-in for the CUDA features the walk kernels use, so that
+// A CPU stand-in for the CUDA features the port's kernels use, so that
 // their sources build with g++ and run on the host
 // (tests/test_torch_kernel_emu.py).  Every CUDA thread of a block is a
 // ucontext coroutine on one host thread; the blocks of a launch run one
@@ -106,6 +106,20 @@ inline void st_relaxed(unsigned long long* p, unsigned long long v) {
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+// PTX fns: the position of the |offset|-th set bit of `mask` counting
+// from bit `base` up (offset > 0) or down (offset < 0); offset 0 asks
+// whether bit `base` is set.  0xffffffff where there is none.
+inline unsigned __fns(unsigned mask, unsigned base, int offset) {
+  if (offset == 0) return (mask >> base & 1u) ? base : 0xffffffffu;
+  int left = (offset > 0 ? offset : -offset) - 1;
+  const int step = offset > 0 ? 1 : -1;
+  for (int pos = (int)base; pos >= 0 && pos < 32; pos += step)
+    if (mask >> pos & 1u) {
+      if (left == 0) return (unsigned)pos;
+      --left;
+    }
+  return 0xffffffffu;
+}
 using std::max;
 using std::min;
 
@@ -195,6 +209,12 @@ inline void __syncthreads() {
 
 inline unsigned atomicAdd(unsigned* addr, unsigned v) {
   const unsigned old = *addr;
+  *addr = old + v;
+  return old;
+}
+
+inline int atomicAdd(int* addr, int v) {
+  const int old = *addr;
   *addr = old + v;
   return old;
 }

@@ -5,7 +5,8 @@ readback, the deadline loop's dispatch timeout over a real hang, grow in
 place and a compaction swap); the dense walk against its plain version,
 the two-tier matcher and the retained replay; the exhook match sidecar;
 the multichip step and matcher on a mesh of four shards of one card;
-on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
+the fan-out's four bitmap kernels against their plain versions, the
+library steps (K8b-K8f) and the dry run on that mesh; on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
 module imports neither JAX nor the reference package, so it also runs
 where only the port is installed:
 
@@ -1389,3 +1390,172 @@ def test_multichip_step_on_card_equals_plain_and_cpu(ep, compact):
     with pytest.raises(ShardDead):
         card.dispatch(card.encode(names, batch=2048))
     assert card.failovers == 1
+
+
+# -- the fan-out's bitmap kernels and the library steps (K8b-K8f) -------------
+
+def _bits(rng, shape, density):
+    b = rng.random(shape + (32,)) < density
+    words = (b * (1 << np.arange(32, dtype=np.uint64))).sum(-1)
+    return torch.from_numpy(words.astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,K,lo,rows", [(300, 200, 0, 97),
+                                         (79, 128, 0, 97),
+                                         (316, 40, 30, 40)])
+def test_accept_or_kernel_equals_plain(W, K, lo, rows):
+    """``accept_or`` on a column slice (rows W + 37 apart): a partly
+    filled last tile, more ids than a block, a row of -1 ids, a window of
+    rows; then ids all -1."""
+    _skip_without_card()
+    from emqx_tpu_torch.ops import bitmap_kernel as bk
+
+    rng = np.random.default_rng(W + K)
+    wide = _bits(rng, (rows, W + 37), 0.05)
+    wide[-1] = 0
+    bitmap = wide.cuda()[:, 37:]
+    ids = rng.integers(-1, lo + rows + 20, (1000, K)).astype(np.int32)
+    ids[2] = -1
+    ids = torch.from_numpy(ids).cuda()
+    bk.reset_launches()
+    got = bk.accept_or(bitmap, ids, lo)
+    assert bk.launches["accept_or"] == 1
+    want = bk.accept_or_plain(bitmap, ids, lo)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    none = torch.full((5, 8), -1, dtype=torch.int32, device="cuda")
+    got = bk.accept_or(bitmap, none, lo)
+    assert not bool(got[0].any()) and not bool(got[1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,cap,base", [(316, 64, 0), (79, 64, 3 * 79 * 32),
+                                        (300, 10_000, 0), (79, 0, 0)])
+def test_bitmap_compact_kernel_equals_plain(W, cap, base):
+    """Rows of every density (empty and full among them), rows past the
+    cap, a cap past every id and a cap of 0."""
+    _skip_without_card()
+    from emqx_tpu_torch.ops import bitmap_kernel as bk
+
+    rng = np.random.default_rng(W + cap)
+    bitmap = torch.cat([_bits(rng, (200, W), d)
+                        for d in (0.0, 1.0, 0.01, 0.2, 0.5)]).cuda()
+    got = bk.bitmap_compact(bitmap, cap, base)
+    want = bk.bitmap_compact_plain(bitmap, cap, base)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,W,tp", [(2048, 16, 79, 4), (333, 5, 40, 2)])
+def test_group_kernels_equal_plain(B, G, W, tp):
+    """``group_count`` and ``group_pick`` on each of ``tp`` column slices
+    (a partly filled last block, negative hashes, an empty group)."""
+    _skip_without_card()
+    from emqx_tpu_torch.ops import bitmap_kernel as bk
+
+    rng = np.random.default_rng(B + G)
+    bitmap = _bits(rng, (B, W * tp), 0.3).cuda()
+    masks = _bits(rng, (G, W * tp), 0.2).cuda()
+    masks[-1] = 0
+    sel = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, B)
+                           .astype(np.int32)).cuda()
+    counts = []
+    for t in range(tp):
+        bl, ml = bitmap[:, t * W:(t + 1) * W], masks[:, t * W:(t + 1) * W]
+        got = bk.group_count(bl, ml)
+        assert torch.equal(got, bk.group_count_plain(bl, ml))
+        counts.append(got)
+    total = sum(counts)
+    for t in range(tp):
+        bl, ml = bitmap[:, t * W:(t + 1) * W], masks[:, t * W:(t + 1) * W]
+        before = sum(counts[:t], torch.zeros_like(total))
+        got = bk.group_pick(bl, ml, sel, total, before, counts[t], t * W)
+        want = bk.group_pick_plain(bl, ml, sel, total, before, counts[t],
+                                   t * W)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fanout_steps_on_card_equal_plain_and_cpu():
+    """Each library step on ``[cuda:0] * 4`` (its walk the hash-walk
+    kernel, its bitmap work the four kernels, as many launches as the
+    step states) equals the same step with the plain versions on the
+    card and the step on a CPU mesh, every field."""
+    _skip_without_card()
+    from emqx_tpu_torch import parallel as P
+    from emqx_tpu_torch.ops import bitmap_kernel as bk
+    from emqx_tpu_torch.ops import compile_filters, encode_topics
+
+    filters, topics = build_workload(np.random.default_rng(9), 5000, 512)
+    table = compile_filters(filters, depth=8)
+    enc = encode_topics(table, topics, batch=512)
+    n_subs = 5000
+    bitmap = P.make_accept_bitmap(
+        table, lambda f: [hash(f) % n_subs, len(f) * 7 % n_subs], n_subs,
+        tp=4)
+    host = [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (*enc, *table.device_arrays(),
+                      bitmap.view(np.int32))]
+    card = [x.cuda() for x in host]
+    rows = P.shard_bitmap_rows(bitmap, 4)
+    meshes = {d: {k: P.make_mesh(s, [torch.device(d)] * 4) for k, s in (
+        ("tp", {"dp": 1, "tp": 4}), ("ring", {"dp": 1, "ring": 4}),
+        ("u", {"u": 4}))} for d in ("cuda", "cpu")}
+
+    def run(dev, plain):
+        ms = meshes[dev]
+        x = card if dev == "cuda" else host
+        r = torch.from_numpy(rows.view(np.int32)).to(dev)
+        return {
+            "sharded": P.build_sharded_matcher(ms["tp"], plain=plain)(*x),
+            "compact": P.build_sharded_matcher_compact(
+                ms["tp"], cap_row=8, plain=plain)(*x),
+            "ring": (P.build_ring_fanout(ms["ring"], plain=plain)(
+                *x[:6], r),),
+            "ring_compact": P.build_ring_fanout_compact(
+                ms["ring"], cap_row=8, plain=plain)(*x[:6], r),
+            "ulysses": ulysses(P.build_ulysses_step(ms["u"], plain=plain)(
+                *x)),
+        }
+
+    def ulysses(res):
+        return (res.dispatch_bitmap.full(), res.sub_deliveries.full(),
+                res.n_matches, res.active_overflow)
+
+    bk.reset_launches()
+    walk_kernel.launches = 0
+    got = run("cuda", False)
+    assert walk_kernel.launches == 5        # one walk a step (one card)
+    assert bk.launches == {"accept_or": 20, "bitmap_compact": 8,
+                           "group_count": 0, "group_pick": 0}
+    want, cpu = run("cuda", True), run("cpu", False)
+    for k in got:
+        for g, w, c in zip(got[k], want[k], cpu[k]):
+            assert g.device.type == "cuda"
+            assert torch.equal(g, w) and torch.equal(g.cpu(), c), k
+    sel = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 2**31 - 1, 512).astype(np.int32))
+    masks = torch.from_numpy(P.make_group_masks(
+        [range(g, n_subs, 17 + g) for g in range(7)] + [[]], n_subs,
+        bitmap.shape[1]).view(np.int32))
+    bm = got["sharded"].bitmap
+    bk.reset_launches()
+    pick = P.build_shared_selector(meshes["cuda"]["tp"])(bm, masks.cuda(),
+                                                         sel.cuda())
+    assert bk.launches["group_count"] == bk.launches["group_pick"] == 4
+    assert torch.equal(pick, P.build_shared_selector(
+        meshes["cuda"]["tp"], plain=True)(bm, masks.cuda(), sel.cuda()))
+    assert torch.equal(pick.cpu(), P.build_shared_selector(
+        meshes["cpu"]["tp"])(bm.cpu(), masks, sel))
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_card():
+    """The dry run on ``[cuda:0] * 4`` through to its end."""
+    _skip_without_card()
+    from emqx_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = dryrun_multichip([torch.device("cuda", 0)] * 4, verbose=False)
+    assert out["config2_3"]["mesh"] == {"dp": 1, "tp": 4}
+    assert out["ep"]["parity_checked"] > 0

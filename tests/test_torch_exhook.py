@@ -584,6 +584,7 @@ def test_stalled_walk_fails_the_publish_in_the_port(monkeypatch):
     """A publish whose micro-batch does not come back in time fails with
     DEADLINE_EXCEEDED (counted); the host does not answer for the card,
     and once the walk returns the next publish is served by it."""
+    queue_wait_s = port_server.QUEUE_WAIT_S
     monkeypatch.setattr(port_server, "QUEUE_WAIT_S", 0.2)
 
     async def main():
@@ -601,12 +602,15 @@ def test_stalled_walk_fails_the_publish_in_the_port(monkeypatch):
                 return real(*a, **kw)
 
             monkeypatch.setattr(h.sc, "_device_rows", stalled)
+            batches = h.sc.batches
             with pytest.raises(grpc.aio.AioRpcError) as e:
                 await h.publish("s/1/t")
             assert e.value.code() == grpc.StatusCode.DEADLINE_EXCEEDED
             assert h.sc.queue_timeouts == 1 and h.sc.host_rows == 0
             monkeypatch.setattr(h.sc, "_device_rows", real)
-            await asyncio.sleep(0.6)   # the stalled batch drains
+            # the stalled batch drains: the batch loop has finished it
+            assert await settle(lambda: h.sc.batches > batches)
+            monkeypatch.setattr(port_server, "QUEUE_WAIT_S", queue_wait_s)
             got = await h.publish("s/1/t")
             assert got[2]["matched_filters"] == str(
                 len(oracle(FILTERS, "s/1/t")))

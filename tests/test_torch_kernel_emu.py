@@ -26,7 +26,14 @@ row mid-way and drops the later ones, a cap past every id (the -1 tail),
 B = 1, B = 101 (no whole number of tiles, several tiles), ``$`` topics,
 one state buffer across launches (no memset between them).  A
 look-back that would wait for a tile that never publishes ends the
-launch with the stand-in's fault.  It says nothing of speed, and
+launch with the stand-in's fault.  The four kernels of the fan-out's
+bitmaps (``bitmap_fanout.cu``) are held to their plain versions: an OR
+of gathered rows with its popcount (a tile of the row partly filled,
+ids all -1, a window of rows, a column slice, more ids than a block),
+the compaction (rows past ``cap_row``, an empty and a full row, rounds
+of words not a multiple of the block), the group counts and the
+hashed pick (a partly filled last block, negative hashes, an empty
+group).  It says nothing of speed, and
 ``tests/test_torch_cuda.py`` remains the test on the card.  Skips where
 g++ is missing."""
 
@@ -42,6 +49,7 @@ import torch
 
 from emqx_tpu_torch.ops import DeviceNfa, IncrementalNfa, encode_batch
 from emqx_tpu_torch.ops import compile_filters, cuda_build, encode_topics
+from emqx_tpu_torch.ops import bitmap_kernel as bk
 # the module (``emqx_tpu_torch.ops.dense_match`` is the function)
 dense_mod = importlib.import_module("emqx_tpu_torch.ops.dense_match")
 from emqx_tpu_torch.ops.dense_match import (
@@ -59,7 +67,8 @@ LAUNCH = re.compile(r"(\w+)<<<\s*(.*?),\s*(\w+),\s*(\w+),\s*"
                     r"\(cudaStream_t\)stream>>>\(", re.S)
 DYN_SMEM = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
 #: each C entry point: (library, symbol, ctypes arguments)
-ENTRIES = {**_ENTRY, "dense_walk": ("dense_walk", *dense_mod._ENTRY)}
+ENTRIES = {**_ENTRY, "dense_walk": ("dense_walk", *dense_mod._ENTRY),
+           **bk._ENTRY}
 #: each level of w/a/b/c/d/e/f literal or '+': that topic's frontier
 #: doubles each level, so its walk spills at every A below 64
 FAN_FILTERS = ["w/" + "/".join("+" if m >> k & 1 else c
@@ -585,3 +594,137 @@ def test_dense_launch_shape_is_the_kernels():
                      (4096, 32)]:
         threads, G = dense_launch_shape(S)
         assert G == lanes and threads % 32 == 0
+
+
+# -- the fan-out's bitmap kernels (bitmap_fanout.cu) ---------------------------
+
+I32 = torch.int32
+
+
+def _bits(rng, shape, density):
+    """int32 bit patterns with each bit set with probability
+    ``density``."""
+    b = rng.random(shape + (32,)) < density
+    words = (b * (1 << np.arange(32, dtype=np.uint64))).sum(-1)
+    return torch.from_numpy(words.astype(np.uint32).view(np.int32))
+
+
+def _accept_or_emu(emu, bitmap, ids, lo):
+    rows, W = bitmap.shape
+    B, K = ids.shape
+    out = torch.full((B, W), -7, dtype=I32)
+    popc = torch.zeros((B,), dtype=I32)
+    rc = emu["accept_or"](bitmap.data_ptr(), rows, W, bitmap.stride(0),
+                          ids.data_ptr(), B, K, lo, out.data_ptr(),
+                          popc.data_ptr(), None)
+    assert rc == 0
+    return out, popc
+
+
+@pytest.mark.parametrize("W,K,lo,rows", [
+    (300, 200, 0, 97),    # three tiles, the last 44 words; two id rounds
+    (79, 16, 0, 97),      # one tile, 79 of 128 threads
+    (150, 40, 30, 40),    # a ring window [30, 70): others read nothing
+    (5, 1, 0, 8)])
+def test_accept_or_source_equals_plain(emu_kernels, W, K, lo, rows):
+    rng = np.random.default_rng(W + K)
+    wide = _bits(rng, (rows, W + 37), 0.05)
+    bitmap = wide[:, 37:]            # a column slice, rows W + 37 apart
+    B = 7
+    ids = rng.integers(-1, lo + rows + 20, (B, K)).astype(np.int32)
+    ids[2] = -1                       # a row of no ids
+    ids[3, : K // 2] = rng.integers(lo, lo + rows, K // 2)
+    ids = torch.from_numpy(ids)
+    got = _accept_or_emu(emu_kernels, bitmap, ids, lo)
+    want = bk.accept_or_plain(bitmap, ids, lo)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[1][2]) == 0 and int(want[1].sum()) > 0
+
+
+def test_accept_or_source_all_ids_invalid(emu_kernels):
+    """Ids all -1 give zero rows and counts, though every bitmap row
+    (the last, a sentinel's place, among them) has bits set."""
+    rng = np.random.default_rng(3)
+    bitmap = _bits(rng, (20, 130), 0.5)
+    assert bool((bitmap != 0).any(dim=1).all())
+    ids = torch.full((5, 8), -1, dtype=I32)
+    got = _accept_or_emu(emu_kernels, bitmap, ids, 0)
+    assert not bool(got[0].any()) and not bool(got[1].any())
+    want = bk.accept_or_plain(bitmap, ids, 0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("W,cap,base", [(300, 10_000, 0), (300, 17, 3 * 79 * 32),
+                                        (79, 64, 79 * 32), (79, 0, 0),
+                                        (1, 5, 2**31 - 40)])
+def test_bitmap_compact_source_equals_plain(emu_kernels, W, cap, base):
+    """Rows of every density: empty, full, sparse and dense; a cap past
+    every id, rows past the cap, a cap of 0, ids that wrap past int32."""
+    rng = np.random.default_rng(W + cap)
+    B = 6
+    bitmap = torch.cat([_bits(rng, (1, W), d)
+                        for d in (0.0, 1.0, 0.01, 0.2, 0.5, 0.03)])
+    ids = torch.full((B, cap), -7, dtype=I32)
+    counts, over = (torch.full((B,), -7, dtype=I32) for _ in range(2))
+    rc = emu_kernels["bitmap_compact"](
+        bitmap.data_ptr(), B, W, bitmap.stride(0), cap, bk._i32(base),
+        ids.data_ptr(), counts.data_ptr(), over.data_ptr(), None)
+    assert rc == 0
+    want = bk.bitmap_compact_plain(bitmap, cap, base)
+    for g, w in zip((ids, counts, over), want):
+        assert torch.equal(g, w)
+    assert int(want[1][0]) == 0 and int(want[1][1]) == 32 * W
+    if 0 < cap < 32 * W:
+        assert bool(want[2].any())
+
+
+def _group_inputs(seed, B, G, W, tp):
+    """A bitmap, masks (the last group empty) and hashes (some negative),
+    with each of ``tp`` column shards' counts, the total and each
+    shard's exclusive prefix, as the selector computes them."""
+    rng = np.random.default_rng(seed)
+    bitmap = _bits(rng, (B, W * tp), 0.3)
+    bitmap[1] = 0                     # a row with no candidate
+    masks = _bits(rng, (G, W * tp), 0.2)
+    masks[-1] = 0
+    sel = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, B)
+                           .astype(np.int32))
+    sel[: B // 2] = sel[: B // 2].abs()
+    counts = [bk.group_count_plain(bitmap[:, t * W:(t + 1) * W],
+                                   masks[:, t * W:(t + 1) * W])
+              for t in range(tp)]
+    total = sum(counts)
+    before = [sum(counts[:t], torch.zeros_like(total)) for t in range(tp)]
+    return bitmap, masks, sel, counts, total, before
+
+
+@pytest.mark.parametrize("B,G,W,tp", [(7, 5, 79, 4), (3, 3, 40, 2),
+                                      (9, 16, 10, 1)])
+def test_group_kernels_source_equal_plain(emu_kernels, B, G, W, tp):
+    """Each shard's counts and picks against the plain versions (B·G
+    pairs fill the last block partly; W past one warp's 32 words); the
+    picks of all shards, max-reduced, name one member of each group that
+    has candidates."""
+    bitmap, masks, sel, counts, total, before = _group_inputs(
+        B * G + W, B, G, W, tp)
+    picks = []
+    for t in range(tp):
+        bl, ml = bitmap[:, t * W:(t + 1) * W], masks[:, t * W:(t + 1) * W]
+        got = torch.full((B, G), -7, dtype=I32)
+        rc = emu_kernels["group_count"](bl.data_ptr(), bl.stride(0),
+                                        ml.data_ptr(), ml.stride(0), B, G, W,
+                                        got.data_ptr(), None)
+        assert rc == 0 and torch.equal(got, counts[t])
+        pick = torch.full((B, G), -7, dtype=I32)
+        rc = emu_kernels["group_pick"](
+            bl.data_ptr(), bl.stride(0), ml.data_ptr(), ml.stride(0), B, G,
+            W, sel.data_ptr(), total.data_ptr(), before[t].data_ptr(),
+            counts[t].data_ptr(), t * W, pick.data_ptr(), None)
+        assert rc == 0
+        want = bk.group_pick_plain(bl, ml, sel, total, before[t], counts[t],
+                                   t * W)
+        assert torch.equal(pick, want)
+        picks.append(pick)
+    picked = torch.stack(picks).amax(0)
+    assert bool(((picked >= 0) == (total > 0)).all())
+    assert bool((picked[:, -1] == -1).all()) and bool((picked[1] == -1).all())

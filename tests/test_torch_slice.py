@@ -259,12 +259,14 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     assert {"rule_engine", "auth", "broker", "ops", "native", "exhook",
             "storage", "parallel"} <= scanned
     for mod in ("mesh", "collectives", "sharded_match", "prefix_ep",
-                "multichip_serve"):
+                "multichip_serve", "shared_group", "ring_fanout", "ulysses",
+                "steps", "dryrun"):
         assert REPO / "emqx_tpu_torch" / "parallel" / f"{mod}.py" in files
     assert REPO / "emqx_tpu_torch" / "storage" / "checkpoint.py" in files
     # the kernels' wrappers, the flat epilogue's and the dense walk's
     # among them
-    for mod in ("match_kernel", "walk_kernel", "dense_match", "cuda_build"):
+    for mod in ("match_kernel", "walk_kernel", "dense_match", "cuda_build",
+                "bitmap_kernel"):
         assert REPO / "emqx_tpu_torch" / "ops" / f"{mod}.py" in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
