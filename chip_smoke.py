@@ -79,11 +79,16 @@ phases, one JSON line each; any failure exits non-zero:
    slack), every row (spilled rows re-run on the host) equal to the
    oracle (with phase 4's churn) and to the single-card flat path, each
    row the mesh answered equal to the flat path's; the step with the
-   hash-walk kernel equal to the step with the plain walk on every
-   field for 2 batches a form; 2·tp kernel launches a dispatch; the
+   kernels (the hash walk in raw mode and the routing grid and merge of
+   ``ep_route.cu``) equal to the step with their plain versions on every
+   field for 2 batches a form; 2·tp walk launches, one ``ep_route`` on a
+   routed dispatch and one ``ep_merge`` on every dispatch; at most 2·tp
+   + 8 device operations a dispatch (a ``torch.profiler`` trace); the
    step's device ms (CUDA events on the mesh stream), the dispatch's
-   host ms, readback bytes a batch, spilled rows, the bytes bound, the
-   shards' filters and states;
+   host ms, readback bytes a batch, spilled rows, the bytes bound (the
+   walks' gathered table rows, the batch, the grid, the outputs), each
+   route kernel alone on the form's own operands against its plain
+   version and bound, the shards' filters and states;
    multichip_fanout — the fan-out library (K8b-K8f) on that service's
    table: its 1M filters as 1M subscriptions of 10,000 clients (filter
    i to client i % 10,000), the ``(F+1, 316)`` accept bitmap built on
@@ -91,7 +96,10 @@ phases, one JSON line each; any failure exits non-zero:
    sharded matcher and its compact twin (tp 4, cap 64), the ``$share``
    selector (16 groups of seed 7, the last empty), the ring and its
    compact twin (ring 4), the EP matcher (ep 4 over native partitions of
-   the filters) and the Ulysses step with the unreshard: each step's
+   the filters: its grid and merge the kernels of ``ep_route.cu``, one
+   launch each a dispatch, at most 2·E + 8 device operations a dispatch,
+   the kernel step against the plain step in turns, each route kernel
+   alone) and the Ulysses step with the unreshard: each step's
    launches of the walk and of the four bitmap kernels
    (``bitmap_fanout.cu``: ``accept_or``, ``bitmap_compact``,
    ``group_count``, ``group_pick``) as it states them, each equal to its
@@ -349,7 +357,9 @@ launch shape, ``ptxas`` register count, launches on each path, the
 exhook paths' among them, and its 10M readings; the dense walk's at the
 tiered hot shape, with ``bench_dense``'s beside; the flat epilogue's on
 the 1M hash walks at D = 16, its other shapes beside; the four bitmap
-kernels' at multichip_fanout's served shape); the last line is
+kernels' at multichip_fanout's served shape; ``ep_route`` and
+``ep_merge`` at multichip's routed form, each other form's and EP's
+beside); the last line is
 ``{"ok": true, "device": {...}}``.
 With no CUDA device the script prints no result and exits 2.
 ``--rehearse-cpu`` runs phases 4-11, the slice_node, tiered,
@@ -537,12 +547,14 @@ FLAT_LAUNCHES: Dict[str, int] = {}
 
 def _reset_launches() -> None:
     """Zero the launch counts of both walk kernels and of their flat
-    mode, just before a main path is driven."""
-    from emqx_tpu_torch.ops import walk_kernel
+    mode, and of the routing grid and merge kernels, just before a main
+    path is driven."""
+    from emqx_tpu_torch.ops import route_kernel, walk_kernel
 
     walk_kernel.launches = 0
     walk_kernel.join_launches = 0
     walk_kernel.flat_launches = 0
+    route_kernel.reset_launches()
 
 
 def _flat_launches(device, path: str, flat_walks: int) -> int:
@@ -1215,25 +1227,262 @@ MC_WARM = 2
 MC_STORM = 5
 
 
-def _mc_bytes(mc, routed: bool, compact: bool, B: int, D: int) -> Dict:
-    """The bytes a step must move: each shard's node, edge and aid-map
-    tables and the micro-table's on each shard, read once; the batch
-    read by every shard; with ``routed`` the (tp, C, D + 3) grid each
-    shard writes and its owner reads; the outputs written once."""
+#: the routing grid and merge kernels (csrc/ep_route.cu): the reference
+#: code each replaces
+ROUTE_SOURCE = "emqx_tpu_torch/ops/csrc/ep_route.cu"
+ROUTE_KERNELS = {
+    "ep_route": "emqx_tpu/parallel/multichip_serve.py:327",
+    "ep_merge": "emqx_tpu/parallel/multichip_serve.py:230"}
+#: dispatches a torch.profiler pass counts device operations over
+DEVICE_OPS_DISPATCHES = 3
+
+
+def _walk_traffic_bytes(torch, rows, tables, A: int) -> int:
+    """Table bytes the hash-walk kernel gathers walking ``rows`` (words,
+    lens, is_sys) over each of ``tables`` (node, edge, seeds), counted
+    by the plain walk on these inputs: 16 B a node row, 32 B a bucket
+    row, the seeds."""
+    from emqx_tpu_torch.ops.walk_kernel import nfa_walk_plain
+
+    total = 0
+    for node, edge, seeds in tables:
+        tr: Dict[str, int] = {}
+        nfa_walk_plain(*rows, node, edge, seeds, active_slots=A, traffic=tr)
+        total += tr["node_rows"] * 16 + tr["bucket_rows"] * 32 + 8
+    return total
+
+
+def _landed(torch, w, l, s, word_owner, tp: int, C: int):
+    """The routed grid of one row group on one device, as the step lands
+    it (``ep_route_plain``): per owner its ``(tp·C)`` rows' words, lens
+    and is_sys."""
+    from emqx_tpu_torch.ops import route_kernel as rk
+
+    B, D = w.shape
+    R = tp * C
+    dev = w.device
+    g = rk.RouteGrid(torch.empty((tp * R, D), dtype=torch.int32, device=dev),
+                     torch.empty((tp * R,), dtype=torch.int32, device=dev),
+                     torch.empty((tp * R,), dtype=torch.bool, device=dev),
+                     torch.empty((tp * R,), dtype=torch.int32, device=dev))
+    Bs = B // tp
+    rk.ep_route_plain(w, l, s, word_owner, g, tp=tp, C=C, Bs=Bs,
+                      sources=[(i * Bs, i * C) for i in range(tp)], so=R)
+    return [tuple(x.view(tp, R, *x.shape[1:])[o] for x in g[:3])
+            for o in range(tp)]
+
+
+def _mc_bytes(torch, mc, enc, routed: bool, compact: bool) -> Dict:
+    """The bytes a K8a step must move on ``enc`` (one row group, dp 1):
+    the table rows its 2·tp walks gather (each shard's table and the
+    micro-table, counted by the plain walk on the rows each walk sees,
+    as K1's own bound counts them), the batch read once (words, lens,
+    is_sys), with ``routed`` the (tp, tp·C) grid written once (words,
+    lens, is_sys, src), and the outputs written once."""
+    dev = mc.mesh.lead
+    w, l, s = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+               for x in enc)
+    B, D = (int(x) for x in w.shape)
     tp = mc.tp
-    tabs = sum(x.numel() * 4 for s in mc._arrs.shard[0]
-               for x in (s[0], s[1], s[3]))
-    micro = tp * sum(x.numel() * 4 for x in mc._arrs.repl[0][0][:4])
-    batch = tp * B * (D + 2) * 4
-    W = mc.max_matches + mc.ep_micro_matches
+    shard, repl = mc._arrs.shard[0], mc._arrs.repl[0][0]
+    micro = tuple(repl[:3])
     grid = 0
     if routed:
         C = mc.ep_capacity(B)
-        grid = 2 * tp * tp * C * (D + 3) * 4
+        rows = _landed(torch, w, l, s, repl[4], tp, C)
+        grid = tp * tp * C * (4 * D + 9)
+    else:
+        rows = [(w, l, s)] * tp
+    walks = sum(_walk_traffic_bytes(torch, rows[t],
+                                    (tuple(shard[t][:3]), micro),
+                                    mc.active_slots) for t in range(tp))
+    W = mc.max_matches + mc.ep_micro_matches
     segs = 1 if compact else tp
+    batch = B * (4 * D + 5)
     out = B * (segs * W + 2 * segs + 3) * 4
-    return {"tables": tabs, "micro": micro, "batch": batch, "grid": grid,
-            "outputs": out, "total": tabs + micro + batch + grid + out}
+    total = walks + batch + grid + out
+    return {"walks": walks, "batch": batch, "grid": grid, "outputs": out,
+            "total": total}
+
+
+def _device_ops(torch, fn, n: int = DEVICE_OPS_DISPATCHES) -> Dict:
+    """Device operations (kernels, copies, memsets) a call of ``fn``,
+    from a ``torch.profiler`` trace of ``n`` calls, each in its own
+    ``record_function`` range that ends in a synchronize: the device
+    events inside each range, their count a call (the largest: a trace
+    can miss a call's events, never add any) and names."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    for _ in range(2):      # the first trace may miss its first launches
+        with profile(activities=acts) as prof:
+            for i in range(n):
+                with record_function(f"device_ops_call{i}"):
+                    fn()
+                    torch.cuda.synchronize()
+    events = list(prof.events())
+    calls = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name.startswith("device_ops_call")
+                   and e.device_type != cuda)
+    ops = [(e.time_range.start, e.name) for e in events
+           if e.device_type == cuda
+           and not e.name.startswith("device_ops_call")]
+    each = [[name for t, name in ops if a <= t <= b] for a, b in calls]
+    if not any(each):
+        return {"per_dispatch": "not measured",
+                "why": "the profiler trace held no device activity"}
+    most = max(each, key=len)
+    names: Dict[str, int] = {}
+    for name in most:
+        names[name] = names.get(name, 0) + 1
+    return {"per_dispatch": len(most), "each_call": [len(x) for x in each],
+            "by_name": dict(sorted(names.items()))}
+
+
+class _Capture:
+    """While active, records the arguments of every call of the route
+    kernels' wrappers (``ep_route``, ``ep_merge``) in steps built
+    meanwhile, so that each kernel can be timed alone, and held to its
+    plain version, on the main path's own operands."""
+
+    def __init__(self) -> None:
+        from emqx_tpu_torch.ops import route_kernel as rk
+
+        self.rk = rk
+        self.calls: Dict[str, List] = {"ep_route": [], "ep_merge": []}
+        self.real = {k: getattr(rk, k) for k in self.calls}
+
+    def __enter__(self) -> "_Capture":
+        for name, fn in self.real.items():
+            def rec(*args, _name=name, _fn=fn, **kw):
+                self.calls[_name].append((args, kw))
+                return _fn(*args, **kw)
+            setattr(self.rk, name, rec)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for name, fn in self.real.items():
+            setattr(self.rk, name, fn)
+
+
+def _route_out_tensors(name: str, args, kw) -> List:
+    """The tensors a captured call writes: the grid and the per-row
+    outputs (``ep_route``), or the merge's outputs."""
+    if name == "ep_route":
+        outs = list(args[4]) + [kw.get(k) for k in ("fill_ids", "flag",
+                                                    "owner_out")]
+        return [t for t in outs + list(kw.get("zeros", ())) if t is not None]
+    return [t for t in args[1] if t is not None]
+
+
+def _swap_outputs(rk, name: str, args, kw):
+    """A captured call with each output tensor replaced by a clone (the
+    plain version writes there)."""
+    if name == "ep_route":
+        kw2 = dict(kw)
+        for k in ("fill_ids", "flag", "owner_out"):
+            if kw.get(k) is not None:
+                kw2[k] = kw[k].clone()
+        kw2["zeros"] = [z.clone() for z in kw.get("zeros", ())]
+        grid = rk.RouteGrid(*(x.clone() for x in args[4]))
+        return (*args[:4], grid, *args[5:]), kw2
+    out = rk.MergeOut(*(None if t is None else t.clone() for t in args[1]))
+    return (args[0], out, *args[2:]), kw
+
+
+def _route_kernel_timing(torch, device, calls: Dict[str, List],
+                         bound: Dict[str, float]) -> Dict:
+    """Each route kernel alone on its captured main-path operands:
+    device ms rotating over the calls and with the L2 flushed before
+    each, against its plain version (max abs err over every output, ms
+    as events over a host loop) and ``bound`` ms."""
+    from emqx_tpu_torch.ops import route_kernel as rk
+
+    time_ms = timer(torch, device)
+    flush = (torch.empty(64 << 20, dtype=torch.int32, device=device).zero_
+             if device.type == "cuda" else None)
+    out = {}
+    for name, cs in calls.items():
+        if not cs:
+            continue
+        kern = getattr(rk, name)
+        plain = getattr(rk, f"{name}_plain")
+        err = 0
+        for args, kw in cs:
+            p_args, p_kw = _swap_outputs(rk, name, args, kw)
+            plain(*p_args, **p_kw)
+            kern(*args, **kw)
+            for g, w in zip(_route_out_tensors(name, args, kw),
+                            _route_out_tensors(name, p_args, p_kw)):
+                if g.numel():
+                    err = max(err, int((g.long() - w.long()).abs().max()))
+        turn = [0]
+
+        def rotate(cs=cs, kern=kern):
+            turn[0] += 1
+            args, kw = cs[turn[0] % len(cs)]
+            kern(*args, **kw)
+
+        card = device.type == "cuda"
+        rot = time_ms(rotate, 20 * len(cs) if card else 1)
+        cold = time_ms(rotate, 4 * len(cs) if card else 1,
+                       before=flush if card else None)
+        pt = time_ms(lambda cs=cs, plain=plain: plain(*cs[0][0], **cs[0][1]),
+                     3 if card else 1)
+        out[name] = {"ms": rot["ms"], "ms_cold": cold["ms"],
+                     "covered": rot["covered"] and cold["covered"],
+                     "plain_ms": pt["ms"],
+                     "plain_timing": "events over a host loop",
+                     "max_abs_err": err, "calls_timed": len(cs),
+                     "bound_ms": bound[name], "bound_by": "bytes"}
+    return out
+
+
+def _route_bounds(torch, calls: Dict[str, List]) -> Dict[str, float]:
+    """Each route kernel's least time on its first captured call: the
+    bytes it must move over 3.35 TB/s.  ``ep_route``: the batch rows of
+    its sources read once (words, lens, is_sys and, with an owner map, a
+    4 B owner a row), the grid slots and every per-row output written
+    once.  ``ep_merge``: the raw accept rows of each landed slot (routed)
+    or row (replicated) read once, the shard walk's and, where the pair
+    merges them, the micro walk's, with their spills and sources, the
+    aid-map entries of the valid ids, and the outputs written once."""
+    out = {}
+    if calls["ep_route"]:
+        args, kw = calls["ep_route"][0]
+        words, grid = args[0], args[4]
+        D = int(words.shape[1])
+        rows = len(kw["sources"]) * kw["Bs"]
+        slots = len(kw["sources"]) * kw["tp"] * kw["C"]
+        per_row = sum(t[0].numel() * 4 for t in
+                      [kw.get("fill_ids"), kw.get("flag"),
+                       kw.get("owner_out"), *kw.get("zeros", ())]
+                      if t is not None)
+        nbytes = (rows * (4 * D + 5 + (4 if args[3] is not None else 0))
+                  + slots * (4 * D + 9) + rows * per_row)
+        out["ep_route"] = nbytes / HBM_BYTES_PER_S * 1e3
+    if calls["ep_merge"]:
+        args, kw = calls["ep_merge"][0]
+        pairs, mo = args[0], args[1]
+        nbytes = sum(t.numel() * 4 for t in mo if t is not None)
+        for p in pairs:
+            cols = int(p.acc.shape[1])
+            live = (p.src >= 0) if kw["routed"] else torch.ones_like(
+                p.aover, dtype=torch.bool)
+            n = int(live.sum())
+            walks = [(p.acc, p.amap)]
+            if p.micro and p.macc is not None:
+                walks.append((p.macc, p.mamap))
+            for acc, amap in walks:
+                valid = int((acc[live] >= 0).sum())
+                nbytes += n * (cols + 1) * 4 + (valid * 4 if amap is not None
+                                                else 0)
+            if kw["routed"]:
+                nbytes += int(p.src.numel()) * 4
+        out["ep_merge"] = nbytes / HBM_BYTES_PER_S * 1e3
+    return out
 
 
 def phase_multichip(torch, device, s: Dict, shared: Dict, card: str):
@@ -1247,12 +1496,17 @@ def phase_multichip(torch, device, s: Dict, shared: Dict, card: str):
     single-device flat path's accept ids, and each row the mesh answered
     equals the flat path's; the step with the kernel equals the step
     with the plain walk on every field for ``MC_PLAIN_BATCHES`` batches;
-    the kernel's launches on the served batches are 2·tp a dispatch.
-    Reports each form's step device ms (CUDA events on the mesh stream)
-    and host ms a dispatch, readback bytes a batch, spilled rows and the
-    bytes bound; the shards' filters and states.  Returns the kernel's
-    launches on the main path and the plain comparison's largest
-    difference."""
+    the walk's launches on the served batches are 2·tp a dispatch,
+    ``ep_route``'s one a routed dispatch and ``ep_merge``'s one a
+    dispatch (a device each), at most 2·tp + 8 device operations a
+    dispatch.  Reports each form's step device ms (CUDA events on the
+    mesh stream) and host ms a dispatch, readback bytes a batch, spilled
+    rows, device operations a dispatch, each route kernel alone on the
+    form's own operands and the bytes bound; the shards' filters and
+    states.  Returns the walk's and the route kernels' launches on the
+    main path, the plain comparison's largest difference and the route
+    kernels' timings."""
+    from emqx_tpu_torch.ops import route_kernel as rk
     from emqx_tpu_torch.ops import walk_kernel
     from emqx_tpu_torch.parallel import MultichipMatcher, build_multichip_step
 
@@ -1309,6 +1563,9 @@ def phase_multichip(torch, device, s: Dict, shared: Dict, card: str):
     failed: List[str] = []
     launches_total = 0
     max_err = 0
+    route_total = {k: 0 for k in rk.launches}
+    route_timing: Dict[str, Dict] = {}
+    n_dev = len(mc.mesh.distinct)
     stream = mc.mesh.stream_of.get(device)
     for form, ep, compact in MC_FORMS:
         mc.ep, mc.ep_compact = ep, compact
@@ -1336,13 +1593,22 @@ def phase_multichip(torch, device, s: Dict, shared: Dict, card: str):
                 bad_single += sorted(row) != sorted(srows[i])
                 bad_oracle += sorted(fo[a] for a in row) != w[i]
         launches = walk_kernel.launches
+        route_n = dict(rk.launches)
         dispatches = mc.dispatches - d0
         # ----------------------------------------------------------------
         launches_total += launches
+        routed = mc._routed_for(BATCH)
+        for k, n in route_n.items():
+            route_total[k] += n
         if device.type == "cuda":
             if launches != 2 * mc.tp * mc.dp * dispatches:
                 failed.append(f"{form}: {launches} walk launches for "
                               f"{dispatches} dispatches, want 2·tp each")
+            want_route = {"ep_route": dispatches * n_dev if routed else 0,
+                          "ep_merge": dispatches * n_dev}
+            if route_n != want_route:
+                failed.append(f"{form}: route kernel launches {route_n}, "
+                              f"want {want_route}")
         # the step alone, device ms from events on the mesh stream
         step = mc._step_for((BATCH, svc.depth), routed=mc._routed_for(BATCH))
         dev_ms = []
@@ -1385,8 +1651,36 @@ def phase_multichip(torch, device, s: Dict, shared: Dict, card: str):
             torch.cuda.synchronize()
             plain_ms = [e0.elapsed_time(e1) for e0, e1 in plain_ms]
         max_err = max(max_err, err)
-        bounds = _mc_bytes(mc, mc._routed_for(BATCH), compact, BATCH,
-                           svc.depth)
+        # device operations a dispatch (upload, grid, walks, merge,
+        # readback), from a profiler trace of a few dispatches
+        ops: Dict = {"per_dispatch": "not measured"}
+        if device.type == "cuda":
+            enc0 = mc.encode(batches[0], batch=BATCH)
+            ops = _device_ops(torch, lambda: mc.readback(
+                mc.dispatch(enc0), len(batches[0])))
+            if isinstance(ops["per_dispatch"], int) and \
+                    ops["per_dispatch"] > 2 * mc.tp + 8:
+                failed.append(f"{form}: {ops['per_dispatch']} device "
+                              f"operations a dispatch, want <= 2·tp + 8")
+        # each route kernel alone on the main path's own operands
+        with _Capture() as cap:
+            fresh = build_multichip_step(
+                mc.mesh, mc.active_slots, mc.max_matches,
+                micro_matches=mc.ep_micro_matches, routed=routed,
+                capacity=mc.ep_capacity(BATCH) if routed else 0,
+                compact=compact)
+            with mc.mesh.streams():
+                for b in batches[:MC_PLAIN_BATCHES]:
+                    fresh(*mc.encode(b, batch=BATCH), mc._arrs)
+        route_t = _route_kernel_timing(torch, device, cap.calls,
+                                       _route_bounds(torch, cap.calls))
+        route_timing[form] = route_t
+        for name, t in route_t.items():
+            if t["max_abs_err"]:
+                failed.append(f"{form}: {name} differs from its plain "
+                              f"version by {t['max_abs_err']}")
+        bounds = _mc_bytes(torch, mc, mc.encode(batches[0], batch=BATCH),
+                           routed, compact)
         line["forms"][form] = {
             "routed": mc._routed_for(BATCH), "compact": compact,
             "capacity": mc.ep_capacity(BATCH) if ep else None,
@@ -1406,6 +1700,10 @@ def phase_multichip(torch, device, s: Dict, shared: Dict, card: str):
             "plain_batches": MC_PLAIN_BATCHES, "max_abs_err": err,
             "plain_step_device_ms": (float(np.mean(plain_ms)) if plain_ms
                                      else "not measured"),
+            "route_kernel_launches": route_n,
+            "route_launches_per_dispatch": {
+                k: n / max(1, dispatches) for k, n in route_n.items()},
+            "device_ops": ops, "route_kernels": route_t,
             "bound_bytes": bounds,
             "bound_ms": bounds["total"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes"}
@@ -1420,9 +1718,11 @@ def phase_multichip(torch, device, s: Dict, shared: Dict, card: str):
     rep = line["forms"]["replicated"]["readback_bytes_per_batch"]
     line["compact_readback_over_replicated"] = (
         line["forms"]["routed_compact"]["readback_bytes_per_batch"] / rep)
+    line["route_kernel_launches"] = route_total
     line["wall_s"] = time.perf_counter() - t_start
     _emit_checked(line, failed)
-    return {"launches": launches_total, "max_abs_err": max_err}
+    return {"launches": launches_total, "max_abs_err": max_err,
+            "route_launches": route_total, "route_timing": route_timing}
 
 
 #: multichip_fanout: config 2's 1M filters as 1M subscriptions of
@@ -1535,12 +1835,16 @@ def phase_multichip_fanout(torch, device, s: Dict, shared: Dict,
     filters; the pick: ``host_pick`` on every 97th row); the Ulysses
     dispatch equal to the sharded bitmap and ``unreshard(reshard(x)) ==
     x``.  Readings: each step's device ms (CUDA events on the mesh
-    stream) and host ms a dispatch; each kernel alone at the served shape
+    stream) and host ms a dispatch and its bytes bound (the walk's
+    gathered table rows and the batch, the bitmap rows its valid ids
+    name, the outputs; the selector's bitmap, masks and hashes; EP's in
+    :func:`_ep_readings`); each kernel alone at the served shape
     (rotating, L2 flushed), its bound and its plain version's ms; the
     bitmap's bytes.  Returns each kernel's line entry numbers."""
     from emqx_tpu_torch import parallel as P
     from emqx_tpu_torch.ops import bitmap_kernel as bk
     from emqx_tpu_torch.ops import encode_batch, nfa_match, walk_kernel
+    from emqx_tpu_torch.ops import route_kernel as rk
     from emqx_tpu_torch.ops.encode import TopicEncoder
 
     t_start = time.perf_counter()
@@ -1677,6 +1981,7 @@ def phase_multichip_fanout(torch, device, s: Dict, shared: Dict,
         if device.type == "cuda":
             torch.cuda.synchronize()
         got_n = (walk_kernel.launches, *(bk.launches[k] for k in names))
+        route_n = dict(rk.launches)
         # ----------------------------------------------------------------
         dev_ms = [a.elapsed_time(b) for a, b in marks]
         walks += got_n[0]
@@ -1687,6 +1992,11 @@ def phase_multichip_fanout(torch, device, s: Dict, shared: Dict,
             failed.append(f"{step}: launches (walk, accept_or, compact, "
                           f"count, pick) {got_n}, want "
                           f"{FANOUT_BATCHES} x {want_n}")
+        want_route = {"ep_route": FANOUT_BATCHES if step == "ep" else 0,
+                      "ep_merge": FANOUT_BATCHES if step == "ep" else 0}
+        if device.type == "cuda" and route_n != want_route:
+            failed.append(f"{step}: route kernel launches {route_n}, want "
+                          f"{want_route}")
         if step == "sharded":
             bitmaps[:] = [r.bitmap for r in res]
         err = 0
@@ -1708,6 +2018,10 @@ def phase_multichip_fanout(torch, device, s: Dict, shared: Dict,
                                    else "not measured"),
             "dispatch_host_ms": float(np.mean(host_ms)),
             "plain_batches": FANOUT_PLAIN, "max_abs_err": err}
+        if step == "ep":
+            steps[step].update(_ep_readings(
+                torch, device, m, lambda i, plain: call("ep", i, plain),
+                route_n, ep_enc, ep_t, E, capacity, A, K, failed))
 
     # -- every unflagged row against the oracle ---------------------------
     bad = {k: 0 for k in steps}
@@ -1775,6 +2089,27 @@ def phase_multichip_fanout(torch, device, s: Dict, shared: Dict,
         steps[step]["rows_differing_from_oracle"] = n
         if n:
             failed.append(f"{step}: {n} rows differ from the oracle")
+
+    # -- each step's bound on the first batch -----------------------------
+    first = nfa_match(*enc[0], *tabs, active_slots=A, max_matches=K).matches
+    walk_b = (_walk_traffic_bytes(torch, enc[0], [tabs], A)
+              + BATCH * (4 * depth + 5))
+    rows_b = int(torch.unique(first[first >= 0]).numel()) * W * 4
+    for step, st in steps.items():
+        if step == "ep":
+            continue                    # _ep_readings wrote EP's
+        out_b = sum(x.numel() * x.element_size()
+                    for x in _fields(outs[step][0]))
+        if step == "selector":          # the bitmap, masks and hashes in
+            in_b = {"bitmap": BATCH * W * 4, "masks": FANOUT_GROUPS * W * 4,
+                    "hashes": BATCH * 4}
+        else:                           # one walk, the rows its ids name
+            in_b = {"walk": walk_b, "bitmap_rows": rows_b}
+        nbytes = {**in_b, "outputs": out_b}
+        nbytes["total"] = sum(nbytes.values())
+        st.update(bound_bytes=nbytes,
+                  bound_ms=nbytes["total"] / HBM_BYTES_PER_S * 1e3,
+                  bound_by="bytes")
 
     # -- each kernel alone at the served shape ----------------------------
     flush = (torch.empty(64 << 20, dtype=torch.int32, device=device).zero_
@@ -1846,7 +2181,73 @@ def phase_multichip_fanout(torch, device, s: Dict, shared: Dict,
     line["wall_s"] = time.perf_counter() - t_start
     _emit_checked(line, failed)
     return {"launches": launches, "walk_launches": walks, "timing": timing,
-            "max_abs_err": max(x["max_abs_err"] for x in steps.values())}
+            "max_abs_err": max(x["max_abs_err"] for x in steps.values()),
+            "route_launches": steps["ep"]["route_kernel_launches"],
+            "route_timing": steps["ep"]["route_kernels"]}
+
+
+def _ep_readings(torch, device, mesh, call, route_n, ep_enc, ep_t, E: int,
+                 capacity: int, A: int, K: int, failed: List[str]) -> Dict:
+    """The EP step's (K8c) readings beside the other fan-out steps': the
+    route kernels' launches a dispatch, device operations a dispatch
+    from a profiler trace, the plain step's device ms in turns with the
+    kernel step's, each route kernel alone on the main path's operands
+    against its plain version, and the step's bytes bound (the walks'
+    gathered table rows on the landed grids, the batch, the grid and the
+    outputs, each once)."""
+    from emqx_tpu_torch import parallel as P
+
+    out: Dict = {"route_kernel_launches": route_n,
+                 "route_launches_per_dispatch": {
+                     k: n / FANOUT_BATCHES for k, n in route_n.items()}}
+    stream = mesh.stream_of.get(device)
+    ops: Dict = {"per_dispatch": "not measured"}
+    turns: Dict[bool, List[float]] = {False: [], True: []}
+    if device.type == "cuda":
+        with mesh.streams():
+            ops = _device_ops(torch, lambda: call(0, False))
+            for plain in (True, False, False, True):   # in turns
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record(stream)
+                call(1, plain)
+                e1.record(stream)
+                torch.cuda.synchronize()
+                turns[plain].append(e0.elapsed_time(e1))
+        if isinstance(ops["per_dispatch"], int) and \
+                ops["per_dispatch"] > 2 * E + 8:
+            failed.append(f"ep: {ops['per_dispatch']} device operations a "
+                          f"dispatch, want <= 2·E + 8")
+    out["device_ops"] = ops
+    out["kernel_step_ms_in_turns"] = turns[False] or "not measured"
+    out["plain_step_ms_in_turns"] = turns[True] or "not measured"
+    with _Capture() as cap:
+        fresh = P.build_ep_matcher(mesh, capacity, active_slots=A,
+                                   max_matches=K)
+        with mesh.streams():
+            for enc in ep_enc[:FANOUT_PLAIN]:
+                fresh(*enc, *ep_t)
+    route_t = _route_kernel_timing(torch, device, cap.calls,
+                                   _route_bounds(torch, cap.calls))
+    for name, t in route_t.items():
+        if t["max_abs_err"]:
+            failed.append(f"ep: {name} differs from its plain version by "
+                          f"{t['max_abs_err']}")
+    out["route_kernels"] = route_t
+    w, l, s = ep_enc[0]
+    B, D = (int(x) for x in w.shape)
+    rows = _landed(torch, w, l, s, None, E, capacity)
+    walks = sum(_walk_traffic_bytes(torch, rows[o],
+                                    [(ep_t[0][o], ep_t[1][o], ep_t[2][o])],
+                                    A) for o in range(E))
+    nbytes = {"walks": walks, "batch": B * (4 * D + 5),
+              "grid": E * E * capacity * (4 * D + 9),
+              "outputs": B * (K + 3) * 4}
+    nbytes["total"] = sum(nbytes.values())
+    out.update(bound_bytes=nbytes,
+               bound_ms=nbytes["total"] / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes")
+    return out
 
 
 def phase_dryrun_multichip(torch, device, card: str) -> Dict:
@@ -1875,6 +2276,38 @@ def phase_dryrun_multichip(torch, device, card: str) -> Dict:
     emit(line)
     return {"launches": dict(bk.launches),
             "walk_launches": walk_kernel.launches}
+
+
+def _route_entries(mc: Dict, fan: Dict) -> List[Dict]:
+    """The route kernels' entries of the kernels line: launches on the
+    multichip, multichip_fanout (EP) and slice_node_multichip main
+    paths; times at the routed form's shape (each form's and EP's
+    beside), bounds and plain versions' times, from their captured
+    main-path operands."""
+    out = []
+    for name, replaces in ROUTE_KERNELS.items():
+        by_form = {form: t[name] for form, t in mc["route_timing"].items()
+                   if name in t}
+        if name in fan["route_timing"]:
+            by_form["ep"] = fan["route_timing"][name]
+        t = by_form["routed"]
+        by_path = {"multichip": mc["route_launches"][name],
+                   "multichip_fanout": fan["route_launches"][name],
+                   "node_multichip": NODE_ROUTE_LAUNCHES.get(name, 0)}
+        out.append({
+            "name": name, "route": "cuda", "source": ROUTE_SOURCE,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "registers": _registers("ep_route", f"{name}_kernel"),
+            "max_abs_err": max(x["max_abs_err"] for x in by_form.values()),
+            "ms": t["ms"], "ms_cold": t["ms_cold"],
+            "plain_ms": t["plain_ms"], "plain_timing": t["plain_timing"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "shape": "routed",
+            "by_form": {form: {k: x[k] for k in ("ms", "ms_cold",
+                                                  "plain_ms", "bound_ms")}
+                        for form, x in by_form.items()}})
+    return out
 
 
 def _bitmap_entries(fan: Dict, dry: Dict) -> List[Dict]:
@@ -2642,7 +3075,7 @@ async def _node_storms(torch, device, ms, broker, metrics, topics, card,
     backend: each dispatch launches the hash walk twice a shard (compact
     mode: no flat launch), and ``tpu.match.shard_dispatches`` counts
     every dispatch."""
-    from emqx_tpu_torch.ops import walk_kernel
+    from emqx_tpu_torch.ops import route_kernel, walk_kernel
 
     check = _RouteLog(ms, broker.router)
     broker.device_match = check
@@ -2656,6 +3089,7 @@ async def _node_storms(torch, device, ms, broker, metrics, topics, card,
     _reset_launches()
     d0, j0, a0 = ms.dispatches, ms.join_dispatches, ms.autotune_launches
     r0 = ms.dev.join_rebuilds
+    ep0 = ms.mc.ep_dispatches if mesh_tp else 0
     m0 = metrics.all()
     ms._batch_ms_at = len(ms._batch_ms)
     lat: List[float] = []
@@ -2668,6 +3102,8 @@ async def _node_storms(torch, device, ms, broker, metrics, topics, card,
     m1 = metrics.all()
     launches = walk_kernel.launches
     join_launches = walk_kernel.join_launches
+    route_n = dict(route_kernel.launches)
+    ep_n = ms.mc.ep_dispatches - ep0 if mesh_tp else 0
     flat = _flat_launches(device, name,
                           0 if mesh_tp else launches + join_launches)
     dispatches = ms.dispatches - d0
@@ -2699,9 +3135,14 @@ async def _node_storms(torch, device, ms, broker, metrics, topics, card,
         shard = (m1["tpu.match.shard_dispatches"]
                  - m0["tpu.match.shard_dispatches"])
         line["shard_dispatches"] = shard
+        line["route_kernel_launches"] = route_n
+        n_dev = len(ms.mc.mesh.distinct)
+        want_route = {"ep_route": ep_n * n_dev, "ep_merge": shard * n_dev}
         failed += [what for ok, what in (
             (shard == dispatches,
-             f"shard dispatches {shard} != dispatches {dispatches}"),)
+             f"shard dispatches {shard} != dispatches {dispatches}"),
+            (device.type != "cuda" or route_n == want_route,
+             f"route kernel launches {route_n}, want {want_route}"))
             if not ok]
     if device.type == "cuda":
         # on the CPU (rehearsal) the plain walks are slow enough that a
@@ -3112,6 +3553,10 @@ def _log_checks(logs: "_LogCount") -> List[str]:
     return out
 
 
+#: the route kernels' launches on slice_node_multichip's timed storm
+NODE_ROUTE_LAUNCHES: Dict[str, int] = {}
+
+
 async def _node_multichip(torch, device, broker, metrics, filters, topics,
                           card, logs) -> tuple:
     """slice_node_multichip: a node-default service with
@@ -3170,6 +3615,7 @@ async def _node_multichip(torch, device, broker, metrics, filters, topics,
                     multichip=ms.mc.info(),
                     wall_s=time.perf_counter() - t0)
         _emit_checked(line, failed)
+        NODE_ROUTE_LAUNCHES.update(line["route_kernel_launches"])
         return line["kernel_launches"], line["join_kernel_launches"]
     finally:
         broker.device_match = None
@@ -6595,7 +7041,7 @@ def main(argv=None) -> int:
                                       timed=args.timed_batches)
         launches["hash"]["1m"] = s["launches"]
         phase = "multichip"
-        mc = phase_multichip(torch, device, s, shared, card)
+        mc = mc_kernels = phase_multichip(torch, device, s, shared, card)
         launches["hash"]["multichip"] = mc["launches"]
         launches["join"]["multichip"] = 0
         max_err["hash"] = max(max_err["hash"], mc["max_abs_err"])
@@ -6714,7 +7160,7 @@ def main(argv=None) -> int:
         _flat_entry(max_err["flat"], {
             "1m_hash": shapes, "1m_join": join_shapes,
             "10m_hash": shapes_10m, "10m_join": join_shapes_10m}, flat_d8),
-        *_bitmap_entries(fan, dry)]})
+        *_bitmap_entries(fan, dry), *_route_entries(mc_kernels, fan)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

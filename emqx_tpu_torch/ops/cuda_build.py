@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: kernel name → source file under csrc/
 SOURCES = {"nfa_walk": "nfa_walk.cu", "nfa_join_walk": "nfa_join_walk.cu",
-           "dense_walk": "dense_walk.cu", "bitmap_fanout": "bitmap_fanout.cu"}
+           "dense_walk": "dense_walk.cu", "bitmap_fanout": "bitmap_fanout.cu",
+           "ep_route": "ep_route.cu"}
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 

@@ -28,14 +28,16 @@ here drives a ``(dp, tp)`` grid of ``torch.device``s
 * per-row truncation, active-set and bucket-overflow spills are summed
   over ``tp`` (the fail-open set).
 
-**The step (K8a)** is :func:`build_multichip_step`: for each grid
-position, the port's ``nfa_match`` in compact mode on the shard's table
-and on the micro-table (on CUDA tensors: two launches of the hash-walk
-kernel, ``ops/csrc/nfa_walk.cu``, per shard per row group), then the
-accept-id translation, the micro merge, the routing grid and the sums as
-PyTorch ops and :mod:`~emqx_tpu_torch.parallel.collectives`.  A write
-the reference sends out of range on purpose (``mode="drop"``) goes to a
-spare row or column here, which is cut off.
+**The step (K8a)** is :func:`build_multichip_step`: the batch goes up
+in one copy a device; on routed dispatches one ``ep_route`` launch a
+device buckets the rows into the routing grid; for each grid position
+the hash walk in raw mode on the shard's table and on the micro-table
+(two launches of ``ops/csrc/nfa_walk.cu`` a shard a row group); then one
+``ep_merge`` launch a device (``ops/route_kernel.py``,
+``ops/csrc/ep_route.cu``) compacts, translates and merges the walks'
+accept slots into the step's output, one int32 buffer that leaves the
+card in one copy.  On a mesh of one device (``[cuda:0] * 4``) that is
+all: at most 2·tp + 4 device operations a dispatch with the copies.
 
 **The matcher** (:class:`MultichipMatcher`) keeps per-shard host
 subtables (``NativeNfa`` when ``native``, else ``IncrementalNfa`` with
@@ -82,10 +84,13 @@ import torch
 
 from .. import faultinject as _fi
 from .. import topic as T
-from .collectives import all_gather, all_to_all, psum
+from ..ops import route_kernel as rk
+from .collectives import all_to_all
 from .mesh import Mesh, default_devices, make_mesh, pick_shape
 from .sharded_match import CompactFanoutResult, decode_compact_rows
-from .steps import walk_match as _walk_match
+from . import steps as mesh_steps
+from .steps import combine, field_views, packed, upload_batch
+from .steps import raw_walk as _raw_walk
 
 log = logging.getLogger(__name__)
 
@@ -195,11 +200,9 @@ def _scatter_rows(tabs: Sequence[torch.Tensor], idx: np.ndarray,
                         _put(rows[keep], tab.device))
 
 
-def _translate(matches: torch.Tensor, amap: torch.Tensor) -> torch.Tensor:
-    """Local accept ids → service ids through ``amap`` (-1 stays -1;
-    indices clamp into the map, as the reference's gather does)."""
-    idx = matches.clamp(0, amap.shape[0] - 1).long()
-    return torch.where(matches >= 0, amap[idx], -1)
+def _as_rows(fields: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Each field as ``(rows, width)`` (a vector as one column)."""
+    return [f if f.dim() == 2 else f.view(-1, 1) for f in fields]
 
 
 def build_multichip_step(mesh: Mesh, active_slots: int = 16,
@@ -211,179 +214,171 @@ def build_multichip_step(mesh: Mesh, active_slots: int = 16,
     (the reference's step, K8a): ``words (B, D)``, ``lens (B,)``,
     ``is_sys (B,)`` on the host (numpy or CPU tensors; row group ``d``
     is rows ``[d·B/dp, (d+1)·B/dp)``), ``tables`` a :class:`MeshTables`.
-    The result lives on ``mesh.lead``: ``ids`` (B, tp·(K+Km)) service
-    accept ids, -1 padded, per-shard segments disjoint; ``counts`` and
-    ``overflow`` (B, tp); the spill vectors summed over ``tp``.
+    The result lives on ``mesh.lead``, its six fields views of one int32
+    buffer: ``ids`` (B, tp·(K+Km)) service accept ids, -1 padded,
+    per-shard segments disjoint; ``counts`` and ``overflow`` (B, tp); the
+    spill vectors summed over ``tp``.
 
-    ``routed`` is the EP front end: each shard takes its 1/tp source
-    slice of the row group, buckets rows by ``word_owner[root]`` into a
-    (tp, ``capacity``) grid and one :func:`all_to_all` lands each row on
-    the shard that owns its root, which merges its own and the micro
-    answers into its segment.  Rows past ``capacity`` fail open.
-    ``compact`` (routed only) sums the +1-biased segments over ``tp``
-    into one: ``ids`` (B, K+Km), ``counts`` and ``overflow`` (B, 1).
+    A dispatch uploads the batch in one copy a device, walks each shard's
+    table and the micro-table in raw mode at every grid position (2·tp
+    walks a row group: ``ops/csrc/nfa_walk.cu`` on the card) and merges
+    the walks' accept slots into the output with one ``ep_merge`` launch
+    a device (``ops/route_kernel.py``: the compaction, the translation,
+    ``merge_micro``, the placement and the sums).
+
+    ``routed`` is the EP front end: one ``ep_route`` launch a device
+    buckets each shard's 1/tp source slice of the row group by
+    ``word_owner[root]`` into a (tp, ``capacity``) grid; on one device
+    the grid is written as it lands, else one :func:`all_to_all` lands
+    each row on the shard that owns its root.  The owner merges its own
+    and the micro answers into its segment.  Rows past ``capacity`` fail
+    open.  ``compact`` (routed only) writes the owner's segment as the
+    row's one segment (the reference's psum of +1-biased segments):
+    ``ids`` (B, K+Km), ``counts`` and ``overflow`` (B, 1).
     ``micro_owner`` is the shard that merges the micro answers in
-    replicated mode.  ``plain`` runs the walk's plain version in place
-    of the kernel."""
+    replicated mode.  ``plain`` runs the walk's and both kernels' plain
+    versions in their place."""
     K = max_matches
     Km = micro_matches
     W = K + Km
     dp, tp = mesh.shape["dp"], mesh.shape["tp"]
-    C = capacity
+    C = int(capacity)
     compact = bool(compact) and bool(routed)
-    match = _walk_match(active_slots, plain)
+    segs = 1 if compact else tp
+    walk = _raw_walk(active_slots, plain)
+    route = rk.ep_route_plain if plain else rk.ep_route
+    merge = rk.ep_merge_plain if plain else rk.ep_merge
+    shapes = [(segs * W,), (segs,), (segs,), (), (), ()]
+    lead = mesh.lead
+    one = mesh_steps.one_device(mesh.distinct)
 
-    def merge_micro(gids, cnt_own, mg, mcnt):
-        """Pack ``mcnt`` micro ids behind each row's ``cnt_own`` own ids
-        (contiguous from 0: the decode takes a prefix per segment)."""
-        R = gids.shape[0]
-        out = torch.full((R, W + 1), -1, dtype=torch.int32,
-                         device=gids.device)
-        out[:, :K] = gids
-        j = torch.arange(Km, dtype=torch.int32, device=gids.device)[None, :]
-        pos = torch.where(j < mcnt[:, None], cnt_own[:, None] + j, W)
-        out.scatter_(1, pos.long(), mg)
-        return out[:, :W], cnt_own + mcnt
-
-    def match_both(t, w, l, s, shard, repl):
+    def walk_pair(t, w, l, s, shard, repl, seg, row_base, micro, src=None):
         node, edge, seeds, amap = shard
         mnode, medge, mseeds, mamap, _wo = repl
         try:
-            res = match(w, l, s, node, edge, seeds, K)
-            mres = match(w, l, s, mnode, medge, mseeds, Km)
+            acc, aover = walk(w, l, s, node, edge, seeds)
+            macc, maover = walk(w, l, s, mnode, medge, mseeds)
         except Exception as e:
             raise ShardDead(f"mesh shard {t}: walk failed: {e}", t) from e
-        return res, _translate(res.matches, amap), mres, \
-            _translate(mres.matches, mamap)
+        return rk.MergePair(acc, aover, macc, maover, amap, mamap, src, seg,
+                            row_base, micro)
 
-    def replicated(d, inputs, tables):
-        devs = mesh.devices[d]
-        ids, cnt, ov, nm, ao, mo = [], [], [], [], [], []
-        for t, dev in enumerate(devs):
-            w, l, s = inputs[dev]
-            res, gids, mres, mg = match_both(
-                t, w, l, s, tables.shard[d][t], tables.repl[d][t])
-            own = res.n_matches.clamp(max=K)
-            if t == micro_owner:
-                mcnt = mres.n_matches.clamp(max=Km)
-                seg_ov = res.match_overflow + mres.match_overflow
-                n = res.n_matches + mres.n_matches
-                a = res.active_overflow + mres.active_overflow
-            else:
-                mcnt = torch.zeros_like(own)
-                seg_ov, n, a = (res.match_overflow, res.n_matches,
-                                res.active_overflow)
-            merged, c = merge_micro(gids, own, mg, mcnt)
-            ids.append(merged)
-            cnt.append(c[:, None])
-            ov.append(seg_ov[:, None])
-            nm.append(n)
-            ao.append(a)
-            mo.append(seg_ov)
-        lead = [devs[0]]
-        return (all_gather(ids, lead, 1)[0], all_gather(cnt, lead, 1)[0],
-                all_gather(ov, lead, 1)[0], psum(nm, lead)[0],
-                psum(ao, lead)[0], psum(mo, lead)[0])
+    def grids(n: int, D: int, dev: torch.device) -> rk.RouteGrid:
+        return rk.RouteGrid(
+            torch.empty((n, D), dtype=torch.int32, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev),
+            torch.empty((n,), dtype=torch.bool, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev))
 
-    def ep_routed(d, inputs, tables, Bl, D):
-        devs = mesh.devices[d]
+    def ep_routed(inputs, tables, outs, B, D, Bl):
+        """The routed front end: the grid bucketed and landed, and the
+        walk pair of each grid position on its landed rows."""
         Bs = Bl // tp
-        grids, src_ov = [], []
-        for i, dev in enumerate(devs):
-            w, l, s = inputs[dev]
-            myw, myl, mys = (x[i * Bs:(i + 1) * Bs] for x in (w, l, s))
-            wo = tables.repl[d][i][4]
-            root = myw[:, 0].clamp(0, wo.shape[0] - 1).long()
-            owner = wo[root].long()                      # (Bs,) in [0, tp)
-            routable = myl <= D       # encode pads with the D+2 sentinel
-            onehot = ((owner[:, None] == torch.arange(tp, device=dev)[None])
-                      & routable[:, None])
-            rank = torch.cumsum(onehot.to(torch.int32), dim=0) - 1
-            my_rank = rank.gather(1, owner[:, None])[:, 0]
-            keep = routable & (my_rank < C)
-            src_ov.append((routable & (my_rank >= C)).to(torch.int32))
-            # rows that do not route write the spare slot tp·C, cut off
-            slot = torch.where(keep, owner * C + my_rank, tp * C)
-            g_w = torch.zeros((tp * C + 1, D), dtype=torch.int32,
-                              device=dev).index_copy_(0, slot, myw)
-            g_l = torch.full((tp * C + 1,), D + 2, dtype=torch.int32,
-                             device=dev).index_copy_(0, slot, myl)
-            g_s = torch.ones((tp * C + 1,), dtype=torch.bool,
-                             device=dev).index_copy_(0, slot, mys)
-            g_src = torch.full((tp * C + 1,), -1, dtype=torch.int32,
-                               device=dev).index_copy_(
-                0, slot, torch.arange(Bs, dtype=torch.int32, device=dev))
-            grids.append((g_w[:-1].view(tp, C, D), g_l[:-1].view(tp, C),
-                          g_s[:-1].view(tp, C), g_src[:-1].view(tp, C)))
-        # (owner, C, ...) leaves each source, (source, C, ...) lands
-        w2, l2, s2, src2 = (all_to_all([g[k] for g in grids], devs)
-                            for k in range(4))
         R = tp * C
-        ids, cnt, ov, nm, ao = [], [], [], [], []
-        for o, dev in enumerate(devs):
-            res, gids, mres, mg = match_both(
-                o, w2[o].reshape(R, D), l2[o].reshape(R), s2[o].reshape(R),
-                tables.shard[d][o], tables.repl[d][o])
-            merged, merged_cnt = merge_micro(
-                gids, res.n_matches.clamp(max=K), mg,
-                mres.n_matches.clamp(max=Km))
-            # each landed row goes to its dp-local position (source j's
-            # slice starts at j·Bs); the empty slots write spare row Bl
-            flat_src = src2[o].reshape(R)
-            pos = (torch.arange(tp, dtype=torch.int32, device=dev)[:, None]
-                   * Bs + src2[o]).reshape(R)
-            safe = torch.where(flat_src >= 0, pos, Bl).long()
-
-            def place(vals, fill, width=None):
-                shape = (Bl + 1,) if width is None else (Bl + 1, width)
-                out = torch.full(shape, fill, dtype=torch.int32, device=dev)
-                return out.index_copy_(0, safe, vals)[:Bl]
-
-            ids.append(place(merged, -1, W))
-            cnt.append(place(merged_cnt, 0))
-            ov.append(place(res.match_overflow + mres.match_overflow, 0))
-            nm.append(place(res.n_matches + mres.n_matches, 0))
-            ao.append(place(res.active_overflow + mres.active_overflow, 0))
-        lead = [devs[0]]
-        # the source-side bucket overflow flags its own slice's rows
-        src = all_gather(src_ov, lead, 0)[0]
-        mo = psum(ov, lead)[0] + src
-        if compact:
-            # one owner wrote each row, so the sum of the +1-biased
-            # segments is the owner's segment
-            biased = [torch.where(x >= 0, x + 1, 0) for x in ids]
-            return (psum(biased, lead)[0] - 1, psum(cnt, lead)[0][:, None],
-                    psum(ov, lead)[0][:, None], psum(nm, lead)[0],
-                    psum(ao, lead)[0], mo)
-        return (all_gather(ids, lead, 1)[0],
-                all_gather([c[:, None] for c in cnt], lead, 1)[0],
-                all_gather([x[:, None] for x in ov], lead, 1)[0],
-                psum(nm, lead)[0], psum(ao, lead)[0], mo)
+        pairs = []
+        if one:
+            # the landed (d, owner, source, C) layout, written in place
+            g = grids(dp * tp * R, D, lead)
+            w, l, s = inputs[lead]
+            fields = outs[lead]
+            route(w, l, s, tables.repl[0][0][4], g, tp=tp, C=C, Bs=Bs,
+                  sources=[(b * Bs, ((b // tp) * tp * tp + b % tp) * C)
+                           for b in range(dp * tp)],
+                  so=R, fill_ids=fields[0], zeros=_as_rows(fields[1:5]),
+                  flag=fields[5])
+            lw = g.words.view(dp, tp, R, D)
+            ll, ls, lsrc = (x.view(dp, tp, R) for x in g[1:])
+            for d in range(dp):
+                for o in range(tp):
+                    pairs.append(walk_pair(
+                        o, lw[d, o], ll[d, o], ls[d, o],
+                        tables.shard[d][o], tables.repl[d][o],
+                        0 if compact else o, d * Bl, True, lsrc[d, o]))
+            return pairs
+        # each device buckets its own sources, (owner, C) a source
+        src_grid = {}
+        for dev in outs:
+            mine = [(d, i) for d in range(dp) for i in range(tp)
+                    if mesh.devices[d][i] == dev]
+            g = grids(len(mine) * R, D, dev)
+            w, l, s = inputs[dev]
+            d0, i0 = mine[0]
+            fields = outs[dev]
+            route(w, l, s, tables.repl[d0][i0][4], g, tp=tp, C=C, Bs=Bs,
+                  sources=[((d * tp + i) * Bs, k * R)
+                           for k, (d, i) in enumerate(mine)],
+                  so=C, fill_ids=fields[0], zeros=_as_rows(fields[1:5]),
+                  flag=fields[5])
+            for k, pos in enumerate(mine):
+                src_grid[pos] = tuple(
+                    x[k * R:(k + 1) * R].view(tp, C, *x.shape[1:])
+                    for x in g)
+        for d in range(dp):
+            devs = mesh.devices[d]
+            # (owner, C, ...) leaves each source, (source, C, ...) lands
+            landed = [all_to_all([src_grid[(d, i)][k] for i in range(tp)],
+                                 devs) for k in range(4)]
+            for o in range(tp):
+                lw, ll, ls, lsrc = (x[o].reshape(R, *x[o].shape[2:])
+                                    for x in landed)
+                pairs.append(walk_pair(
+                    o, lw, ll, ls, tables.shard[d][o], tables.repl[d][o],
+                    0 if compact else o, d * Bl, True, lsrc))
+        return pairs
 
     def step(words, lens, is_sys, tables: MeshTables) -> CompactFanoutResult:
-        words = torch.as_tensor(words, dtype=torch.int32)
-        lens = torch.as_tensor(lens, dtype=torch.int32)
-        is_sys = torch.as_tensor(is_sys, dtype=torch.bool)
-        B, D = int(words.shape[0]), int(words.shape[1])
+        B, D = (int(x) for x in words.shape)
         if B % dp:
             raise ValueError(f"batch {B} does not split over dp={dp}")
         Bl = B // dp
-        parts = []
-        for d in range(dp):
-            inputs = {}
-            for dev in mesh.devices[d]:
-                if dev not in inputs:
-                    inputs[dev] = tuple(
-                        x[d * Bl:(d + 1) * Bl].to(dev, non_blocking=True)
-                        for x in (words, lens, is_sys))
-            parts.append(ep_routed(d, inputs, tables, Bl, D) if routed
-                         else replicated(d, inputs, tables))
-        lead = [mesh.lead]
-        return CompactFanoutResult(*(
-            all_gather([p[k] for p in parts], lead, 0)[0]
-            for k in range(6)))
+        if routed and (Bl % tp or C < 1):
+            raise ValueError(f"a routed batch of {Bl} rows a row group "
+                             f"does not split over tp={tp}, or capacity "
+                             f"{C} < 1")
+        inputs = upload_batch(words, lens, is_sys, mesh.distinct)
+        bufs, outs = {}, {}
+        for dev in mesh.distinct:
+            bufs[dev], outs[dev] = packed(dev, B, shapes)
+            if not one:
+                # several devices write parts of a row: what a device
+                # leaves reads as nobody's answer (-1 ids, 0 elsewhere)
+                bufs[dev][:B * segs * W].fill_(-1)
+                bufs[dev][B * segs * W:].zero_()
+        if routed:
+            placed = ep_routed(inputs, tables, outs, B, D, Bl)
+        else:
+            placed = []
+            for d in range(dp):
+                for t in range(tp):
+                    w, l, s = (x[d * Bl:(d + 1) * Bl]
+                               for x in inputs[mesh.devices[d][t]])
+                    placed.append(walk_pair(
+                        t, w, l, s, tables.shard[d][t], tables.repl[d][t],
+                        t, d * Bl, t == micro_owner))
+        for dev in mesh.distinct:
+            pairs = [p for p in placed if p.acc.device == dev]
+            merge(pairs, rk.MergeOut(*outs[dev]), routed=routed, K=K, Km=Km,
+                  C=max(C, 1), Bs=Bl // tp, segs=segs)
+        if one:
+            return CompactFanoutResult(*outs[lead])
+        buf = combine([bufs[dev] for dev in mesh.distinct], B * segs * W,
+                      lead)
+        return CompactFanoutResult(*field_views(buf, B, shapes))
 
     return step
+
+
+def _host_copy(res, pin: bool) -> List[torch.Tensor]:
+    """The step result's fields copied to host memory behind the step:
+    one copy of the int32 buffer they are views of (the step's
+    :func:`~emqx_tpu_torch.parallel.steps.packed` output), the same
+    views of the copy."""
+    base = res[0]._base
+    h = torch.empty(base.shape, dtype=base.dtype, pin_memory=pin)
+    h.copy_(base, non_blocking=True)
+    at = base.storage_offset()
+    return [h.as_strided(x.shape, x.stride(), x.storage_offset() - at)
+            for x in res]
 
 
 class McHandle:
@@ -1074,11 +1069,7 @@ class MultichipMatcher:
                 raise RuntimeError("multichip mirror not synced yet")
             with self.mesh.streams():
                 res = step(words, lens, is_sys, self._arrs)
-                host = []
-                for x in res:
-                    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
-                    h.copy_(x, non_blocking=True)
-                    host.append(h)
+                host = _host_copy(res, pin)
                 events = self.mesh.record()
         return res, host, events
 
@@ -1235,15 +1226,15 @@ class MultichipMatcher:
         return fn
 
     def warm(self, batches=(64,), depths=None) -> None:
-        """Build and load the hash-walk kernel (on the card) and run one
-        empty dispatch per serve shape, so that no served batch waits on
+        """Build and load the hash-walk and route kernels (on the card)
+        and run one empty dispatch per serve shape, so that no served batch waits on
         a compiler or a first launch; a no-op until the first apply."""
         if self._arrs is None:
             return
         if self.mesh.lead.type == "cuda":
             from ..ops import cuda_build
 
-            cuda_build.build(["nfa_walk"])
+            cuda_build.build(["nfa_walk", "ep_route"])
         for b in batches:
             for d in (depths or (self.depth,)):
                 enc = self.encode([], batch=b, depth=d)

@@ -6,17 +6,19 @@ the shard owning its root prefix.  One step:
 
 1. ingest: topics arrive split over ``ep`` (B/E each);
 2. each shard buckets its topics by owner (root word id % E — the host
-   partition rule) into an ``(E, C)`` capacity grid by a cumsum rank;
-   a topic past capacity is flagged and fails open to the host trie (its
-   write goes to a spare slot, cut off, where the reference drops it);
-3. :func:`~emqx_tpu_torch.parallel.collectives.all_to_all` flips
-   source↔owner: each shard holds every topic it owns;
-4. the shard's partition table walks them (the port's ``nfa_match``:
-   the hash-walk kernel on the card, one launch a shard) — root-level
-   ``+``/``#`` filters are in every partition, so one shard's answer is
-   complete;
-5. the results go back by a second ``all_to_all`` and land in ingest
-   order (empty grid slots write a spare row, cut off).
+   partition rule) into an ``(E, C)`` capacity grid by their rank among
+   the owner's topics in ingest order; a topic past capacity is flagged
+   and fails open to the host trie (``ops/route_kernel.py``
+   ``ep_route``: one launch a device);
+3. the grid lands source↔owner: each shard holds every topic it owns
+   (on one device the grid is written in that layout; across devices
+   :func:`~emqx_tpu_torch.parallel.collectives.all_to_all` moves it);
+4. the shard's partition table walks them (the hash-walk kernel in raw
+   mode on the card, one launch a shard) — root-level ``+``/``#``
+   filters are in every partition, so one shard's answer is complete;
+5. ``ep_merge`` (one launch a device) writes each landed topic's first K
+   ids and its count at its ingest row: the reference's second
+   ``all_to_all`` and placement.
 
 :func:`build_partitions` builds the per-partition tables with shared
 shapes and one shared vocab, so one encode serves every shard: Python
@@ -35,9 +37,11 @@ import numpy as np
 import torch
 
 from .. import topic as T
+from ..ops import route_kernel as rk
 from .collectives import all_to_all
 from .mesh import Mesh
-from .steps import gather_to, on, walk_match
+from . import steps as mesh_steps
+from .steps import combine, field_views, on, packed, raw_walk, upload_batch
 
 __all__ = ["EpResult", "EpTables", "NATIVE_FROM", "build_ep_matcher",
            "build_partitions", "greedy_balance", "owner_of"]
@@ -211,13 +215,32 @@ def build_ep_matcher(mesh: Mesh, capacity: int, active_slots: int = 16,
     """``step(words, lens, is_sys, node_tabs, edge_tabs, seeds) ->
     EpResult`` over the ``ep`` axis: batch rows split over ``ep``, table
     ``e`` of the ``(E, ...)`` stacks on position ``e``.  ``capacity`` is
-    the per-(source, owner) bucket size.  Per dispatch: E walks (one a
-    partition, each of E·capacity rows), two rounds of ``all_to_all``.
-    ``plain`` runs the plain walk."""
+    the per-(source, owner) bucket size.  Per dispatch: one ``ep_route``
+    launch a device (``ops/route_kernel.py``: the ``(E, capacity)`` grid
+    of each source slice, its overflow flags and owners), E raw walks
+    (one a partition, each of E·capacity rows) and one ``ep_merge``
+    launch a device (each landed row's first K ids and its count, at its
+    source row).  On one device the grid is written as it lands and the
+    merge writes the result; else one :func:`all_to_all` lands the grid.
+    The result's four fields are views of one int32 buffer on
+    ``mesh.lead``.  ``plain`` runs the plain walk and the kernels' plain
+    versions."""
     E = mesh.shape["ep"]
     C = int(capacity)
     K = max_matches
-    match = walk_match(active_slots, plain)
+    walk = raw_walk(active_slots, plain)
+    route = rk.ep_route_plain if plain else rk.ep_route
+    merge = rk.ep_merge_plain if plain else rk.ep_merge
+    shapes = [(K,), (), (), ()]
+    devs = mesh.axis_devices("ep", (0,))
+    one = mesh_steps.one_device(devs)
+
+    def grids(n: int, D: int, dev: torch.device) -> rk.RouteGrid:
+        return rk.RouteGrid(
+            torch.empty((n, D), dtype=torch.int32, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev),
+            torch.empty((n,), dtype=torch.bool, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev))
 
     def step(words, lens, is_sys, node_tabs, edge_tabs, seeds):
         # one table per shard, or the device routing rule (% E) and the
@@ -226,57 +249,62 @@ def build_ep_matcher(mesh: Mesh, capacity: int, active_slots: int = 16,
             raise ValueError(
                 f"tables built for {node_tabs.shape[0]} partitions but the "
                 f"mesh has ep={E}; build_partitions(n_parts) must match")
-        B, D = words.shape
-        if B % E:
-            raise ValueError(f"batch {B} does not split over ep={E}")
+        B, D = (int(x) for x in words.shape)
+        if B % E or C < 1:
+            raise ValueError(f"batch {B} does not split over ep={E}, or "
+                             f"capacity {C} < 1")
         Bl = B // E
-        devs = mesh.axis_devices("ep", (0,))
-        gw, gl, gs, srcs, owners, overs = [], [], [], [], [], []
-        for i, dev in enumerate(devs):
-            rows = slice(i * Bl, (i + 1) * Bl)
-            w, l, s = (on(x[rows], dev) for x in (words, lens, is_sys))
-            owner = w[:, 0] % E                                 # (Bl,)
-            onehot = owner[:, None] == torch.arange(E, device=dev)[None, :]
-            rank = torch.cumsum(onehot.to(torch.int32), dim=0) - 1
-            my_rank = rank.gather(1, owner[:, None].long())[:, 0]
-            over = (my_rank >= C).to(torch.int32)
-            # an overflowed row writes the spare slot E·C, cut off
-            slot = torch.where(over == 0, owner * C + my_rank, E * C).long()
-            gw.append(torch.zeros((E * C + 1, D), dtype=torch.int32,
-                                  device=dev).index_copy_(0, slot, w)
-                      [:E * C].view(E, C, D))
-            gl.append(torch.full((E * C + 1,), D + 2, dtype=torch.int32,
-                                 device=dev).index_copy_(0, slot, l)
-                      [:E * C].view(E, C))
-            gs.append(torch.ones((E * C + 1,), dtype=torch.bool, device=dev)
-                      .index_copy_(0, slot, s)[:E * C].view(E, C))
-            srcs.append(torch.full((E * C + 1,), -1, dtype=torch.int32,
-                                   device=dev).index_copy_(
-                0, slot, torch.arange(Bl, dtype=torch.int32, device=dev))
-                [:E * C])
-            owners.append(owner.to(torch.int32))
-            overs.append(over)
-        w2, l2, s2 = (all_to_all(g, devs) for g in (gw, gl, gs))
-        ms, ns = [], []
+        R = E * C
+        inputs = upload_batch(words, lens, is_sys, devs)
+        bufs, outs = {}, {}
+        for dev in inputs:
+            bufs[dev], outs[dev] = packed(dev, B, shapes)
+            if not one:
+                bufs[dev][:B * K].fill_(-1)
+                bufs[dev][B * K:].zero_()
+        landed = {}
+        if one:
+            # the landed (owner, source, C) layout, written in place
+            dev = devs[0]
+            g = grids(R * E, D, dev)
+            m, own, n, over = outs[dev]
+            route(*inputs[dev], None, g, tp=E, C=C, Bs=Bl,
+                  sources=[(i * Bl, i * C) for i in range(E)], so=R,
+                  fill_ids=m, zeros=[n.view(B, 1)], flag=over,
+                  owner_out=own)
+            for o in range(E):
+                landed[o] = tuple(x.view(E, R, *x.shape[1:])[o] for x in g)
+        else:
+            src_grid = []
+            for i, dev in enumerate(devs):
+                g = grids(R, D, dev)
+                m, own, n, over = outs[dev]
+                route(*inputs[dev], None, g, tp=E, C=C, Bs=Bl,
+                      sources=[(i * Bl, 0)], so=C, fill_ids=m,
+                      zeros=[n.view(B, 1)], flag=over, owner_out=own)
+                src_grid.append(tuple(x.view(E, C, *x.shape[1:])
+                                      for x in g))
+            # (owner, C, ...) leaves each source, (source, C, ...) lands
+            moved = [all_to_all([sg[k] for sg in src_grid], devs)
+                     for k in range(4)]
+            for o in range(E):
+                landed[o] = tuple(x[o].reshape(R, *x[o].shape[2:])
+                                  for x in moved)
+        pairs = {dev: [] for dev in inputs}
         for o, dev in enumerate(devs):
-            res = match(w2[o].reshape(E * C, D), l2[o].reshape(E * C),
-                        s2[o].reshape(E * C), on(node_tabs[o], dev),
-                        on(edge_tabs[o], dev), on(seeds[o], dev), K)
-            ms.append(res.matches.reshape(E, C, K))
-            ns.append(res.n_matches.reshape(E, C))
-        m_back, n_back = all_to_all(ms, devs), all_to_all(ns, devs)
-        out_m, out_n = [], []
-        for i, dev in enumerate(devs):
-            # an empty grid slot (-1 source) writes the spare row Bl
-            at = torch.where(srcs[i] >= 0, srcs[i], Bl).long()
-            out_m.append(torch.full((Bl + 1, K), -1, dtype=torch.int32,
-                                    device=dev).index_copy_(
-                0, at, m_back[i].reshape(E * C, K))[:Bl])
-            out_n.append(torch.zeros((Bl + 1,), dtype=torch.int32,
-                                     device=dev).index_copy_(
-                0, at, n_back[i].reshape(E * C))[:Bl])
+            lw, ll, ls, lsrc = landed[o]
+            acc, aover = walk(lw, ll, ls, on(node_tabs[o], dev),
+                              on(edge_tabs[o], dev), on(seeds[o], dev))
+            pairs[dev].append(rk.MergePair(acc, aover, None, None, None,
+                                           None, lsrc, 0, 0, False))
+        for dev, ps in pairs.items():
+            m, _own, n, _over = outs[dev]
+            merge(ps, rk.MergeOut(m, None, None, n, None, None),
+                  routed=True, K=K, Km=0, C=C, Bs=Bl, segs=1)
         lead = mesh.lead
-        return EpResult(gather_to(out_m, lead), gather_to(owners, lead),
-                        gather_to(out_n, lead), gather_to(overs, lead))
+        if one:
+            return EpResult(*outs[lead])
+        buf = combine([bufs[dev] for dev in inputs], B * K, lead)
+        return EpResult(*field_views(buf, B, shapes))
 
     return step

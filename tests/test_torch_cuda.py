@@ -4,7 +4,9 @@ flat epilogue fused in) against their plain PyTorch versions, and the asyncio se
 readback, the deadline loop's dispatch timeout over a real hang, grow in
 place and a compaction swap); the dense walk against its plain version,
 the two-tier matcher and the retained replay; the exhook match sidecar;
-the multichip step and matcher on a mesh of four shards of one card;
+the multichip step and matcher on a mesh of four shards of one card,
+the routing grid and merge kernels of K8a and K8c against their plain
+versions, and the prefix-EP step;
 the fan-out's four bitmap kernels against their plain versions, the
 library steps (K8b-K8f) and the dry run on that mesh; on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
 module imports neither JAX nor the reference package, so it also runs
@@ -25,6 +27,7 @@ from emqx_tpu_torch.broker.match_service import MatchService
 from emqx_tpu_torch.observe import Metrics
 from emqx_tpu_torch.ops import (DeviceNfa, IncrementalNfa, encode_batch,
                                 join_match, nfa_match)
+from emqx_tpu_torch.ops import route_kernel as rk
 from emqx_tpu_torch.ops import walk_kernel
 from emqx_tpu_torch.ops.join_match import OVERLAY_EMPTY
 from emqx_tpu_torch.ops.match_kernel import ragged_capacity
@@ -1355,12 +1358,17 @@ def test_multichip_step_on_card_equals_plain_and_cpu(ep, compact):
               capacity=card.ep_capacity(2048) if ep else 0,
               compact=compact)
     walk_kernel.launches = 0
+    rk.reset_launches()
     with card.mesh.streams():
         got = build_multichip_step(card.mesh, 16, 32, **kw)(*enc,
                                                              card._arrs)
+        launched = dict(rk.launches)
         want = build_multichip_step(card.mesh, 16, 32, plain=True,
                                     **kw)(*enc, card._arrs)
     assert walk_kernel.launches == 2 * card.tp
+    # one device: one grid launch (routed) and one merge a dispatch
+    assert launched == {"ep_route": int(kw["routed"]), "ep_merge": 1}
+    assert rk.launches == launched      # the plain step launches none
     for name, g, w in zip(got._fields, got, want):
         assert g.device.type == "cuda"
         assert torch.equal(g, w), name
@@ -1390,6 +1398,254 @@ def test_multichip_step_on_card_equals_plain_and_cpu(ep, compact):
     with pytest.raises(ShardDead):
         card.dispatch(card.encode(names, batch=2048))
     assert card.failovers == 1
+
+
+# -- the routing grid and the merge (ep_route.cu) ------------------------------
+
+def _route_inputs(seed, rows, D, tp, owner_map):
+    """A batch with a hot root, negative and out-of-map root words, rows
+    past the depth and pad rows, and an owner map of 40 roots (None: the
+    floor remainder)."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 40, (rows, D)).astype(np.int32)
+    words[::3, 0] = 3
+    words[1::11, 0] = -5
+    words[2::13, 0] = 1 << 20
+    lens = rng.integers(1, D + 1, rows).astype(np.int32)
+    lens[3::9] = D + 1
+    lens[4::17] = D + 2
+    is_sys = rng.random(rows) < 0.2
+    wo = (torch.from_numpy(rng.integers(0, tp, 40).astype(np.int32))
+          if owner_map else None)
+    return [torch.from_numpy(words), torch.from_numpy(lens),
+            torch.from_numpy(is_sys), wo]
+
+
+def _route_outs(rows, slots, D, dev):
+    grid = rk.RouteGrid(
+        torch.full((slots, D), -7, dtype=torch.int32, device=dev),
+        torch.full((slots,), -7, dtype=torch.int32, device=dev),
+        torch.ones((slots,), dtype=torch.bool, device=dev),
+        torch.full((slots,), -7, dtype=torch.int32, device=dev))
+    outs = dict(fill_ids=torch.full((rows, 9), -7, dtype=torch.int32,
+                                    device=dev),
+                zeros=[torch.full((rows, w), -7, dtype=torch.int32,
+                                  device=dev) for w in (4, 1)],
+                flag=torch.full((rows,), -7, dtype=torch.int32, device=dev),
+                owner_out=torch.full((rows,), -7, dtype=torch.int32,
+                                     device=dev))
+    return grid, outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp,C,Bs,n_src,owner_map", [
+    (4, 256, 512, 4, True),    # chip_smoke's routed grid (B = 2048)
+    (4, 3, 700, 8, True),      # dp 2, buckets far past capacity
+    (2, 300, 1000, 2, True),   # several rounds of the block
+    (4, 512, 512, 4, False),   # K8c at chip_smoke's EP shape
+    (3, 7, 333, 3, False)])
+def test_ep_route_kernel_equals_plain(tp, C, Bs, n_src, owner_map):
+    """``ep_route`` on the card against ``ep_route_plain`` on the same
+    card tensors, every grid slot and per-row output (the landed
+    layout of one device, sources in row groups of tp)."""
+    _skip_without_card()
+    D = 16
+    rows = n_src * Bs
+    x = [t.cuda() if t is not None else None
+         for t in _route_inputs(tp + C + Bs, rows, D, tp, owner_map)]
+    R = tp * C
+    kw = dict(tp=tp, C=C, Bs=Bs, so=R,
+              sources=[(b * Bs, ((b // tp) * tp * tp + b % tp) * C)
+                       for b in range(n_src)])
+    slots = -(-n_src // tp) * tp * R
+    got, want = (_route_outs(rows, slots, D, "cuda") for _ in range(2))
+    rk.reset_launches()
+    rk.ep_route(*x, got[0], **kw, **got[1])
+    assert rk.launches["ep_route"] == 1
+    rk.ep_route_plain(*x, want[0], **kw, **want[1])
+    torch.cuda.synchronize()
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g, w)
+    for k in ("fill_ids", "flag", "owner_out"):
+        assert torch.equal(got[1][k], want[1][k]), k
+    for g, w in zip(got[1]["zeros"], want[1]["zeros"]):
+        assert torch.equal(g, w)
+    assert int((want[0].src >= 0).sum()) > 0
+
+
+def _merge_inputs(seed, n_pairs, rows, cols, routed, micro, maps, C, Bs,
+                  dev):
+    rng = np.random.default_rng(seed)
+
+    def raw(dense):
+        acc = np.where(rng.random((rows, cols)) < 0.03,
+                       rng.integers(0, 5000, (rows, cols)), -1)
+        acc[dense] = rng.integers(0, 5000, cols)
+        return torch.from_numpy(acc.astype(np.int32)).to(dev)
+
+    pairs = []
+    for k in range(n_pairs):
+        amap = mamap = src = None
+        if maps:
+            am = rng.integers(0, 1 << 20, 5000).astype(np.int32)
+            am[::9] = -1
+            amap = torch.from_numpy(am).to(dev)
+            mamap = torch.from_numpy(rng.integers(0, 1 << 20, 3000)
+                                     .astype(np.int32)).to(dev)
+        if routed:
+            s = np.full((rows // C, C), -1, np.int32)
+            for i in range(rows // C):
+                perm = np.random.default_rng(seed * 100 + i).permutation(Bs)
+                for c in range(C):
+                    if k * C + c < Bs and rng.random() < 0.8:
+                        s[i, c] = perm[k * C + c]
+            src = torch.from_numpy(s.reshape(-1)).to(dev)
+        ints = lambda hi: torch.from_numpy(  # noqa: E731
+            rng.integers(0, hi, rows).astype(np.int32)).to(dev)
+        pairs.append(rk.MergePair(raw(1), ints(3), raw(2) if micro else None,
+                                  ints(2) if micro else None, amap, mamap,
+                                  src, 0, 0, micro))
+    return pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["routed", "routed_compact", "replicated",
+                                  "replicated_dp2", "identity"])
+def test_ep_merge_kernel_equals_plain(form):
+    """``ep_merge`` on the card against ``ep_merge_plain`` at the served
+    shapes (K = 128, Km = 8, 446 accept columns; routed 4 × 1024 landed
+    slots, replicated 2048 rows a group; K8c's identity form): every
+    output field, rows past K and micro rows past Km among them."""
+    _skip_without_card()
+    K, Km, cols, tp = 128, 8, 446, 4
+    routed = form.startswith("routed") or form == "identity"
+    micro = form != "identity"
+    if form == "identity":
+        Km = 0
+    C, Bs = 256, 512
+    rows = tp * C if routed else 2048
+    n_pairs = 2 * tp if form == "replicated_dp2" else tp
+    pairs = _merge_inputs(len(form), n_pairs, rows, cols, routed, micro,
+                          form != "identity", C, Bs, "cuda")
+    segs = 1 if form in ("routed_compact", "identity") else tp
+    if routed:
+        pairs = [p._replace(seg=0 if segs == 1 else o)
+                 for o, p in enumerate(pairs)]
+        n_rows = tp * Bs
+    else:
+        owner = 1 if form == "replicated_dp2" else 0
+        pairs = [p._replace(seg=k % tp, row_base=(k // tp) * rows,
+                            micro=k % tp == owner)
+                 for k, p in enumerate(pairs)]
+        n_rows = rows * (n_pairs // tp)
+    W = K + Km
+
+    def outs():
+        full = lambda *shape: torch.full(  # noqa: E731
+            shape, -7, dtype=torch.int32, device="cuda")
+        if form == "identity":
+            return rk.MergeOut(full(n_rows, W), None, None, full(n_rows),
+                               None, None)
+        return rk.MergeOut(full(n_rows, segs * W), full(n_rows, segs),
+                           full(n_rows, segs), full(n_rows), full(n_rows),
+                           full(n_rows))
+
+    got, want = outs(), outs()
+    kw = dict(routed=routed, K=K, Km=Km, C=C, Bs=Bs, segs=segs)
+    rk.reset_launches()
+    rk.ep_merge(pairs, got, **kw)
+    assert rk.launches["ep_merge"] == 1
+    rk.ep_merge_plain(pairs, want, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(want._fields, got, want):
+        if w is not None:
+            assert torch.equal(g, w), name
+    assert int(want.nm.max()) > K
+
+
+@pytest.mark.cuda
+def test_route_kernels_reject_wrong_operands():
+    """A CUDA operand of the wrong dtype, shape or device raises before
+    any launch; nothing falls back to the plain version."""
+    _skip_without_card()
+    x = [t.cuda() for t in _route_inputs(1, 64, 8, 4, True)]
+    grid, outs = _route_outs(64, 4 * 4 * 16, 8, "cuda")
+    kw = dict(tp=4, C=16, Bs=16, so=64,
+              sources=[(b * 16, b * 16) for b in range(4)])
+    rk.reset_launches()
+    bad = [
+        (x[0].long(), *x[1:]),                        # words int64
+        (x[0], x[1][:-1], *x[2:]),                    # lens too short
+        (x[0], x[1], x[2].int(), x[3]),               # is_sys int32
+        (x[0], x[1], x[2], x[3].cpu()),               # owner map on cpu
+        (x[0].t(), *x[1:]),                           # words not contiguous
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            rk.ep_route(*args, grid, **kw, **outs)
+    with pytest.raises(ValueError):
+        rk.ep_route(*x, grid._replace(lens=grid.lens.float()), **kw, **outs)
+    with pytest.raises(ValueError):
+        rk.ep_route(*x, grid, **{**kw, "tp": 33}, **outs)
+    with pytest.raises(ValueError):     # a source past the grid
+        rk.ep_route(*x, grid, **{**kw, "sources": [(0, 250)]}, **outs)
+    pairs = _merge_inputs(3, 4, 64, 100, True, True, True, 16, 16, "cuda")
+    out = rk.MergeOut(*(torch.zeros(shape, dtype=torch.int32, device="cuda")
+                        for shape in ((64, 4 * 40), (64, 4), (64, 4), (64,),
+                                      (64,), (64,))))
+    mkw = dict(routed=True, K=32, Km=8, C=16, Bs=16, segs=4)
+    bad_pairs = [
+        [pairs[0]._replace(acc=pairs[0].acc.long())] + pairs[1:],
+        [pairs[0]._replace(aover=pairs[0].aover[:-1])] + pairs[1:],
+        [pairs[0]._replace(src=None)] + pairs[1:],
+        [pairs[0]._replace(seg=4)] + pairs[1:],
+        [pairs[0]._replace(amap=pairs[0].amap.cpu())] + pairs[1:],
+        pairs * 5,                                     # 20 pairs > 16
+    ]
+    for ps in bad_pairs:
+        with pytest.raises(ValueError):
+            rk.ep_merge(ps, out, **mkw)
+    with pytest.raises(ValueError):
+        rk.ep_merge(pairs, out._replace(ids=out.ids[:, :100].contiguous()),
+                    **mkw)
+    with pytest.raises(ValueError):
+        rk.ep_merge(pairs, out._replace(nm=out.nm.float()), **mkw)
+    assert rk.launches == {"ep_route": 0, "ep_merge": 0}
+
+
+@pytest.mark.cuda
+def test_ep_step_on_card_equals_plain_and_cpu():
+    """The prefix-EP step (K8c) on ``[cuda:0] * 4``: one grid launch, E
+    raw walks and one merge a dispatch; every field equals the plain
+    step on the card and the step on a CPU mesh."""
+    _skip_without_card()
+    from emqx_tpu_torch import parallel as P
+    from emqx_tpu_torch.ops.encode import TopicEncoder
+
+    filters, topics = build_workload(np.random.default_rng(10), 20000, 2048)
+    E = 4
+    tabs = P.build_partitions(filters, E, depth=16)
+    enc = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+           TopicEncoder(tabs.vocab).encode(topics, 16, batch=2048)]
+    t = [torch.from_numpy(a) for a in (tabs.node_tabs, tabs.edge_tabs,
+                                       tabs.seeds)]
+    res = {}
+    for dev, plain in (("cuda", False), ("cuda", True), ("cpu", False)):
+        mesh = P.make_mesh({"ep": E}, [torch.device(dev)] * E)
+        step = P.build_ep_matcher(mesh, capacity=128, plain=plain)
+        rk.reset_launches()
+        walk_kernel.launches = 0
+        with mesh.streams():
+            res[(dev, plain)] = step(*(x.to(dev) for x in enc),
+                                     *(x.to(dev) for x in t))
+        if dev == "cuda" and not plain:
+            assert rk.launches == {"ep_route": 1, "ep_merge": 1}
+            assert walk_kernel.launches == E
+    got = res[("cuda", False)]
+    assert int(got.overflow.sum()) > 0          # capacity 128 < hot roots
+    for name, g, w, c in zip(got._fields, got, res[("cuda", True)],
+                             res[("cpu", False)]):
+        assert torch.equal(g, w) and torch.equal(g.cpu(), c), name
 
 
 # -- the fan-out's bitmap kernels and the library steps (K8b-K8f) -------------

@@ -33,7 +33,15 @@ ids all -1, a window of rows, a column slice, more ids than a block),
 the compaction (rows past ``cap_row``, an empty and a full row, rounds
 of words not a multiple of the block), the group counts and the
 hashed pick (a partly filled last block, negative hashes, an empty
-group).  It says nothing of speed, and
+group).  The routing grid and the merge of the multichip and prefix-EP
+steps (``ep_route.cu``) are held to their plain versions on every
+field: K8a's owner map with negative and out-of-map root words, rows
+past the depth, buckets past capacity, source slices of several rounds
+of the block, the landed layout of one device and the per-source
+layout; K8c's floor remainder; the merge's routed, compact, replicated
+(two row groups, a migrated micro owner) and identity forms, with rows
+past K, micro rows past Km, aid maps holding -1 and empty landed
+slots.  It says nothing of speed, and
 ``tests/test_torch_cuda.py`` remains the test on the card.  Skips where
 g++ is missing."""
 
@@ -50,6 +58,7 @@ import torch
 from emqx_tpu_torch.ops import DeviceNfa, IncrementalNfa, encode_batch
 from emqx_tpu_torch.ops import compile_filters, cuda_build, encode_topics
 from emqx_tpu_torch.ops import bitmap_kernel as bk
+from emqx_tpu_torch.ops import route_kernel as rk
 # the module (``emqx_tpu_torch.ops.dense_match`` is the function)
 dense_mod = importlib.import_module("emqx_tpu_torch.ops.dense_match")
 from emqx_tpu_torch.ops.dense_match import (
@@ -119,6 +128,8 @@ def emu_kernels(tmp_path_factory):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn
+    for name in rk._ENTRY:
+        fns[name] = rk.bind(libs["ep_route"], name)
     return fns
 
 
@@ -728,3 +739,178 @@ def test_group_kernels_source_equal_plain(emu_kernels, B, G, W, tp):
     picked = torch.stack(picks).amax(0)
     assert bool(((picked >= 0) == (total > 0)).all())
     assert bool((picked[:, -1] == -1).all()) and bool((picked[1] == -1).all())
+
+
+# -- the routing grid and the merge (ep_route.cu) ------------------------------
+
+def _route_case(seed, rows, D, tp, owner_map):
+    """A batch with hot owners, negative and out-of-map root words and
+    rows past the depth (lens D+1 and the pad's D+2), and an owner map
+    over 40 root words, two of them owned outside the mesh (not routed;
+    None: K8c's floor remainder)."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 40, (rows, D)).astype(np.int32)
+    words[::3, 0] = 3                         # one hot root
+    words[1::11, 0] = -rng.integers(1, 9, len(words[1::11]))
+    words[2::13, 0] = 40 + rng.integers(0, 1000, len(words[2::13]))
+    lens = rng.integers(1, D + 1, rows).astype(np.int32)
+    lens[3::9] = D + 1
+    lens[4::17] = D + 2
+    is_sys = rng.random(rows) < 0.2
+    wo = None
+    if owner_map:                 # two roots owned outside the mesh
+        wo = rng.integers(0, tp, 40).astype(np.int32)
+        wo[[5, 7]] = (-1, tp)
+        wo = torch.from_numpy(wo)
+    return (torch.from_numpy(words), torch.from_numpy(lens),
+            torch.from_numpy(is_sys), wo)
+
+
+def _route_outputs(rows, slots, D, ld):
+    """Grid and per-row outputs, every int -7 and every flag True: what
+    the kernel leaves alone must stay so."""
+    grid = rk.RouteGrid(torch.full((slots, D), -7, dtype=I32),
+                        torch.full((slots,), -7, dtype=I32),
+                        torch.ones((slots,), dtype=torch.bool),
+                        torch.full((slots,), -7, dtype=I32))
+    outs = dict(fill_ids=torch.full((rows, ld), -7, dtype=I32),
+                zeros=[torch.full((rows, w), -7, dtype=I32)
+                       for w in (3, 1)],
+                flag=torch.full((rows,), -7, dtype=I32),
+                owner_out=torch.full((rows,), -7, dtype=I32))
+    return grid, outs
+
+
+@pytest.mark.parametrize("tp,C,Bs,n_src,landed,owner_map", [
+    (4, 3, 10, 4, True, True),      # buckets past capacity, one device
+    (4, 40, 300, 2, True, True),    # two rounds of the block, no overflow
+    (2, 100, 300, 4, True, True),   # dp 2: four sources, a row group each two
+    (4, 3, 10, 4, False, True),     # the per-source layout (several cards)
+    (4, 5, 37, 4, True, False),     # K8c: w0 % E, every row routable
+    (3, 200, 290, 1, False, False)])
+def test_ep_route_source_equals_plain(emu_kernels, tp, C, Bs, n_src, landed,
+                                      owner_map):
+    D = 6
+    rows = n_src * Bs + 5
+    words, lens, is_sys, wo = _route_case(tp * Bs + C, rows, D, tp,
+                                          owner_map)
+    R = tp * C
+    if landed:      # (group, owner, source, C), sources in groups of tp
+        sources = [(b * Bs, ((b // tp) * tp * tp + b % tp) * C)
+                   for b in range(n_src)]
+        so, slots = R, -(-n_src // tp) * tp * R
+    else:           # (source, owner, C)
+        sources, so, slots = [(b * Bs, b * R) for b in range(n_src)], C, \
+            n_src * R
+    got = _route_outputs(rows, slots, D, 9)
+    want = _route_outputs(rows, slots, D, 9)
+    kw = dict(tp=tp, C=C, Bs=Bs, sources=sources, so=so)
+    a = rk.route_args(words, lens, is_sys, wo, got[0], **kw, **got[1])
+    assert emu_kernels["ep_route"](ctypes.byref(a), None) == 0
+    rk.ep_route_plain(words, lens, is_sys, wo, want[0], **kw, **want[1])
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g, w)
+    for k in ("fill_ids", "flag", "owner_out"):
+        assert torch.equal(got[1][k], want[1][k]), k
+    for g, w in zip(got[1]["zeros"], want[1]["zeros"]):
+        assert torch.equal(g, w)
+    landed_rows = int((want[0].src >= 0).sum())
+    over = int((want[1]["flag"] == 1).sum())
+    assert landed_rows > 0
+    if C < 10:
+        assert over > 0
+    assert bool((want[1]["flag"][n_src * Bs:] == -7).all())
+
+
+def _raw_slots(rng, rows, cols, dense_rows=()):
+    """Raw accept slots: mostly -1, a few ids a row, every id of the
+    rows in ``dense_rows``."""
+    acc = np.where(rng.random((rows, cols)) < 0.03,
+                   rng.integers(0, 50, (rows, cols)), -1)
+    for r in dense_rows:
+        acc[r] = rng.integers(0, 50, cols)
+    return torch.from_numpy(acc.astype(np.int32))
+
+
+def _merge_pairs(seed, n_pairs, rows, cols, routed, micro, maps, C, Bs):
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for k in range(n_pairs):
+        amap = mamap = None
+        if maps:
+            am = rng.integers(0, 10_000, 50).astype(np.int32)
+            am[::9] = -1                       # a dead aid
+            amap = torch.from_numpy(am)
+            mamap = torch.from_numpy(rng.integers(0, 10_000, 37)
+                                     .astype(np.int32))
+        src = None
+        if routed:
+            # slot (source i, c) of owner k: one of source i's rows, each
+            # row landing once over all owners; the rest empty
+            s = np.full((rows // C, C), -1, np.int32)
+            for i in range(rows // C):
+                perm = np.random.default_rng(seed * 100 + i).permutation(Bs)
+                for c in range(C):
+                    if k * C + c < Bs and rng.random() < 0.8:
+                        s[i, c] = perm[k * C + c]
+            src = torch.from_numpy(s.reshape(-1))
+        pairs.append(rk.MergePair(
+            _raw_slots(rng, rows, cols, (1, 2)),
+            torch.from_numpy(rng.integers(0, 3, rows).astype(np.int32)),
+            _raw_slots(rng, rows, cols, (2, 3)) if micro else None,
+            torch.from_numpy(rng.integers(0, 2, rows).astype(np.int32))
+            if micro else None, amap, mamap, src, 0, 0, micro))
+    return pairs
+
+
+def _merge_out(n_rows, segs, W, with_counts=True):
+    full = lambda *shape: torch.full(shape, -7, dtype=I32)  # noqa: E731
+    if not with_counts:
+        return rk.MergeOut(full(n_rows, W), None, None, full(n_rows),
+                           None, None)
+    return rk.MergeOut(full(n_rows, segs * W), full(n_rows, segs),
+                       full(n_rows, segs), full(n_rows), full(n_rows),
+                       full(n_rows))
+
+
+@pytest.mark.parametrize("form", ["routed", "routed_compact", "replicated",
+                                  "replicated_dp2", "identity"])
+def test_ep_merge_source_equals_plain(emu_kernels, form):
+    K, Km, cols = 5, 2, 300
+    tp, C = 4, 3
+    Bs = 7
+    routed = form.startswith("routed") or form == "identity"
+    micro = form != "identity"
+    if form == "identity":
+        Km = 0
+        cols = 70
+    rows = tp * C if routed else 9
+    pairs = _merge_pairs(len(form), tp if form != "replicated_dp2" else 2 * tp,
+                         rows, cols, routed, micro, form != "identity", C, Bs)
+    segs = 1 if form in ("routed_compact", "identity") else tp
+    if routed:
+        pairs = [p._replace(seg=0 if segs == 1 else o, row_base=0)
+                 for o, p in enumerate(pairs)]
+        n_rows = tp * Bs
+    else:
+        owner = 1 if form == "replicated_dp2" else 0
+        pairs = [p._replace(seg=k % tp, row_base=(k // tp) * rows,
+                            micro=k % tp == owner)
+                 for k, p in enumerate(pairs)]
+        n_rows = rows * (len(pairs) // tp)
+    W = K + Km
+    got = _merge_out(n_rows, segs, W, form != "identity")
+    want = _merge_out(n_rows, segs, W, form != "identity")
+    kw = dict(routed=routed, K=K, Km=Km, C=C, Bs=Bs, segs=segs)
+    a = rk.merge_args(pairs, got, **kw)
+    assert emu_kernels["ep_merge"](ctypes.byref(a), None) == 0
+    rk.ep_merge_plain(pairs, want, **kw)
+    for name, g, w in zip(want._fields, got, want):
+        if w is not None:
+            assert torch.equal(g, w), name
+    # rows past K and micro rows past Km were merged and flagged
+    assert int(want.nm.max()) > K
+    if routed:
+        assert bool((want.nm == -7).any())   # rows no slot landed on
+    else:
+        assert not bool((want.ids == -7).any())

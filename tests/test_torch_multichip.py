@@ -367,6 +367,124 @@ def test_step_truncation_matches_reference(step_tables):
         assert int(np.asarray(want.match_overflow).sum()) > 0
 
 
+#: the edge cases' filters: FILTERS and deeper ones under the same roots,
+#: so a row matches more than K = 2 own and Km = 1 micro filters
+EDGE_FILTERS = FILTERS + ["a/b", "a/b/#", "a/+/#", "+/b/#", "+/+", "x/#",
+                          "rooms/#", "b/#"]
+_EDGE_FORMS = {
+    "replicated": dict(routed=False),
+    "micro_owner_1": dict(routed=False, micro_owner=1),
+    "routed": dict(routed=True),
+    "routed_compact": dict(routed=True, compact=True),
+    "overflow": dict(routed=True, capacity=1),
+    "overflow_compact": dict(routed=True, compact=True, capacity=2),
+}
+
+
+@pytest.fixture(scope="module")
+def edge_tables():
+    """One reference matcher a mesh shape of tp 2 and 4, dp 1 and 2, on
+    EDGE_FILTERS, with the port's converted tables."""
+    out = {}
+    for dp, tp in ((1, 2), (2, 2), (1, 4), (2, 4)):
+        inc = RefIncrementalNfa(depth=8)
+        pairs = pairs_of(inc, EDGE_FILTERS)
+        ref = ref_matcher(pairs, n=dp * tp, tp=tp, native=False)
+        mesh = make_mesh({"dp": dp, "tp": tp}, cpus(dp * tp))
+        out[(dp, tp)] = (ref, mesh,
+                         multichip_arrays_from_reference(ref, mesh))
+    return out
+
+
+def _edge_batch(ref, seed):
+    """A 64-row batch with a hot root, rows that match past K = 2 and Km
+    = 1, a negative and an out-of-map root word, rows past the depth (len
+    D+1) and the encoder's pad rows (len D+2)."""
+    topics = (topics_for(30, seed=seed) + ["a/b/c"] * 6 + ["x/y/z"] * 12
+              + ["a/b", "rooms/1/temp", "$SYS/a", "zzz/b", "qqq"])
+    words, lens, is_sys = (np.array(x) for x in ref.encode(topics,
+                                                           batch=64))
+    D = words.shape[1]
+    words[3, 0] = -5
+    words[4, 0] = 1 << 20
+    words[5, 0] = -(1 << 30)
+    lens[6] = D + 1
+    lens[7] = D + 2
+    return words, lens, is_sys
+
+
+def _step_pair(ref, mesh, tabs, enc, K, Km, kw):
+    rstep = ref_mcs.build_multichip_step(ref.mesh, 16, K, micro_matches=Km,
+                                         **kw)
+    want = jax.device_get(rstep(*(jnp.asarray(x) for x in enc), *ref._arrs))
+    got = build_multichip_step(mesh, 16, K, micro_matches=Km, **kw)(
+        *enc, tabs)
+    return want, got
+
+
+@pytest.mark.parametrize("form", sorted(_EDGE_FORMS))
+@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2), (1, 4), (2, 4)])
+def test_step_edge_cases_match_reference(edge_tables, dp, tp, form):
+    """K8a's routing grid and merge on the edge cases, every field bit
+    for bit the reference's: buckets past capacity, rows past the depth,
+    rows past K and micro counts past Km, negative and out-of-map root
+    words, dp 2, a migrated micro owner, tp 2 and 4."""
+    ref, mesh, tabs = edge_tables[(dp, tp)]
+    kw = dict(_EDGE_FORMS[form])
+    if kw["routed"]:
+        kw.setdefault("capacity", ref.ep_capacity(64))
+    enc = _edge_batch(ref, seed=dp * 10 + tp)
+    want, got = _step_pair(ref, mesh, tabs, enc, 2, 1, kw)
+    for name, w, g in zip(want._fields, want, got):
+        assert np.array_equal(np.asarray(w), g.numpy()), name
+    assert int(np.asarray(want.n_matches).max()) > 3
+    assert int(np.asarray(want.match_overflow).sum()) > 0
+    if form.startswith("overflow"):
+        # the source-side overflow flags rows that no owner wrote
+        counts = np.asarray(want.counts).sum(axis=1)
+        assert ((np.asarray(want.match_overflow) > 0) & (counts == 0)).any()
+
+
+@pytest.mark.parametrize("form", ["replicated", "routed", "routed_compact",
+                                  "overflow"])
+@pytest.mark.parametrize("dp,tp", [(1, 4), (2, 2)])
+def test_step_on_several_devices_matches_reference(edge_tables, monkeypatch,
+                                                   dp, tp, form):
+    """The layout of a mesh of several devices (each device buckets its
+    own sources, ``all_to_all`` lands the grid, each device merges what
+    it walked and the lead sums the parts), forced on the CPU mesh:
+    every field the reference's."""
+    from emqx_tpu_torch.parallel import steps
+
+    monkeypatch.setattr(steps, "one_device", lambda devices: False)
+    ref, mesh, tabs = edge_tables[(dp, tp)]
+    kw = dict(_EDGE_FORMS[form])
+    if kw["routed"]:
+        kw.setdefault("capacity", ref.ep_capacity(64))
+    enc = _edge_batch(ref, seed=7)
+    want, got = _step_pair(ref, mesh, tabs, enc, 2, 1, kw)
+    for name, w, g in zip(want._fields, want, got):
+        assert np.array_equal(np.asarray(w), g.numpy()), name
+
+
+def test_step_result_is_one_buffer_and_one_host_copy(step_tables):
+    """The step's six fields are views of one int32 buffer, so the
+    matcher's readback is one copy of it."""
+    _inc, ref, mesh, tabs = step_tables[(1, 4)]
+    enc = ref.encode(topics_for(20), batch=64)
+    for kw in (dict(routed=False), dict(routed=True, capacity=8),
+               dict(routed=True, compact=True, capacity=8)):
+        got = build_multichip_step(mesh, 16, 32, micro_matches=8, **kw)(
+            *enc, tabs)
+        base = got.ids._base
+        assert base is not None and all(x._base is base for x in got)
+        assert base.numel() == sum(x.numel() for x in got)
+        host = mcs_mod._host_copy(got, False)
+        assert host[0]._base is host[-1]._base is not None
+        for h, x in zip(host, got):
+            assert torch.equal(h, x)
+
+
 # -- the matcher against the reference's ---------------------------------------
 
 @pytest.mark.parametrize("kw", [{}, {"ep": True, "ep_slack": 4.0},
@@ -515,19 +633,19 @@ def test_shard_launch_failure_surfaces_as_shard_dead(monkeypatch):
     it dead)."""
     m = Metrics()
     inc, mc, _pairs = build_pair(degraded=True, metrics=m)
-    real = mcs_mod._walk_match
+    real = mcs_mod._raw_walk
 
     def failing(active_slots, plain):
-        match = real(active_slots, plain)
+        walk = real(active_slots, plain)
 
-        def fn(w, l, s, node, edge, seeds, K):
+        def fn(w, l, s, node, edge, seeds):
             if node.shape[0] == failing.rows:
                 raise RuntimeError("launch failed")
-            return match(w, l, s, node, edge, seeds, K)
+            return walk(w, l, s, node, edge, seeds)
         return fn
 
     failing.rows = int(mc._arrs.shard[0][0][0].shape[0])
-    monkeypatch.setattr(mcs_mod, "_walk_match", failing)
+    monkeypatch.setattr(mcs_mod, "_raw_walk", failing)
     mc._steps.clear()
     enc = mc.encode(["a/b"], batch=64)
     for strike in range(1, 4):
@@ -537,7 +655,7 @@ def test_shard_launch_failure_surfaces_as_shard_dead(monkeypatch):
         assert mc.failovers == strike
         assert m.get("tpu.match.shard_failover") == strike
     assert mc.dead_shards == [0] and mc.mesh_state() == 1
-    monkeypatch.setattr(mcs_mod, "_walk_match", real)
+    monkeypatch.setattr(mcs_mod, "_raw_walk", real)
     mc._steps.clear()
     rows, sp, _ = mesh_rows(mc, ["a/b", "m/n"])
     assert not sp

@@ -463,6 +463,48 @@ def test_prefix_ep_overflow_flags_host_rerun(E):
                                              tabs.seeds)))
 
 
+@pytest.mark.parametrize("layout", ["one_device", "several_devices"])
+@pytest.mark.parametrize("E,capacity,K", [(2, 64, 32), (4, 6, 32),
+                                          (4, 64, 3)])
+def test_prefix_ep_edge_cases_match_reference(monkeypatch, E, capacity, K,
+                                              layout):
+    """K8c's routing grid and merge, every field the reference's: root
+    words negative (owner by the floor remainder) and past the vocab,
+    rows past the depth and the encoder's pad rows, buckets past
+    capacity, rows past K; on one device (the grid written as it lands)
+    and in the several-device layout (forced on the CPU mesh: a grid a
+    source, ``all_to_all``, the parts summed on the lead)."""
+    from emqx_tpu_torch.parallel import steps
+
+    if layout == "several_devices":
+        monkeypatch.setattr(steps, "one_device", lambda devices: False)
+    filters, topics = _ep_case(23)
+    topics += ["r1/r2"] * 20
+    rtabs = ref.build_partitions(filters, E, depth=8)
+    tabs = P.build_partitions(filters, E, depth=8)
+    B = 96
+    w, l, s = (np.array(x) for x in RefEncoder(rtabs.vocab).encode(
+        topics, 8, batch=B))
+    w[3, 0], w[4, 0], w[5, 0] = -7, -(1 << 30), 1 << 20
+    l[6] = 9
+    want = ref.build_ep_matcher(ref_mesh({"ep": E}), capacity=capacity,
+                                max_matches=K)(
+        jnp.asarray(w), jnp.asarray(l), jnp.asarray(s),
+        jnp.asarray(rtabs.node_tabs), jnp.asarray(rtabs.edge_tabs),
+        jnp.asarray(rtabs.seeds))
+    got = P.build_ep_matcher(port_mesh({"ep": E}), capacity=capacity,
+                             max_matches=K)(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in (w, l, s)),
+        *(torch.from_numpy(a) for a in (tabs.node_tabs, tabs.edge_tabs,
+                                         tabs.seeds)))
+    equal_fields(got, want)
+    assert int(got.owners[3]) == -7 % E
+    if capacity < 10:
+        assert int(got.overflow.sum()) > 0
+    if K < 10:
+        assert int(got.n_matches.max()) > K
+
+
 # -- Ulysses reshard -------------------------------------------------------------
 
 @pytest.mark.parametrize("U", [2, 4, 8])

@@ -266,7 +266,7 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     # the kernels' wrappers, the flat epilogue's and the dense walk's
     # among them
     for mod in ("match_kernel", "walk_kernel", "dense_match", "cuda_build",
-                "bitmap_kernel"):
+                "bitmap_kernel", "route_kernel"):
         assert REPO / "emqx_tpu_torch" / "ops" / f"{mod}.py" in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
