@@ -1305,12 +1305,30 @@ def _mc_bytes(torch, mc, enc, routed: bool, compact: bool) -> Dict:
             "total": total}
 
 
+def _op_name(name: str) -> str:
+    """A device event's name without its namespace and argument list
+    (``nfa_walk_kernel``, ``Memset (Device)``)."""
+    m = re.match(r"(?:\(anonymous namespace\)::)?([\w:]+)\(", name)
+    return m.group(1) if m else name
+
+
 def _device_ops(torch, fn, n: int = DEVICE_OPS_DISPATCHES) -> Dict:
     """Device operations (kernels, copies, memsets) a call of ``fn``,
     from a ``torch.profiler`` trace of ``n`` calls, each in its own
-    ``record_function`` range that ends in a synchronize: the device
-    events inside each range, their count a call (the largest: a trace
-    can miss a call's events, never add any) and names."""
+    ``record_function`` range that ends in a synchronize (the second of
+    two traces).  Each device event goes to the call whose range holds
+    its launch, the runtime call (``cudaLaunchKernel``,
+    ``cudaMemsetAsync``, ...) that shares its correlation id: both are on
+    the host's clock, where a device event's own start, on the card's,
+    can fall in a neighbour's range (5, 0, 0 for 2 a call).  The profiler
+    links a device event to a torch op only where one launched it, never
+    for a launch through ctypes, so the launch is the one handle every
+    event has; an event whose launch the trace lacks is placed by its own
+    start (``placed_by`` counts both).  A trace can miss a call's events
+    (its first call often reads short: 0, 2, 2 for 2), never add any, so
+    ``per_dispatch`` is the most events a call holds; ``each_call`` and
+    ``by_name`` (its events by name) are a call's, ``unplaced`` the
+    trace's device events in no call's range."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1326,19 +1344,45 @@ def _device_ops(torch, fn, n: int = DEVICE_OPS_DISPATCHES) -> Dict:
     calls = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.name.startswith("device_ops_call")
                    and e.device_type != cuda)
-    ops = [(e.time_range.start, e.name) for e in events
-           if e.device_type == cuda
+    ops = [e for e in events if e.device_type == cuda
            and not e.name.startswith("device_ops_call")]
-    each = [[name for t, name in ops if a <= t <= b] for a, b in calls]
-    if not any(each):
+    if not ops:
         return {"per_dispatch": "not measured",
                 "why": "the profiler trace held no device activity"}
-    most = max(each, key=len)
-    names: Dict[str, int] = {}
-    for name in most:
-        names[name] = names.get(name, 0) + 1
-    return {"per_dispatch": len(most), "each_call": [len(x) for x in each],
-            "by_name": dict(sorted(names.items()))}
+    launch = {e.id: e.time_range.start for e in events
+              if e.device_type != cuda and re.match(r"cu(da)?[A-Z]", e.name)}
+    placed = [(launch.get(e.id, e.time_range.start), e.name) for e in ops]
+    by_launch = sum(e.id in launch for e in ops)
+    each: List[Dict[str, int]] = []
+    for a, b in calls:
+        got: Dict[str, int] = {}
+        for t, name in placed:
+            if a <= t <= b:
+                got[_op_name(name)] = got.get(_op_name(name), 0) + 1
+        each.append(dict(sorted(got.items())))
+    counts = [sum(x.values()) for x in each]
+    return {"per_dispatch": max(counts), "in_trace": len(ops),
+            "each_call": counts, "by_name": each,
+            "placed_by": {"launch": by_launch,
+                          "device clock": len(ops) - by_launch},
+            "unplaced": len(ops) - sum(counts)}
+
+
+def _ops_shape(ops: Dict, want: Dict[str, int]) -> List[str]:
+    """How a :func:`_device_ops` reading departs from ``want``, a call's
+    device events by name: no call may hold another event or more of
+    one, and every call but the first (which a trace can read short)
+    holds exactly ``want``; a trace with no device event is a fault."""
+    if not isinstance(ops.get("per_dispatch"), int):
+        return [f"not measured: {ops.get('why')}"]
+    bad = []
+    for i, got in enumerate(ops["by_name"]):
+        extra = {k: v for k, v in got.items() if v > want.get(k, 0)}
+        if extra:
+            bad.append(f"call {i} holds {extra} past {want}")
+        elif i and got != want:
+            bad.append(f"call {i} holds {got}, want {want}")
+    return bad
 
 
 class _Capture:
@@ -1743,7 +1787,19 @@ BITMAP_KERNELS = {
     "accept_or": "emqx_tpu/parallel/sharded_match.py:88",
     "bitmap_compact": "emqx_tpu/parallel/sharded_match.py:100",
     "group_count": "emqx_tpu/parallel/shared_group.py:92",
-    "group_pick": "emqx_tpu/parallel/shared_group.py:105"}
+    "group_pick": "emqx_tpu/parallel/shared_group.py:105",
+    "ring_or": "emqx_tpu/parallel/ring_fanout.py:47",      # and :103
+    "ulysses_or": "emqx_tpu/parallel/ulysses.py:91"}
+#: the device operations (kernels, copies, memsets) by name that a
+#: dispatch of the one-card ring and Ulysses steps takes: the raw walk
+#: and the kernel, and the Ulysses counts' memset
+_RING_OPS = {"nfa_walk_kernel": 1, "ring_or_kernel": 1}
+FANOUT_DEVICE_OPS = {"ring": _RING_OPS, "ring_compact": _RING_OPS,
+                     "ulysses": {"Memset (Device)": 1, "nfa_walk_kernel": 1,
+                                 "ulysses_or_kernel": 1}}
+#: caps at which ``ring_or`` is held to its plain twin on the served raw
+#: slots besides ``FANOUT_CAP``, which no served row passes: both cut
+FANOUT_CUT_CAPS = (1, 8)
 
 
 def _fields(out) -> List:
@@ -1829,7 +1885,12 @@ def phase_multichip_fanout(torch, device, s: Dict, shared: Dict,
     ``build_ulysses_step`` (u 4) with ``build_unreshard``.  Checks: each
     step's kernel launches a dispatch as the step states; each step equal
     to its plain build (the plain walk and the plain bitmap functions) on
-    every field for ``FANOUT_PLAIN`` batches; every row not flagged
+    every field for ``FANOUT_PLAIN`` batches; each dispatch of the
+    ring's two forms and Ulysses in a ``torch.profiler`` trace holding
+    the device operations ``FANOUT_DEVICE_OPS`` names and no other;
+    ``ring_or`` equal to its plain twin on the first batch's raw slots
+    at each of ``FANOUT_CUT_CAPS``, where rows are cut; every row not
+    flagged
     (active or match overflow, compact or ring truncation, EP overflow)
     equal to the trie oracle (the OR of its filters' clients; EP: the
     filters; the pick: ``host_pick`` on every 97th row); the Ulysses
@@ -1839,8 +1900,11 @@ def phase_multichip_fanout(torch, device, s: Dict, shared: Dict,
     gathered table rows and the batch, the bitmap rows its valid ids
     name, the outputs; the selector's bitmap, masks and hashes; EP's in
     :func:`_ep_readings`); each kernel alone at the served shape
-    (rotating, L2 flushed), its bound and its plain version's ms; the
-    bitmap's bytes.  Returns each kernel's line entry numbers."""
+    (rotating, L2 flushed; ``ring_or`` and ``ulysses_or`` on the raw
+    walks of the served batches, ``ring_or`` in both forms), its bound,
+    its plain version's ms and its difference from it on the first
+    batch; the bitmap's bytes.  Returns each kernel's line entry
+    numbers."""
     from emqx_tpu_torch import parallel as P
     from emqx_tpu_torch.ops import bitmap_kernel as bk
     from emqx_tpu_torch.ops import encode_batch, nfa_match, walk_kernel
@@ -1941,14 +2005,17 @@ def phase_multichip_fanout(torch, device, s: Dict, shared: Dict,
             return fn(*ep_enc[i], *ep_t)
         return fn(*enc[i], *tabs, bm if step.startswith("ring") else bm_main)
 
-    # (walks, accept_or, bitmap_compact, group_count, group_pick) a
-    # dispatch, as each step states them for four positions on one card
+    # (walks, accept_or, bitmap_compact, group_count, group_pick, ring_or,
+    # ulysses_or) a dispatch, as each step states them for four positions
+    # on one card: the ring's forms and Ulysses a raw walk and one kernel
     per_dispatch = {
-        "sharded": (1, 4, 0, 0, 0), "sharded_compact": (1, 4, 4, 0, 0),
-        "selector": (0, 0, 0, 4, 4), "ring": (1, 4, 0, 0, 0),
-        "ring_compact": (1, 4, 4, 0, 0), "ep": (E, 0, 0, 0, 0),
-        "ulysses": (1, 4, 0, 0, 0)}
-    names = ("accept_or", "bitmap_compact", "group_count", "group_pick")
+        "sharded": (1, 4, 0, 0, 0, 0, 0),
+        "sharded_compact": (1, 4, 4, 0, 0, 0, 0),
+        "selector": (0, 0, 0, 4, 4, 0, 0), "ring": (1, 0, 0, 0, 0, 1, 0),
+        "ring_compact": (1, 0, 0, 0, 0, 1, 0), "ep": (E, 0, 0, 0, 0, 0, 0),
+        "ulysses": (1, 0, 0, 0, 0, 0, 1)}
+    names = ("accept_or", "bitmap_compact", "group_count", "group_pick",
+             "ring_or", "ulysses_or")
     launches = {k: 0 for k in names}
     walks = 0
     failed: List[str] = []
@@ -1990,7 +2057,7 @@ def phase_multichip_fanout(torch, device, s: Dict, shared: Dict,
         if device.type == "cuda" and got_n != tuple(
                 FANOUT_BATCHES * x for x in want_n):
             failed.append(f"{step}: launches (walk, accept_or, compact, "
-                          f"count, pick) {got_n}, want "
+                          f"count, pick, ring_or, ulysses_or) {got_n}, want "
                           f"{FANOUT_BATCHES} x {want_n}")
         want_route = {"ep_route": FANOUT_BATCHES if step == "ep" else 0,
                       "ep_merge": FANOUT_BATCHES if step == "ep" else 0}
@@ -2018,6 +2085,12 @@ def phase_multichip_fanout(torch, device, s: Dict, shared: Dict,
                                    else "not measured"),
             "dispatch_host_ms": float(np.mean(host_ms)),
             "plain_batches": FANOUT_PLAIN, "max_abs_err": err}
+        if step in FANOUT_DEVICE_OPS and device.type == "cuda":
+            with m.streams():
+                ops = _device_ops(torch, lambda: call(step, 0, False))
+            steps[step]["device_ops"] = ops
+            failed.extend(f"{step}: device operations: {x}"
+                          for x in _ops_shape(ops, FANOUT_DEVICE_OPS[step]))
         if step == "ep":
             steps[step].update(_ep_readings(
                 torch, device, m, lambda i, plain: call("ep", i, plain),
@@ -2127,6 +2200,14 @@ def phase_multichip_fanout(torch, device, s: Dict, shared: Dict,
     G = FANOUT_GROUPS
     valid = [int(torch.unique(m_[m_ >= 0]).numel()) for m_ in ms]
     n_valid = [int((m_ >= 0).sum()) for m_ in ms]
+    # the one-card ring and Ulysses kernels on the raw walks; their ids
+    # are the compact matches' (``ms``), each below the bitmap's rows
+    raw = [walk_kernel.nfa_walk(*e, *tabs, active_slots=A) for e in enc]
+    C = int(raw[0][0].shape[1])
+    rows_b = float(np.mean(valid)) * W * 4
+    ors_ops = float(np.mean(n_valid)) * W
+    bits = float(np.mean([int(bk.popcount32(o).sum()) for o in
+                          (bk.accept_or(bm_main, m_)[0] for m_ in ms)]))
     kern = {
         "accept_or": (
             [lambda m_=m_: bk.accept_or(cols, m_) for m_ in ms],
@@ -2153,11 +2234,48 @@ def phase_multichip_fanout(torch, device, s: Dict, shared: Dict,
                                         zero, loc[0], 0),
             _bitmap_bound([BATCH * Wl * 4, G * Wl * 4,
                                          BATCH * 4, 3 * BATCH * G * 4],
-                          BATCH * G * 4, 3.0 * BATCH * G * Wl))}
+                          BATCH * G * 4, 3.0 * BATCH * G * Wl)),
+        # compact form (cap 64): the raw slots, the rows its ids name, the
+        # output and the flags; an OR a word an id, a popcount and a scan
+        # step a word a window
+        "ring_or": (
+            [lambda a=a: bk.ring_or(a[0], bm, 4, K, FANOUT_CAP) for a in raw],
+            lambda: bk.ring_or_plain(raw[0][0], bm, 4, K, FANOUT_CAP),
+            _bitmap_bound([BATCH * C * 4, rows_b], BATCH * (W + 1) * 4,
+                          ors_ops + 3.0 * BATCH * W * 4)),
+        "ring_or_plain_form": (
+            [lambda a=a: bk.ring_or(a[0], bm, 4, K)[:1] for a in raw],
+            lambda: bk.ring_or_plain(raw[0][0], bm, 4, K)[:1],
+            _bitmap_bound([BATCH * C * 4, rows_b], BATCH * W * 4, ors_ops)),
+        # the raw slots and spills, the rows, the blocks, the counts and
+        # the two per-row fields; an OR a word an id, an add a set bit
+        "ulysses_or": (
+            [lambda a=a: bk.ulysses_or(a[0], a[1], bm_main, 4, K)
+             for a in raw],
+            lambda: bk.ulysses_or_plain(raw[0][0], raw[0][1], bm_main, 4, K),
+            _bitmap_bound([BATCH * (C + 1) * 4, rows_b],
+                          (BATCH * W + 32 * W + 2 * BATCH) * 4,
+                          ors_ops + bits))}
     timing = {}
     for name, (calls, plain, bound) in kern.items():
+        err = _max_err(calls[0](), plain())
+        if err:
+            failed.append(f"{name}: differs from its plain version by {err}")
         timing[name] = {**_time_bitmap(torch, device, calls, plain, flush),
-                        **bound}
+                        **bound, "max_abs_err": err}
+    # the compact form's cut, which cap 64 leaves idle on served rows
+    whole = bk.ring_or_plain(raw[0][0], bm, 4, K)[0]
+    cuts = {}
+    for cap in FANOUT_CUT_CAPS:
+        want = bk.ring_or_plain(raw[0][0], bm, 4, K, cap)
+        err = _max_err(bk.ring_or(raw[0][0], bm, 4, K, cap), want)
+        cuts[cap] = {"max_abs_err": err,
+                     "truncated_rows": int((want[1] > 0).sum()),
+                     "rows_cut": int((want[0] != whole).any(dim=1).sum())}
+        if err or not cuts[cap]["rows_cut"]:
+            failed.append(f"ring_or at cap {cap}: {cuts[cap]}, want a row "
+                          f"cut and no difference from its plain twin")
+    timing["ring_or"]["cut_caps"] = cuts
     if device.type == "cuda":
         _check(all(t["covered"] for t in timing.values()),
                "a bitmap kernel's time was not covered by the sleep")
@@ -2311,7 +2429,7 @@ def _route_entries(mc: Dict, fan: Dict) -> List[Dict]:
 
 
 def _bitmap_entries(fan: Dict, dry: Dict) -> List[Dict]:
-    """The four bitmap kernels' entries of the kernels line: launches on
+    """The six bitmap kernels' entries of the kernels line: launches on
     the multichip_fanout main path (and the dry run's), their times at
     the served shape, bounds and plain versions' times."""
     out = []
@@ -2323,10 +2441,21 @@ def _bitmap_entries(fan: Dict, dry: Dict) -> List[Dict]:
             "launches_by_path": {"multichip_fanout": fan["launches"][name],
                                  "dryrun_multichip": dry["launches"][name]},
             "registers": _registers("bitmap_fanout", f"{name}_kernel"),
-            "max_abs_err": fan["max_abs_err"], "ms": t["ms"],
-            "ms_cold": t["ms_cold"], "plain_ms": t["plain_ms"],
-            "plain_timing": t["plain_timing"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+            "max_abs_err": max(fan["max_abs_err"], t["max_abs_err"]),
+            "ms": t["ms"], "ms_cold": t["ms_cold"],
+            "plain_ms": t["plain_ms"], "plain_timing": t["plain_timing"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
+        if name == "ring_or":       # the compact form above, the plain here
+            p = fan["timing"]["ring_or_plain_form"]
+            out[-1]["shape"] = "compact form, cap 64"
+            out[-1]["cut_caps"] = t["cut_caps"]
+            out[-1]["max_abs_err"] = max(
+                [out[-1]["max_abs_err"]]
+                + [c["max_abs_err"] for c in t["cut_caps"].values()])
+            out[-1]["plain_form"] = {k: p[k] for k in (
+                "ms", "ms_cold", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")}
     return out
 
 

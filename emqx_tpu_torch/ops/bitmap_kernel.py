@@ -1,7 +1,7 @@
 """The subscriber-bitmap kernels of the multi-device fan-out, and their
 plain versions.
 
-Four functions that the reference computes with XLA inside its
+Six functions that the reference computes with XLA inside its
 ``shard_map`` steps (``emqx_tpu/parallel/``) and that PyTorch has no op
 for (no OR reduction over gathered rows, no popcount; ``torch.uint32``
 raises on shifts and reductions):
@@ -14,7 +14,15 @@ raises on shifts and reductions):
   overflow flag;
 * :func:`group_count` and :func:`group_pick` — ``shared_group.
   build_shared_selector``'s two halves around its collectives: the
-  candidates of each ``$share`` group in a row, then the picked member.
+  candidates of each ``$share`` group in a row, then the picked member;
+* :func:`ring_or` — the ring step (``ring_fanout.build_ring_fanout`` and
+  its compact form) on one device, from the walk's raw accept slots: each
+  row's first K valid ids, their bitmap rows ORed window by window, the
+  windows past the first cut to ``cap_row`` bits in the compact form,
+  and the rows' truncation counts;
+* :func:`ulysses_or` — the Ulysses step (``ulysses.build_ulysses_step``)
+  on one device, from the raw accept slots: the dispatch blocks, the
+  per-subscriber counts, ``n_matches`` and the spill flags.
 
 On CUDA tensors each launches its kernel of ``csrc/bitmap_fanout.cu`` on
 the current stream (outputs allocated here) or raises; on CPU tensors
@@ -28,20 +36,23 @@ slice of a wider one (its rows ``stride(0)`` ints apart), read in place.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import cuda_build
+from .match_kernel import _compact
 
 __all__ = ["accept_or", "accept_or_plain", "bitmap_compact",
-           "bitmap_compact_plain", "group_count", "group_count_plain",
-           "group_pick", "group_pick_plain", "launches", "popcount32",
-           "reset_launches"]
+           "bitmap_compact_plain", "bits_of_plain", "deliveries_plain",
+           "group_count", "group_count_plain", "group_pick",
+           "group_pick_plain", "launches", "popcount32", "reset_launches",
+           "ring_or", "ring_or_plain", "ulysses_or", "ulysses_or_plain"]
 
 #: launches of each kernel since the counts were last reset
 launches: Dict[str, int] = {"accept_or": 0, "bitmap_compact": 0,
-                            "group_count": 0, "group_pick": 0}
+                            "group_count": 0, "group_pick": 0, "ring_or": 0,
+                            "ulysses_or": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry point of each kernel: library (a ``cuda_build.SOURCES`` name),
@@ -55,6 +66,11 @@ _ENTRY = {
                     [_P, _I, _P, _I, _I, _I, _I, _P, _P]),
     "group_pick": ("bitmap_fanout", "group_pick_launch",
                    [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P,
+                    _P]),
+    "ring_or": ("bitmap_fanout", "ring_or_launch",
+                [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "ulysses_or": ("bitmap_fanout", "ulysses_or_launch",
+                   [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
                     _P]),
 }
 _entries: Dict[str, object] = {}
@@ -225,6 +241,82 @@ def group_pick_plain(bitmap: torch.Tensor, masks: torch.Tensor,
     return torch.where(mine, sub_id, -1).to(torch.int32)
 
 
+def bits_of_plain(ids: torch.Tensor, W: int) -> torch.Tensor:
+    """The reference's ``bits_of``: dense ``(B, cap)`` ids → ``(B, W)``
+    bitmap tile, ``1 << bit`` added into word ``id >> 5`` of a zero tile
+    (unique ids, so add is OR); a -1 pad adds 0 into the spare column W,
+    cut off."""
+    ok = ids >= 0
+    word = torch.where(ok, ids >> 5, W).long()
+    bit = torch.where(ok, torch.ones_like(ids) << (ids & 31), 0)
+    z = torch.zeros((ids.shape[0], W + 1), dtype=torch.int32,
+                    device=ids.device)
+    return z.scatter_add_(1, word, bit)[:, :W]
+
+
+def deliveries_plain(block: torch.Tensor) -> torch.Tensor:
+    """``(B, Wl)`` bitmap → ``(Wl·32,)`` int32: how many rows set each
+    bit (bit b of word w is subscriber w·32 + b), by the reference's
+    ``(B, Wl, 32)`` expand and sum."""
+    shifts = torch.arange(32, dtype=torch.int64, device=block.device)
+    bits = (block.to(torch.int64)[:, :, None] >> shifts) & 1
+    return bits.sum(dim=0, dtype=torch.int32).reshape(-1)
+
+
+def ring_or_plain(acc: torch.Tensor, bitmap: torch.Tensor, ring: int,
+                  K: int, cap_row: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(out (B, W), truncated (B,) or None)`` from the raw accept slots
+    ``acc (B, C)`` and the ring's bitmap rows ``(F_pad, W)``, as the
+    reference's ring computes them: the compact epilogue's ids
+    (``_compact``), each window's partial by :func:`accept_or_plain`,
+    then the plain form's OR of them all, or (``cap_row``) the first
+    window's partial ORed with the others' :func:`bitmap_compact_plain`
+    lists re-expanded by :func:`bits_of_plain`, and the overflow flags
+    summed over the windows."""
+    F_pad, W = bitmap.shape
+    if F_pad % ring:
+        raise ValueError(f"bitmap rows {F_pad} do not split over "
+                         f"ring={ring}")
+    f_local = F_pad // ring
+    ids = _compact(acc, K)
+    parts = [accept_or_plain(bitmap[r * f_local:(r + 1) * f_local], ids,
+                             r * f_local)[0] for r in range(ring)]
+    out = parts[0]
+    if cap_row is None:
+        for p in parts[1:]:
+            out = out | p
+        return out, None
+    trunc = torch.zeros((acc.shape[0],), dtype=torch.int32,
+                        device=acc.device)
+    for r, p in enumerate(parts):
+        lst, _n, over = bitmap_compact_plain(p, cap_row)
+        trunc = trunc + over
+        if r:
+            out = out | bits_of_plain(lst, W)
+    return out, trunc
+
+
+def ulysses_or_plain(acc: torch.Tensor, aover: torch.Tensor,
+                     bitmap: torch.Tensor, U: int, K: int
+                     ) -> Tuple[torch.Tensor, ...]:
+    """``(disp (U, B, W/U), counts (W·32,), n_matches (B,),
+    active_overflow (B,))`` from the raw accept slots ``acc (B, C)``, the
+    spills ``aover`` and the full-width bitmap ``(F+1, W)``, as the
+    reference's Ulysses step computes them: the compact epilogue's ids
+    ORed by :func:`accept_or_plain`, the tiled ``all_to_all``'s column
+    blocks, :func:`deliveries_plain` of the whole (each block's counts in
+    order), the count of valid raw slots."""
+    W = bitmap.shape[1]
+    if W % U:
+        raise ValueError(f"bitmap width {W} does not split over u={U}")
+    B = acc.shape[0]
+    ingest = accept_or_plain(bitmap, _compact(acc, K))[0]
+    disp = ingest.view(B, U, W // U).transpose(0, 1).contiguous()
+    n = (acc >= 0).sum(dim=1, dtype=torch.int32)
+    return disp, deliveries_plain(ingest), n, aover
+
+
 # -- the kernels ---------------------------------------------------------------
 
 def accept_or(bitmap: torch.Tensor, ids: torch.Tensor, lo: int = 0
@@ -317,3 +409,59 @@ def group_pick(bitmap: torch.Tensor, masks: torch.Tensor,
                 int(col_base),
                 picked.data_ptr())
     return picked
+
+
+def ring_or(acc: torch.Tensor, bitmap: torch.Tensor, ring: int, K: int,
+            cap_row: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`ring_or_plain` on CPU tensors; on CUDA tensors one launch
+    of ``ring_or_kernel`` (a block a row; ``out`` and ``truncated`` views
+    of one buffer)."""
+    if not _on_card("ring_or", acc):
+        return ring_or_plain(acc, bitmap, ring, K, cap_row)
+    _check("ring_or", acc.device, ("bitmap",), acc=acc, bitmap=bitmap)
+    (B, C), (F_pad, W) = acc.shape, bitmap.shape
+    if ring < 1 or F_pad % ring or F_pad < ring:
+        raise ValueError(f"ring_or: bitmap rows {F_pad} do not split over "
+                         f"ring={ring}")
+    if K < 0 or (cap_row is not None and cap_row < 0):
+        raise ValueError(f"ring_or: K {K} or cap_row {cap_row} < 0")
+    compact = cap_row is not None
+    buf = torch.empty((B * W + (B if compact else 0),), dtype=torch.int32,
+                      device=acc.device)
+    out = buf[:B * W].view(B, W)
+    trunc = buf[B * W:] if compact else None
+    if B:
+        _launch("ring_or", acc.device, acc.data_ptr(), B, C,
+                bitmap.data_ptr(), F_pad, W, _ld(bitmap) if W else 0,
+                F_pad // ring, ring, K, cap_row if compact else -1,
+                out.data_ptr(), trunc.data_ptr() if compact else None)
+    return out, trunc
+
+
+def ulysses_or(acc: torch.Tensor, aover: torch.Tensor, bitmap: torch.Tensor,
+               U: int, K: int) -> Tuple[torch.Tensor, ...]:
+    """:func:`ulysses_or_plain` on CPU tensors; on CUDA tensors the
+    counts' memset and one launch of ``ulysses_or_kernel`` (a block a
+    row).  The four outputs are views of one buffer."""
+    if not _on_card("ulysses_or", acc):
+        return ulysses_or_plain(acc, aover, bitmap, U, K)
+    _check("ulysses_or", acc.device, ("bitmap",), acc=acc, aover=aover,
+           bitmap=bitmap)
+    (B, C), (rows, W) = acc.shape, bitmap.shape
+    if U < 1 or W % U or aover.shape != (B,) or K < 0:
+        raise ValueError(f"ulysses_or: bitmap width {W} over u={U}, spills "
+                         f"{tuple(aover.shape)} for {B} rows, K {K}")
+    nd = B * W
+    buf = torch.empty((nd + 32 * W + 2 * B,), dtype=torch.int32,
+                      device=acc.device)
+    disp = buf[:nd].view(U, B, W // U)
+    counts = buf[nd:nd + 32 * W]
+    meta = buf[nd + 32 * W:]
+    if B:
+        _launch("ulysses_or", acc.device, acc.data_ptr(), aover.data_ptr(),
+                B, C, bitmap.data_ptr(), rows, W, _ld(bitmap) if W else 0, K,
+                U, disp.data_ptr(), counts.data_ptr(), meta.data_ptr())
+    else:
+        counts.zero_()
+    return disp, counts, meta[:B], meta[B:]

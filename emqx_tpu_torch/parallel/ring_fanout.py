@@ -2,27 +2,34 @@
 
 The port of ``emqx_tpu/parallel/ring_fanout.py``.  When the
 accept→subscriber bitmap outgrows one device, its ROWS (accept ids) shard
-over a ``ring`` mesh axis.  Each position walks its dp row group (once
-for each distinct device of the ring: the inputs are the same at every
-position) and ORs the rows it owns over the matches (the ``accept_or``
-kernel with the shard's id window); the partial bitmaps then rotate
-around the ring ``ring - 1`` times with
-:func:`~emqx_tpu_torch.parallel.collectives.ppermute`, each position
+over a ``ring`` mesh axis: window r of the rows lies at ring position r.
+Each position ORs the rows of its window that a topic's matches name; the
+partial bitmaps rotate around the ring ``ring - 1`` times, each position
 ORing what arrives, so every position ends with the full reduction.  The
 result is the ring's first position's (the reference's replicated
-output spec returns that one).
+output spec returns that one).  The compact form rotates each window's
+compacted id list instead (at most ``cap_row`` ids a row), re-expanded
+into a bitmap tile at each hop, and counts the windows a row overflows.
 
-The compact form rotates each shard's compacted id lists instead (the
-``bitmap_compact`` kernel), re-expanded into a bitmap tile at each hop
-by a scatter-add of single bits into a zero tile (ids are unique within
-a row, so the add is an OR; a -1 pad writes a spare column, cut off).
+On one device (every position of the mesh there,
+:func:`~emqx_tpu_torch.parallel.steps.one_device`) nothing rotates: a
+dispatch is one raw walk of the whole batch and one ``ring_or`` launch
+(``ops/bitmap_kernel.py``), which takes each row's first K valid ids,
+ORs their rows window by window and writes the ring's result, in both
+forms.  On several devices each position walks its dp row group (once
+for each distinct device of the ring), ORs its window's rows (the
+``accept_or`` kernel), compacts them (``bitmap_compact``) in the compact
+form, and the partials or lists rotate with
+:func:`~emqx_tpu_torch.parallel.collectives.ppermute`, a list re-expanded
+by a scatter-add of single bits into a zero tile (``bits_of_plain``).
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
+from ..ops.bitmap_kernel import bits_of_plain
+from . import steps
 from .collectives import ppermute, psum
 from .mesh import Mesh
 from .steps import bitmap_ops, gather_to, on, walk_match, walks
@@ -40,18 +47,6 @@ def shard_bitmap_rows(bitmap: np.ndarray, ring: int) -> np.ndarray:
         bitmap = np.concatenate([bitmap, np.zeros((pad, w), bitmap.dtype)],
                                 axis=0)
     return bitmap
-
-
-def _bits_of(ids: torch.Tensor, W: int) -> torch.Tensor:
-    """Dense ``(Bl, cap)`` ids → ``(Bl, W)`` bitmap tile: ``1 << bit``
-    added into word ``id >> 5`` of a zero tile (unique ids, so add is
-    OR); a -1 pad adds 0 into the spare column W, cut off."""
-    ok = ids >= 0
-    word = torch.where(ok, ids >> 5, W).long()
-    bit = torch.where(ok, torch.ones_like(ids) << (ids & 31), 0)
-    z = torch.zeros((ids.shape[0], W + 1), dtype=torch.int32,
-                    device=ids.device)
-    return z.scatter_add_(1, word, bit)[:, :W]
 
 
 def _ring_partials(mesh: Mesh, active_slots: int, max_matches: int,
@@ -86,14 +81,41 @@ def _ring_partials(mesh: Mesh, active_slots: int, max_matches: int,
     return partials
 
 
+def _one_device(mesh: Mesh, active_slots: int, max_matches: int,
+                plain: bool, cap_row):
+    """The step on one device: the raw walk of the whole batch, then one
+    ``ring_or`` (every dp group's windows are the same, so one launch
+    covers the batch); ``(out, truncated)``, truncated None for the
+    plain form."""
+    dp, ring = mesh.shape["dp"], mesh.shape["ring"]
+    walk = steps.raw_walk(active_slots, plain)
+    ring_or = bitmap_ops(plain).ring_or
+    dev = mesh.lead
+
+    def step(words, lens, is_sys, node_tab, edge_tab, seeds, bitmap_rows):
+        B, F_pad = words.shape[0], bitmap_rows.shape[0]
+        if B % dp or F_pad % ring:
+            raise ValueError(f"batch {B} or bitmap rows {F_pad} do not "
+                             f"split over dp={dp}, ring={ring}")
+        acc, _aover = steps.walk_on(walk, dev, (words, lens, is_sys),
+                                    (node_tab, edge_tab, seeds))
+        return ring_or(acc, on(bitmap_rows, dev), ring, max_matches, cap_row)
+
+    return step
+
+
 def build_ring_fanout(mesh: Mesh, active_slots: int = 16,
                       max_matches: int = 32, plain: bool = False):
     """``step(words, lens, is_sys, node, edge, seeds, bitmap_rows) -> (B,
     W)`` int32 over a ``(dp, ring)`` mesh: batch rows split over ``dp``,
     the NFA tables replicated, ``bitmap_rows (F_pad, W)`` split by rows
-    over ``ring``.  Per dispatch: one walk for each distinct device of
+    over ``ring``.  Per dispatch on one device: one raw walk and one
+    ``ring_or`` launch; on several, one walk for each distinct device of
     each grid row, ``dp·ring`` ``accept_or`` launches and ``ring - 1``
     hops."""
+    if steps.one_device(mesh.distinct):
+        one = _one_device(mesh, active_slots, max_matches, plain, None)
+        return lambda *args: one(*args)[0]
     partials = _ring_partials(mesh, active_slots, max_matches, plain)
 
     def step(words, lens, is_sys, node_tab, edge_tab, seeds, bitmap_rows):
@@ -117,9 +139,12 @@ def build_ring_fanout_compact(mesh: Mesh, cap_row: int = 64,
     :func:`build_ring_fanout`, but what rotates is each shard's
     compacted ``(Bl, cap_row)`` id list; a row whose local partial holds
     more than ``cap_row`` ids is counted truncated (summed over the
-    ring: the rows the host re-runs).  Per dispatch: the bitmap step's
+    ring: the rows the host re-runs).  Per dispatch on one device: one
+    raw walk and one ``ring_or`` launch; on several, the bitmap step's
     walks and ``accept_or`` launches and ``dp·ring`` ``bitmap_compact``
     launches."""
+    if steps.one_device(mesh.distinct):
+        return _one_device(mesh, active_slots, max_matches, plain, cap_row)
     partials = _ring_partials(mesh, active_slots, max_matches, plain)
     ops = bitmap_ops(plain)
 
@@ -132,7 +157,7 @@ def build_ring_fanout_compact(mesh: Mesh, cap_row: int = 64,
             acc, chunk = list(part), list(ids)
             for _ in range(len(devs) - 1):
                 chunk = ppermute(chunk, devs)
-                acc = [a | _bits_of(c, W) for a, c in zip(acc, chunk)]
+                acc = [a | bits_of_plain(c, W) for a, c in zip(acc, chunk)]
             out.append(acc[0])
             trunc.append(psum(over, devs)[0])
         return gather_to(out, mesh.lead), gather_to(trunc, mesh.lead)

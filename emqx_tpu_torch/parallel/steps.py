@@ -2,11 +2,15 @@
 operands placed on a mesh position's device, and the packed batch and
 outputs of the routed steps.
 
-Every step of ``parallel/`` walks with the port's ``nfa_match`` in
-compact mode (:func:`walk_match`: the hash-walk kernel on CUDA tensors)
-and, in the fan-out steps, does its bitmap work with the four kernels of
-``ops/bitmap_kernel.py`` (:func:`bitmap_ops`).  A ``plain`` build takes
-the plain versions of both on any device: what the kernels are held to.
+The steps walk with the hash-walk kernel on CUDA tensors: the sharded
+fan-out (K8b) and, on several devices, the ring and Ulysses steps (K8d,
+K8f) in compact mode (:func:`walk_match`: ``nfa_match``, its epilogue
+torch ops); the multichip and prefix-EP steps (K8a, K8c) and, on one
+device, the ring and Ulysses steps in raw mode (:func:`raw_walk`), their
+kernels reading the raw accept slots.  The fan-out steps do their bitmap
+work with the kernels of ``ops/bitmap_kernel.py`` (:func:`bitmap_ops`).
+A ``plain`` build takes the plain versions of both on any device: what
+the kernels are held to.
 
 A step takes global operands (torch tensors on any device, or numpy
 arrays; a uint32 bitmap is read as int32 bit patterns) and cuts each
@@ -14,8 +18,9 @@ position's block as the reference's ``in_specs`` do; :func:`on` puts a
 block on a position's device (a view where it already lies there, so a
 column slice is read in place).
 
-The multichip and prefix-EP steps (K8a, K8c) take their batch up in one
-copy a device (:func:`upload_batch`) and write every output field into
+The multichip and prefix-EP steps (K8a, K8c), and the one-device ring
+and Ulysses steps (:func:`walk_on`), take their batch up in one copy a
+device (:func:`upload_batch`); K8a and K8c and write every output field into
 one buffer (:func:`packed`), which leaves the card in one copy; on a mesh
 of several devices each device writes its own and :func:`combine` sums
 them on the lead device.
@@ -32,7 +37,7 @@ import torch
 
 __all__ = ["bitmap_ops", "combine", "field_views", "gather_to", "on",
            "one_device", "packed",
-           "raw_walk", "upload_batch", "walk_match", "walks"]
+           "raw_walk", "upload_batch", "walk_match", "walk_on", "walks"]
 
 
 def on(x, dev: torch.device) -> torch.Tensor:
@@ -87,6 +92,16 @@ def raw_walk(active_slots: int, plain: bool):
     def walk(w, l, s, node, edge, seeds):
         return fn(w, l, s, node, edge, seeds, active_slots=active_slots)
     return walk
+
+
+def walk_on(walk, dev: torch.device, batch: Sequence, tables: Sequence
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``walk`` (a :func:`raw_walk`) of the whole ``batch`` (words, lens,
+    is_sys; up in one copy where it is not on ``dev``:
+    :func:`upload_batch`) over ``tables`` (node, edge, seeds) on ``dev``:
+    the one-device steps' walk, ``(acc, aover)``."""
+    w, l, s = upload_batch(*batch, [dev])[dev]
+    return walk(w, l, s, *(on(t, dev) for t in tables))
 
 
 def _host(x) -> np.ndarray:
@@ -181,7 +196,7 @@ def walks(match, devices: Sequence[torch.device], batch: Sequence,
 
 
 def bitmap_ops(plain: bool) -> SimpleNamespace:
-    """The four bitmap functions of ``ops/bitmap_kernel.py``: the
+    """The six bitmap functions of ``ops/bitmap_kernel.py``: the
     wrappers (the kernels on CUDA tensors), or with ``plain`` their plain
     versions on any device."""
     from ..ops import bitmap_kernel as bk
@@ -190,7 +205,9 @@ def bitmap_ops(plain: bool) -> SimpleNamespace:
         return SimpleNamespace(
             accept_or=bk.accept_or_plain, compact=bk.bitmap_compact_plain,
             group_count=bk.group_count_plain,
-            group_pick=bk.group_pick_plain)
+            group_pick=bk.group_pick_plain, ring_or=bk.ring_or_plain,
+            ulysses_or=bk.ulysses_or_plain)
     return SimpleNamespace(accept_or=bk.accept_or, compact=bk.bitmap_compact,
                            group_count=bk.group_count,
-                           group_pick=bk.group_pick)
+                           group_pick=bk.group_pick, ring_or=bk.ring_or,
+                           ulysses_or=bk.ulysses_or)

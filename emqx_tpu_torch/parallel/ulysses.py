@@ -6,7 +6,7 @@ The port of ``emqx_tpu/parallel/ulysses.py``:
 
 * **ingest layout** — the topic BATCH axis is sharded over ``u``: each
   position matches its B/U topics and assembles full-width subscriber
-  bitmap rows for them (the ``accept_or`` kernel);
+  bitmap rows for them;
 * **dispatch layout** — the SUBSCRIBER axis is sharded: each position
   owns a column slice of the bitmap over the WHOLE batch, what a node
   that delivers to that range of sessions needs.
@@ -17,6 +17,16 @@ per-subscriber outcomes back.  The dispatch bitmap and the delivery
 counts stay one block a position (:class:`~emqx_tpu_torch.parallel.mesh.
 Sharded`), the layout the reference asserts through
 ``addressable_shards``.
+
+On one device (:func:`~emqx_tpu_torch.parallel.steps.one_device`) a
+step is one raw walk of the whole batch and one ``ulysses_or`` launch
+(``ops/bitmap_kernel.py``; its entry zeroes the counts first): it writes
+the dispatch blocks in the landed layout, the counts, ``n_matches`` and
+the spill flags into one buffer, and every field is a view of it.  On
+several devices each distinct device walks its positions' row blocks
+together, each position ORs its rows (the ``accept_or`` kernel), one
+tiled ``all_to_all`` moves the blocks and each slice's counts are torch
+ops (``deliveries_plain``).
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ from typing import Dict, List, NamedTuple
 
 import torch
 
+from ..ops.bitmap_kernel import deliveries_plain
+from . import steps
 from .collectives import all_to_all_tiled
 from .mesh import Mesh, Sharded
 from .steps import bitmap_ops, gather_to, on, walk_match
@@ -89,12 +101,29 @@ def build_unreshard(mesh: Mesh, axis: str = "u"):
     return unreshard
 
 
-def _deliveries(block: torch.Tensor) -> torch.Tensor:
-    """``(B, Wl)`` bitmap → ``(Wl·32,)`` int32: how many rows set each
-    bit (bit b of word w is subscriber w·32 + b)."""
-    shifts = torch.arange(32, dtype=torch.int64, device=block.device)
-    bits = (block.to(torch.int64)[:, :, None] >> shifts) & 1
-    return bits.sum(dim=0, dtype=torch.int32).reshape(-1)
+def _one_device(dev: torch.device, U: int, axis: str, active_slots: int,
+                max_matches: int, plain: bool):
+    """The step on one device: the raw walk of the whole batch, then
+    ``ulysses_or``; each position's block a view of its output."""
+    walk = steps.raw_walk(active_slots, plain)
+    ulysses_or = bitmap_ops(plain).ulysses_or
+
+    def step(words, lens, is_sys, node_tab, edge_tab, seeds, accept_bitmap):
+        B, W = words.shape[0], accept_bitmap.shape[1]
+        if B % U or W % U:
+            raise ValueError(f"batch {B} or bitmap width {W} does not split "
+                             f"over {axis}={U}")
+        acc, aover = steps.walk_on(walk, dev, (words, lens, is_sys),
+                                   (node_tab, edge_tab, seeds))
+        disp, counts, n, over = ulysses_or(acc, aover, on(accept_bitmap, dev),
+                                           U, max_matches)
+        slices = counts.view(U, W // U * 32)
+        return UlyssesResult(
+            dispatch_bitmap=Sharded(list(disp.unbind(0)), 1),
+            sub_deliveries=Sharded(list(slices.unbind(0)), 0),
+            n_matches=n, active_overflow=over)
+
+    return step
 
 
 def build_ulysses_step(mesh: Mesh, axis: str = "u", active_slots: int = 16,
@@ -102,14 +131,18 @@ def build_ulysses_step(mesh: Mesh, axis: str = "u", active_slots: int = 16,
     """The ingest→match→reshard→dispatch step: ``step(words, lens,
     is_sys, node_tab, edge_tab, seeds, accept_bitmap) -> UlyssesResult``.
     Batch rows split over ``axis``; the NFA tables and the accept bitmap
-    replicated (each position assembles full-width rows).  The row
-    blocks of the positions on one device are walked together, one walk
-    a distinct device; then ``U`` ``accept_or`` launches (one a
-    position), one tiled ``all_to_all`` and the per-subscriber counts of
-    each dispatch slice.  ``plain`` runs the plain walk and
-    ``accept_or``'s plain version."""
+    replicated (each position assembles full-width rows).  On one
+    device: one raw walk and one ``ulysses_or`` launch (and its memset).
+    On several: the row blocks of the positions on one device are walked
+    together, one walk a distinct device; then ``U`` ``accept_or``
+    launches (one a position), one tiled ``all_to_all`` and the
+    per-subscriber counts of each dispatch slice.  ``plain`` runs the
+    plain walk and the kernels' plain versions."""
     devs = mesh.axis_devices(axis, (0,) * len(mesh.axes))
     U = len(devs)
+    if steps.one_device(devs):
+        return _one_device(devs[0], U, axis, active_slots, max_matches,
+                           plain)
     match = walk_match(active_slots, plain)
     ops = bitmap_ops(plain)
 
@@ -137,7 +170,7 @@ def build_ulysses_step(mesh: Mesh, axis: str = "u", active_slots: int = 16,
         disp = all_to_all_tiled(ingest, devs, split_dim=1, concat_dim=0)
         return UlyssesResult(
             dispatch_bitmap=Sharded(disp, 1),
-            sub_deliveries=Sharded([_deliveries(x) for x in disp], 0),
+            sub_deliveries=Sharded([deliveries_plain(x) for x in disp], 0),
             n_matches=gather_to([x[1] for x in res], mesh.lead),
             active_overflow=gather_to([x[2] for x in res], mesh.lead))
 

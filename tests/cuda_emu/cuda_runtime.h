@@ -28,6 +28,7 @@
 #include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <functional>
 #include <vector>
 
@@ -90,6 +91,12 @@ template <class Kernel>
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
     int* n, Kernel, int, size_t) {
   *n = 1;
+  return cudaSuccess;
+}
+
+// A memset on the stream: at once (one launch runs at a time).
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
   return cudaSuccess;
 }
 

@@ -7,7 +7,7 @@ the two-tier matcher and the retained replay; the exhook match sidecar;
 the multichip step and matcher on a mesh of four shards of one card,
 the routing grid and merge kernels of K8a and K8c against their plain
 versions, and the prefix-EP step;
-the fan-out's four bitmap kernels against their plain versions, the
+the fan-out's six bitmap kernels against their plain versions, the
 library steps (K8b-K8f) and the dry run on that mesh; on the card.  These tests need an NVIDIA GPU and nvcc; they skip elsewhere.  The
 module imports neither JAX nor the reference package, so it also runs
 where only the port is installed:
@@ -1732,6 +1732,78 @@ def test_group_kernels_equal_plain(B, G, W, tp):
         assert torch.equal(got, want)
 
 
+def _raw_rows(rng, B, C, hi):
+    """Raw accept rows ``(B, C)``: -1 empty slots and ids in ``[0, hi +
+    20)`` (some past the bitmap's ``hi`` rows); row 0 every slot valid,
+    row 1 none, row 2 only ids past the bitmap, row 3 one id at the
+    end."""
+    acc = np.where(rng.random((B, C)) < 0.3, rng.integers(0, hi + 20, (B, C)),
+                   -1)
+    acc[0] = rng.integers(0, hi, C)
+    acc[1] = -1
+    acc[2] = np.where(np.arange(C) % 3 == 0, hi + np.arange(C) % 7, -1)
+    acc[3] = -1
+    acc[3, -1] = hi - 1
+    return torch.from_numpy(acc.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,C,K,ring,cap,B", [
+    (316, 446, 128, 4, 64, 2048),    # the served shape, compact form
+    (316, 446, 128, 4, None, 2048),  # and plain
+    (300, 130, 16, 2, 1, 1000),      # a cap of 1, a partly filled tile
+    (150, 40, 40, 3, 10_000, 333),   # a cap past every bit, K = C
+    (5, 7, 3, 1, 0, 64),             # ring 1, cap 0
+    (200, 60, 200, 8, 9, 100)])      # eight windows, K past C
+def test_ring_or_kernel_equals_plain(W, C, K, ring, cap, B):
+    """``ring_or`` on a column slice (rows W + 37 apart) against
+    ``ring_or_plain``, both outputs: several word tiles, rows past K,
+    none valid, only ids past the bitmap."""
+    _skip_without_card()
+    from emqx_tpu_torch.ops import bitmap_kernel as bk
+
+    rng = np.random.default_rng(W + C + K)
+    rows = 40 * ring
+    bitmap = _bits(rng, (rows, W + 37), 0.05).cuda()[:, 37:]
+    acc = _raw_rows(rng, B, C, rows).cuda()
+    bk.reset_launches()
+    got = bk.ring_or(acc, bitmap, ring, K, cap)
+    assert bk.launches["ring_or"] == 1
+    want = bk.ring_or_plain(acc, bitmap, ring, K, cap)
+    assert torch.equal(got[0], want[0])
+    if cap is None:
+        assert got[1] is None and want[1] is None
+    else:
+        assert torch.equal(got[1], want[1])
+        assert (int(want[1].max()) > 0) == (cap < 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,U,C,K,B", [
+    (316, 4, 446, 128, 2048),   # the served shape: W/U = 79
+    (300, 4, 130, 16, 1000),    # W/U = 75, no multiple of the block
+    (8, 8, 40, 40, 64),         # a word a part
+    (160, 2, 7, 3, 333)])       # rows of more valid slots than K
+def test_ulysses_or_kernel_equals_plain(W, U, C, K, B):
+    """``ulysses_or`` on a column slice against ``ulysses_or_plain``,
+    every field, twice (the counts are zeroed at each launch)."""
+    _skip_without_card()
+    from emqx_tpu_torch.ops import bitmap_kernel as bk
+
+    rng = np.random.default_rng(W + U + C)
+    bitmap = _bits(rng, (97, W + 5), 0.05).cuda()[:, 5:]
+    acc = _raw_rows(rng, B, C, 97).cuda()
+    aover = torch.from_numpy(rng.integers(0, 3, B).astype(np.int32)).cuda()
+    want = bk.ulysses_or_plain(acc, aover, bitmap, U, K)
+    bk.reset_launches()
+    for _ in range(2):
+        got = bk.ulysses_or(acc, aover, bitmap, U, K)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert bk.launches["ulysses_or"] == 2
+    assert int(want[1].sum()) > 0
+
+
 @pytest.mark.cuda
 def test_fanout_steps_on_card_equal_plain_and_cpu():
     """Each library step on ``[cuda:0] * 4`` (its walk the hash-walk
@@ -1783,8 +1855,10 @@ def test_fanout_steps_on_card_equal_plain_and_cpu():
     walk_kernel.launches = 0
     got = run("cuda", False)
     assert walk_kernel.launches == 5        # one walk a step (one card)
-    assert bk.launches == {"accept_or": 20, "bitmap_compact": 8,
-                           "group_count": 0, "group_pick": 0}
+    # the ring's two forms and Ulysses: one kernel each on one card
+    assert bk.launches == {"accept_or": 8, "bitmap_compact": 4,
+                           "group_count": 0, "group_pick": 0, "ring_or": 2,
+                           "ulysses_or": 1}
     want, cpu = run("cuda", True), run("cpu", False)
     for k in got:
         for g, w, c in zip(got[k], want[k], cpu[k]):

@@ -741,6 +741,106 @@ def test_group_kernels_source_equal_plain(emu_kernels, B, G, W, tp):
     assert bool((picked[:, -1] == -1).all()) and bool((picked[1] == -1).all())
 
 
+# -- the one-device ring and Ulysses steps (ring_or, ulysses_or) -------------
+
+def _raw_rows(rng, B, C, hi):
+    """Raw accept rows ``(B, C)`` as a walk leaves them: -1 empty slots
+    and ids in ``[0, hi + 20)`` (some past the bitmap's ``hi`` rows, which
+    read nothing); row 0 every slot valid (more than K), row 1 none, row
+    2 only ids past the bitmap, row 3 one valid slot at the end."""
+    acc = np.where(rng.random((B, C)) < 0.3, rng.integers(0, hi + 20, (B, C)),
+                   -1)
+    acc[0] = rng.integers(0, hi, C)
+    acc[1] = -1
+    acc[2] = np.where(np.arange(C) % 3 == 0, hi + np.arange(C) % 7, -1)
+    acc[3] = -1
+    acc[3, -1] = hi - 1
+    return torch.from_numpy(acc.astype(np.int32))
+
+
+def _ring_or_emu(emu, acc, bitmap, ring, K, cap):
+    (B, C), (rows, W) = acc.shape, bitmap.shape
+    out = torch.full((B, W), -7, dtype=I32)
+    trunc = torch.full((B,), -7, dtype=I32)
+    rc = emu["ring_or"](acc.data_ptr(), B, C, bitmap.data_ptr(), rows, W,
+                        bitmap.stride(0), rows // ring, ring, K,
+                        -1 if cap is None else cap, out.data_ptr(),
+                        trunc.data_ptr(), None)
+    assert rc == 0
+    return out, (None if cap is None else trunc)
+
+
+@pytest.mark.parametrize("W,C,K,ring,cap,B", [
+    (300, 446, 128, 4, 64, 7),     # three word tiles (the last 44 words),
+    #                                C over four blocks, a cap cut mid-word
+    (300, 446, 128, 4, None, 7),   # the plain form
+    (79, 130, 16, 2, 1, 6),        # a cap of 1, one tile partly filled
+    (150, 40, 40, 3, 10_000, 5),   # a cap past every bit, K = C
+    (5, 7, 3, 1, 0, 4),            # ring 1, cap 0: every window over
+    (200, 60, 200, 8, 9, 5)])      # eight windows, K past C
+def test_ring_or_source_equals_plain(emu_kernels, W, C, K, ring, cap, B):
+    """``ring_or`` against ``ring_or_plain`` on a column-sliced bitmap
+    (rows W + 37 apart), both forms: rows past K, none valid, only ids
+    past the bitmap, one id."""
+    rng = np.random.default_rng(W + C + K)
+    rows = 40 * ring
+    bitmap = _bits(rng, (rows, W + 37), 0.05)[:, 37:]
+    acc = _raw_rows(rng, B, C, rows)
+    got = _ring_or_emu(emu_kernels, acc, bitmap, ring, K, cap)
+    want = bk.ring_or_plain(acc, bitmap, ring, K, cap)
+    assert torch.equal(got[0], want[0])
+    if cap is None:
+        assert want[1] is None
+        return
+    assert torch.equal(got[1], want[1])
+    assert not bool(want[0][1].any()) and not bool(want[0][2].any())
+    if 0 < cap < 100:
+        assert int(want[1].max()) > 0
+        # a cut window keeps part of its partial: a subset of the plain OR
+        full = bk.ring_or_plain(acc, bitmap, ring, K)[0]
+        assert bool(((want[0] & ~full) == 0).all())
+        assert not torch.equal(want[0], full)
+    if cap == 10_000:
+        assert int(want[1].max()) == 0
+        assert torch.equal(want[0], bk.ring_or_plain(acc, bitmap, ring, K)[0])
+
+
+def _ulysses_or_emu(emu, acc, aover, bitmap, U, K):
+    (B, C), (rows, W) = acc.shape, bitmap.shape
+    disp = torch.full((U, B, W // U), -7, dtype=I32)
+    counts = torch.full((W * 32,), -7, dtype=I32)
+    meta = torch.full((2 * B,), -7, dtype=I32)
+    rc = emu["ulysses_or"](acc.data_ptr(), aover.data_ptr(), B, C,
+                           bitmap.data_ptr(), rows, W, bitmap.stride(0), K, U,
+                           disp.data_ptr(), counts.data_ptr(),
+                           meta.data_ptr(), None)
+    assert rc == 0
+    return disp, counts, meta[:B], meta[B:]
+
+
+@pytest.mark.parametrize("W,U,C,K,B", [
+    (316, 4, 446, 128, 6),   # the served width: W/U = 79, three tiles
+    (300, 4, 130, 16, 7),    # W/U = 75, no multiple of the block
+    (8, 8, 40, 40, 5),       # a word a part, K = C
+    (160, 2, 7, 3, 4)])      # rows of more valid slots than K
+def test_ulysses_or_source_equals_plain(emu_kernels, W, U, C, K, B):
+    """``ulysses_or`` against ``ulysses_or_plain`` on a column-sliced
+    bitmap, every field; its counts start from -7 (the entry zeroes
+    them)."""
+    rng = np.random.default_rng(W + U + C)
+    rows = 97
+    bitmap = _bits(rng, (rows, W + 5), 0.05)[:, 5:]
+    acc = _raw_rows(rng, B, C, rows)
+    aover = torch.from_numpy(rng.integers(0, 3, B).astype(np.int32))
+    got = _ulysses_or_emu(emu_kernels, acc, aover, bitmap, U, K)
+    want = bk.ulysses_or_plain(acc, aover, bitmap, U, K)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(want[2][0]) == C > K or K >= C
+    assert int(want[1].sum()) == sum(
+        int(bk.popcount32(want[0][u]).sum()) for u in range(U)) > 0
+
+
 # -- the routing grid and the merge (ep_route.cu) ------------------------------
 
 def _route_case(seed, rows, D, tp, owner_map):

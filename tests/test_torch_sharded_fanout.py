@@ -257,8 +257,23 @@ def ring_case():
     return table, bitmap, enc
 
 
+def _layout(monkeypatch, layout):
+    """``several_devices`` forces the several-device code on the CPU
+    mesh (per-position kernels and collectives); ``one_device`` is the
+    CPU mesh as it is, one device (a raw walk and one kernel)."""
+    from emqx_tpu_torch.parallel import steps
+
+    if layout == "several_devices":
+        monkeypatch.setattr(steps, "one_device", lambda devices: False)
+
+
+LAYOUTS = ["one_device", "several_devices"]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dp,ring", RINGS)
-def test_ring_fanout_parity(ring_case, dp, ring):
+def test_ring_fanout_parity(monkeypatch, ring_case, dp, ring, layout):
+    _layout(monkeypatch, layout)
     table, bitmap, enc = ring_case
     rows = ref.shard_bitmap_rows(bitmap, ring)
     np.testing.assert_array_equal(P.shard_bitmap_rows(bitmap, ring), rows)
@@ -271,12 +286,15 @@ def test_ring_fanout_parity(ring_case, dp, ring):
     np.testing.assert_array_equal(want, dense_ref(table, enc, bitmap)[1])
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("dp,ring", RINGS)
 @pytest.mark.parametrize("cap", [128, 1])
-def test_ring_fanout_compact_parity_and_truncation(ring_case, dp, ring, cap):
+def test_ring_fanout_compact_parity_and_truncation(monkeypatch, ring_case, dp,
+                                                   ring, cap, layout):
     """An ample cap reduces to the bitmap ring's result; a starving one
     flags truncation and, like the reference, returns the ring's first
     position's (partial) bitmap, a subset of the full one."""
+    _layout(monkeypatch, layout)
     table, bitmap, enc = ring_case
     rows = ref.shard_bitmap_rows(bitmap, ring)
     shape = {"dp": dp, "ring": ring}
@@ -474,10 +492,7 @@ def test_prefix_ep_edge_cases_match_reference(monkeypatch, E, capacity, K,
     capacity, rows past K; on one device (the grid written as it lands)
     and in the several-device layout (forced on the CPU mesh: a grid a
     source, ``all_to_all``, the parts summed on the lead)."""
-    from emqx_tpu_torch.parallel import steps
-
-    if layout == "several_devices":
-        monkeypatch.setattr(steps, "one_device", lambda devices: False)
+    _layout(monkeypatch, layout)
     filters, topics = _ep_case(23)
     topics += ["r1/r2"] * 20
     rtabs = ref.build_partitions(filters, E, depth=8)
@@ -531,11 +546,13 @@ def test_ulysses_reshard_roundtrip(U):
     assert all(torch.equal(a, b) for a, b in zip(again.parts, back.parts))
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("U", [2, 4, 8])
-def test_ulysses_step_matches_reference(U):
+def test_ulysses_step_matches_reference(monkeypatch, U, layout):
     """The dispatch bitmap equals the reference's and the dense OR, each
     position holding all rows of a W/U column slice; the per-subscriber
     counts equal the reference's, block by block."""
+    _layout(monkeypatch, layout)
     table, _names, enc = _setup(64)
     bitmap = ref.make_accept_bitmap(table, subscribers_of, N_SUBS, tp=8)
     want = ref.build_ulysses_step(ref_mesh({"u": U}))(
@@ -595,6 +612,122 @@ def test_accept_or_plain_equals_reference_functions():
         torch.from_numpy(bm[lo:lo + f_local].view(np.int32)),
         torch.from_numpy(ids), lo)
     np.testing.assert_array_equal(u32(out), ring_want)
+
+
+def _raw_accepts(rng, B, C, hi):
+    """Raw accept slots ``(B, C)``: -1 empty, ids in ``[0, hi + 10)``
+    (some past the bitmap's ``hi`` rows); row 0 every slot valid (past
+    K), row 1 none."""
+    acc = np.where(rng.random((B, C)) < 0.4, rng.integers(0, hi + 10, (B, C)),
+                   -1).astype(np.int32)
+    acc[0] = rng.integers(0, hi, C)
+    acc[1] = -1
+    return acc
+
+
+def _ref_bits_of(ids, W):
+    """The reference ring's ``bits_of`` (a closure of its step)."""
+    ok = ids >= 0
+    word = jnp.where(ok, ids >> 5, W)
+    bit = jnp.where(ok, jnp.uint32(1) << (ids & 31).astype(jnp.uint32),
+                    jnp.uint32(0))
+    rows = jnp.broadcast_to(jnp.arange(ids.shape[0])[:, None], ids.shape)
+    return jnp.zeros((ids.shape[0], W), jnp.uint32).at[rows, word].add(
+        bit, mode="drop")
+
+
+def _ref_ring(acc, bm, ring, K, cap, dp):
+    """The reference ring's arithmetic on raw accept slots, a dp row group
+    at a time: its ``_compact``, each position's window gather-OR as its
+    step writes it, then the OR of the partials, or the first position's
+    partial with the others' ``compact_bitmap_ids`` lists through
+    ``bits_of``, and the overflow flags summed over the ring."""
+    from emqx_tpu.ops.match_kernel import _compact as ref_compact
+
+    f_local, W = bm.shape[0] // ring, bm.shape[1]
+    outs, truncs = [], []
+    for m in np.split(np.asarray(ref_compact(jnp.asarray(acc), K)), dp):
+        m = jnp.asarray(m)
+        parts = []
+        for r in range(ring):
+            local = m - r * f_local
+            valid = (m >= 0) & (local >= 0) & (local < f_local)
+            rows = jnp.asarray(bm[r * f_local:(r + 1) * f_local])[
+                jnp.where(valid, local, 0)]
+            parts.append(jax.lax.reduce(
+                jnp.where(valid[:, :, None], rows, jnp.uint32(0)),
+                np.uint32(0), jax.lax.bitwise_or, (1,)))
+        out, trunc = parts[0], jnp.zeros(m.shape[0], jnp.int32)
+        for r, p in enumerate(parts):
+            if cap is None:
+                out = out | p
+                continue
+            ids, _n, over = ref_sharded_match.compact_bitmap_ids(p, cap)
+            trunc = trunc + over
+            if r:
+                out = out | _ref_bits_of(ids, W)
+        outs.append(np.asarray(out))
+        truncs.append(np.asarray(trunc))
+    return np.concatenate(outs), np.concatenate(truncs)
+
+
+@pytest.mark.parametrize("ring,cap,dp", [(4, None, 1), (4, 5, 2), (2, 40, 3),
+                                         (3, 1, 1), (2, 0, 2), (4, 500, 4)])
+def test_ring_or_plain_equals_reference_arithmetic(ring, cap, dp):
+    """``ring_or_plain`` on raw accept slots against the reference ring's
+    own arithmetic row group by row group (dp groups; one launch takes the
+    whole batch): caps that cut a partial mid-word, 0 and past every bit,
+    rows of more than K valid slots, -1 and ids past the bitmap."""
+    rng = np.random.default_rng(10 * ring + dp)
+    B, C, K, W = 12, 50, 8, 9
+    bm = rng.integers(0, 2**32, (13 * ring, W), dtype=np.uint32)
+    bm &= rng.integers(0, 2**32, bm.shape, dtype=np.uint32)
+    acc = _raw_accepts(rng, B, C, bm.shape[0])
+    want_out, want_trunc = _ref_ring(acc, bm, ring, K, cap, dp)
+    out, trunc = bk.ring_or_plain(torch.from_numpy(acc),
+                                  torch.from_numpy(bm.view(np.int32)), ring,
+                                  K, cap)
+    np.testing.assert_array_equal(u32(out), want_out)
+    if cap is None:
+        assert trunc is None
+        return
+    np.testing.assert_array_equal(trunc.numpy(), want_trunc)
+    assert (want_trunc > 0).any() == (cap < 100)
+    assert not want_out[1].any() and want_out[0].any()
+
+
+@pytest.mark.parametrize("U", [1, 3])
+def test_ulysses_or_plain_equals_reference_arithmetic(U):
+    """``ulysses_or_plain`` on raw accept slots against the reference
+    step's arithmetic: its ``_compact``, ``or_accept_rows`` (-1 reads
+    the zero sentinel row, an id past it is clamped there), the tiled
+    ``all_to_all``'s column blocks, each block's per-subscriber bit
+    counts; ``n_matches`` counts every valid slot."""
+    from emqx_tpu.ops.match_kernel import _compact as ref_compact
+
+    rng = np.random.default_rng(U)
+    B, C, K, W = 10, 40, 6, 12
+    bm = rng.integers(0, 2**32, (30, W), dtype=np.uint32)
+    bm[-1] = 0
+    acc = _raw_accepts(rng, B, C, bm.shape[0])
+    aover = rng.integers(0, 3, B).astype(np.int32)
+    ingest = ref_sharded_match.or_accept_rows(
+        jnp.asarray(bm), ref_compact(jnp.asarray(acc), K))
+    blocks = [ingest[:, u * W // U:(u + 1) * W // U] for u in range(U)]
+    per_sub = [jnp.sum(((b[:, :, None] >> jnp.arange(32, dtype=jnp.uint32))
+                        & jnp.uint32(1)).astype(jnp.int32), axis=0)
+               .reshape(-1) for b in blocks]
+    disp, counts, n, over = bk.ulysses_or_plain(
+        torch.from_numpy(acc), torch.from_numpy(aover),
+        torch.from_numpy(bm.view(np.int32)), U, K)
+    for u in range(U):
+        np.testing.assert_array_equal(u32(disp[u]), np.asarray(blocks[u]))
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.concatenate([np.asarray(x)
+                                                  for x in per_sub]))
+    np.testing.assert_array_equal(n.numpy(), (acc >= 0).sum(1))
+    np.testing.assert_array_equal(over.numpy(), aover)
+    assert n.numpy()[0] == C > K
 
 
 def test_group_plain_versions_equal_reference_functions():
